@@ -1,0 +1,363 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (snd_vae_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one output line each:
+  1. device  — the card's name and power limit (nvidia-smi);
+  2. build   — nvcc builds both kernels from csrc/ (sm_90a), in parallel;
+  3. kernels — each kernel against its plain PyTorch version on the card at
+               the shapes the served path gives it (and a large one), with
+               its median device time over 100 launches, the plain
+               version's, the least time the card could take (bound), and
+               for A@X+lrelu one library call's (torch.bmm + leaky_relu);
+  4. serve   — synthetic2 at full width: reconstruct 5 batches of
+               10 graphs x 10 trees and sample 100 graphs, counting the
+               kernel launches; one batch against the same weights on the
+               CPU (plain versions); graphs/s in float32 and bfloat16;
+  5. the kernels line (JSON); 6. the result line (JSON), last.
+
+Any failed check raises: the script then exits non-zero without a result
+line.  Without a CUDA card, or without the rest of the repository beside it,
+it fails before printing anything.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+REPS = 100
+SPIN_CYCLES = 1_000_000   # a device-side spin before each timed launch hides the host's enqueue
+HBM_BYTES_PER_S = 3.35e12                                      # H100 SXM, data sheet
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
+SERVE_BATCHES = 5
+SAMPLE_GRAPHS = 100
+K1_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_combine.cu"
+K3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul.cu"
+K1_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:204"
+K3_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:89"
+
+
+def emit(phase: str, payload) -> None:
+    print(f"{phase}: {json.dumps(payload)}", flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """Median device time of one call, from CUDA events around each call;
+    a spin kernel queued before each call keeps the card from waiting on
+    the host, so the events time the device work alone."""
+    fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(got, want, dtype) -> float:
+    """f32: rtol/atol 1e-5 (the sums run in another order); bf16: max abs
+    error within 2e-2 of the reference's largest magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check(err <= 2e-2 * want.float().abs().max().item(), f"bf16 error {err}")
+    return err
+
+
+def compare_f64_bound(got, inputs, n_terms: int, plain) -> tuple:
+    """f32 K1 against the plain version in float64 on the same inputs: the
+    error must stay within (n_terms + 8)·2^-24 times the sum of the terms'
+    magnitudes, the worst-case rounding of an f32 sum of that many terms.
+    On a dense large graph the terms reach ~10², so a fixed atol of 1e-5
+    would only measure the f32 plain version's own rounding; its error
+    against float64 is returned beside the kernel's."""
+    x64 = [t.double() for t in inputs]
+    want = plain(*x64)
+    mag = plain(*[t.abs() for t in x64])
+    err = (got.double() - want).abs()
+    check(bool((err <= (n_terms + 8) * 2.0 ** -24 * mag).all()),
+          f"K1 f32 error {err.max().item()} beyond the f32 summation bound")
+    plain_err = (plain(*inputs).double() - want).abs().max().item()
+    return err.max().item(), plain_err
+
+
+def motif_inputs(B, N, h, dtype, gen, density):
+    adj = (torch.rand(B, N, N, generator=gen, device="cuda") < density).float().triu(1)
+    adj = adj + adj.transpose(1, 2)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    return [t.to(dtype).contiguous() for t in
+            (adj, rn(B, N, h), rn(B, N, N, h), rn(B, N, h), rn(B, N, N, h), rn(h))]
+
+
+def adj_inputs(a_shape, x_shape, dtype, gen, density):
+    adj = (torch.rand(*a_shape, generator=gen, device="cuda") < density).float()
+    x = torch.randn(*x_shape, generator=gen, device="cuda")
+    return adj.to(dtype), x.to(dtype)
+
+
+def check_kernels(mc, am):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    # K1: the served path's two layers (h = 20, 50 at B·S = 100 trees of
+    # N = 25), bf16, and a dense large graph held against float64
+    for B, N, h, dt, served, ref64 in ((100, 25, 20, torch.float32, True, False),
+                                       (100, 25, 50, torch.float32, True, False),
+                                       (100, 25, 50, torch.bfloat16, False, False),
+                                       (4, 256, 50, torch.float32, False, True)):
+        x = motif_inputs(B, N, h, dt, gen, 0.4)
+        got = mc.fused_motif_combine(*x)
+        extra = {}
+        if ref64:
+            err, extra["plain_f32_err_vs_f64"] = compare_f64_bound(
+                got, x, N, mc.motif_combine_plain)
+        else:
+            err = compare(got, mc.motif_combine_plain(*x), dt)
+        isz = x[0].element_size()
+        b_ms, b_by = bound(isz * (B * N * N + 2 * B * N * h + 3 * B * N * N * h + h),
+                           2 * B * N ** 3 * h + 6 * B * N * N * h + B * N * N, dt)
+        rows.append(dict(kernel="motif_combine", shape=[B, N, h], dtype=str(dt)[6:],
+                         served=served, max_abs_err=err,
+                         ms=device_ms(lambda: mc.fused_motif_combine(*x)),
+                         plain_ms=device_ms(lambda: mc.motif_combine_plain(*x)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
+    # K3: GraphConv's two aggregations (H = 10, 20), bf16, and the
+    # large-graph contraction (no epilogue)
+    for a_shape, x_shape, leak, dt, served, density in (
+            ((10, 25, 25), (10, 25, 10), 0.2, torch.float32, True, 0.15),
+            ((10, 25, 25), (10, 25, 20), 0.2, torch.float32, True, 0.15),
+            ((10, 25, 25), (10, 25, 20), 0.2, torch.bfloat16, False, 0.15),
+            ((2048, 2048), (2048, 128), None, torch.float32, False, 0.05)):
+        a, x = adj_inputs(a_shape, x_shape, dt, gen, density)
+        err = compare(am.blocked_adj_matmul(a, x, leak), am.adj_matmul_plain(a, x, leak), dt)
+        n, m = a_shape[-2:]
+        hh, b = x_shape[-1], (a_shape[0] if len(a_shape) == 3 else 1)
+        b_ms, b_by = bound(a.element_size() * b * (n * m + m * hh + n * hh),
+                           2 * b * n * m * hh + (2 * b * n * hh if leak else 0), dt)
+        mm = torch.bmm if len(a_shape) == 3 else torch.mm
+        lib = ((lambda: torch.nn.functional.leaky_relu(mm(a, x), leak)) if leak
+               else (lambda: mm(a, x)))
+        rows.append(dict(kernel="adj_matmul", shape=[list(a_shape), list(x_shape)],
+                         dtype=str(dt)[6:], served=served, leak=leak, max_abs_err=err,
+                         ms=device_ms(lambda: am.blocked_adj_matmul(a, x, leak)),
+                         plain_ms=device_ms(lambda: am.adj_matmul_plain(a, x, leak)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib)))
+    torch.cuda.synchronize()
+    return rows
+
+
+def serve_rate(fn, graphs: int, iters: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return graphs * iters / (time.perf_counter() - t0)
+
+
+def profile_batches(fn, batches) -> dict:
+    """One profiled pass over the batches: wall time, device busy time (the
+    sum of kernel times; one stream, so kernels do not overlap), kernels
+    launched, and the kernels that take the most device time, all per
+    batch.  The profiler's own host cost inflates the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n = len(batches)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "wall_ms_per_batch": wall * 1e3 / n,
+        "device_busy_ms_per_batch": busy_us / 1e3 / n,
+        "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
+        "kernels_per_batch": sum(e.count for e in kernels) / n,
+        "top_kernels": [[e.key[:70], e.self_device_time_total / 1e3 / n, e.count / n]
+                        for e in top],
+    }
+
+
+def run_serving(mc, am):
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import build_model
+    from snd_vae_tpu_torch.serve import reconstruct, sample
+
+    # the dataset path lies inside this checkout, which commits no data
+    # files: the test split is generated from the seed
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "test", device="cuda")
+    batches = [data.slice_batch(i * B, B) for i in range(SERVE_BATCHES)]
+    out = {"batch": [B, cfg.sampling_num, cfg.num_nodes], "batches": SERVE_BATCHES}
+
+    for dtype_name in ("float32", "bfloat16"):
+        model = build_model(cfg.with_(compute_dtype=dtype_name), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
+        reconstruct(model, batches[0])               # warm-up: cuDNN plans, caches
+        sample(model, SAMPLE_GRAPHS, gen)
+        torch.cuda.synchronize()
+
+        # the main path, counted: 5 reconstructed batches and 100 samples
+        mc.fused_motif_combine.launches = am.blocked_adj_matmul.launches = 0
+        outs = [reconstruct(model, b) for b in batches]
+        drawn = sample(model, SAMPLE_GRAPHS, gen)
+        torch.cuda.synchronize()
+        launches = {"motif_combine": mc.fused_motif_combine.launches,
+                    "adj_matmul": am.blocked_adj_matmul.launches}
+        check(launches == {"motif_combine": 2 * SERVE_BATCHES,
+                           "adj_matmul": 2 * SERVE_BATCHES},
+              f"{dtype_name}: launches {launches}, expected 2 of each per batch")
+
+        N = cfg.num_nodes
+        for o in outs:
+            d = o.decoded
+            check(d.adj_prob.shape == (B, N, N, 2) and d.coords.shape == (B, N, 2)
+                  and d.node_feat.shape == (B, N, 1), "reconstruct shapes")
+            for t in (d.adj_prob, d.coords, d.node_feat, o.stats.mean_sg):
+                check(bool(torch.isfinite(t).all()), "reconstruct outputs finite")
+        check(drawn.adj.shape == (SAMPLE_GRAPHS, N, N)
+              and drawn.coords.shape == (SAMPLE_GRAPHS, N, 2)
+              and drawn.node_feat.shape == (SAMPLE_GRAPHS, N, 1), "sample shapes")
+        for t in (drawn.adj_prob, drawn.coords, drawn.node_feat):
+            check(bool(torch.isfinite(t).all()), "sample outputs finite")
+        check(bool(((drawn.adj == 0) | (drawn.adj == 1)).all()), "sampled adj is 0/1")
+
+        res = {"launches": launches}
+        if dtype_name == "float32":
+            f32_out = outs[0]
+            # the same weights on the CPU, where the wrappers run the plain versions
+            cpu = build_model(cfg, device="cpu")
+            cpu.load_state_dict(model.state_dict())
+            ref = reconstruct(cpu, batches[0].to("cpu"))
+            errs = {}
+            for name, got, want in (
+                    ("mean_sg", outs[0].stats.mean_sg, ref.stats.mean_sg),
+                    ("mean_s", outs[0].stats.mean_s, ref.stats.mean_s),
+                    ("mean_g", outs[0].stats.mean_g, ref.stats.mean_g),
+                    ("adj_prob", outs[0].decoded.adj_prob, ref.decoded.adj_prob),
+                    ("coords", outs[0].decoded.coords, ref.decoded.coords),
+                    ("node_feat", outs[0].decoded.node_feat, ref.decoded.node_feat)):
+                torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+                errs[name] = (got.cpu() - want).abs().max().item()
+            res["cpu_max_abs_err"] = errs
+        else:
+            res["max_abs_diff_vs_f32"] = {
+                "adj_prob": (outs[0].decoded.adj_prob.float()
+                             - f32_out.decoded.adj_prob).abs().max().item(),
+                "coords": (outs[0].decoded.coords.float()
+                           - f32_out.decoded.coords).abs().max().item()}
+        res["reconstruct_graphs_per_s"] = serve_rate(
+            lambda: [reconstruct(model, b) for b in batches], B * SERVE_BATCHES, 20)
+        res["sample_graphs_per_s"] = serve_rate(
+            lambda: sample(model, SAMPLE_GRAPHS, gen), SAMPLE_GRAPHS, 20)
+        res["reconstruct_profile"] = profile_batches(lambda b: reconstruct(model, b), batches)
+        res["sample_profile"] = profile_batches(
+            lambda _: sample(model, SAMPLE_GRAPHS, gen), [None] * SERVE_BATCHES)
+        out[dtype_name] = res
+    return out
+
+
+def kernel_entry(name, source, replaces, tpu_fn, rows, launches):
+    """One kernel's line: its times summed over the shapes one served
+    batch launches it at (f32), with the larger-shape checks beside."""
+    served = [r for r in rows if r["kernel"] == name and r["served"]]
+    total = lambda key: (None if any(r[key] is None for r in served)
+                         else sum(r[key] for r in served))
+    bytes_bound = all(r["bound_by"] == "bytes" for r in served)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "tpu_function": tpu_fn, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in served),
+        "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "bound_by": "bytes" if bytes_bound else "operations",
+        "library_ms": total("library_ms"),
+        "per_batch_shapes": [r["shape"] for r in served],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from snd_vae_tpu_torch.nn.kernels import adj_matmul as am
+    from snd_vae_tpu_torch.nn.kernels import build
+    from snd_vae_tpu_torch.nn.kernels import motif_combine as mc
+
+    # f32 products and convolutions in full f32, for the comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit("device", {"nvidia_smi": smi, "torch": torch.__version__,
+                    "cuda": torch.version.cuda,
+                    "capability": list(torch.cuda.get_device_capability(0))})
+
+    # 2. build, every kernel from the sources in this checkout
+    t0 = time.perf_counter()
+    secs = build.build()
+    ptxas = {k: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln] for k, log in build.build_log.items()}
+    emit("build", {"seconds": secs, "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
+
+    # 3. kernels against their plain versions
+    rows = check_kernels(mc, am)
+    for r in rows:
+        emit("kernel", r)
+
+    # 4. the served path
+    serving = run_serving(mc, am)
+    emit("serve", serving)
+
+    # 5. kernels line, 6. result line (the card's line just before)
+    launches = serving["float32"]["launches"]
+    print(json.dumps({"kernels": [
+        kernel_entry("motif_combine", K1_SOURCE, K1_REPLACES, "fused_motif_combine",
+                     rows, launches["motif_combine"]),
+        kernel_entry("adj_matmul", K3_SOURCE, K3_REPLACES, "blocked_adj_matmul",
+                     rows, launches["adj_matmul"]),
+    ]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

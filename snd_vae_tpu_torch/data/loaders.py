@@ -1,0 +1,143 @@
+"""Dataset loading for the synthetic datasets — the port of
+``snd_vae_tpu/data/loaders.py:58-99`` and ``:282-365``.
+
+Reads the reference's on-disk ``.npy`` layout when present and generates
+the synthetic data from the seed otherwise, exactly as the JAX loader does
+with its numpy spanning-tree sampler: for the same cfg and seed, every
+array is bit-equal.  protein, mnist and scene come in a later slice.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..config import Config
+from ..device import DeviceLike, resolve_device
+from . import synthetic as syn
+from .graphbatch import GraphBatch, from_numpy
+from .spanning_tree import sample_spanning_trees
+
+TRAIN_SPLITS = ("train",)
+SYNTHETIC_SUBDIRS = {
+    "synthetic1": "spatial_network_correlated1/25",
+    "synthetic2": "spatial_network_correlated2/25",
+    "synthetic3": "spatial_network_correlated3/25",
+}
+
+
+def _clean_adj(adj: np.ndarray) -> np.ndarray:
+    """Densify, zero the diagonal, check symmetry (input_data.py:61-67)."""
+    out = []
+    for a in adj:
+        a = a.toarray() if hasattr(a, "toarray") else np.asarray(a)
+        a = a.astype(np.float64).copy()
+        np.fill_diagonal(a, 0)
+        if not np.allclose(a, a.T):
+            raise ValueError("adjacency must be symmetric")
+        out.append(a)
+    return np.stack(out)
+
+
+def _shuffle_all(rng: np.random.Generator, *arrays):
+    """Joint shuffle (input_data.py:85-92) with a keyed generator."""
+    index = rng.permutation(len(arrays[0]))
+    return tuple(None if a is None else a[index] for a in arrays)
+
+
+def load_data_syn(
+    type_: str,
+    path: str,
+    sampling_num: int = 10,
+    seed: int = 1,
+    num_graphs_fallback: int = 200,
+    num_nodes_fallback: int = 25,
+) -> Tuple[np.ndarray, ...]:
+    """Synthetic 2D spatial networks (input_data.py:54-142): returns
+    (node, spatial, adj_samples, rel, factor, adj_truth), node/spatial/rel
+    normalized by 120/600/600, adj_samples [G,S,N,N] spanning trees."""
+    split = "train" if type_ in TRAIN_SPLITS else "test"
+    d = os.path.join(path, split)
+    if os.path.exists(os.path.join(d, "2D_adj.npy")):
+        adj = np.load(os.path.join(d, "2D_adj.npy"), allow_pickle=True)
+        node = np.load(os.path.join(d, "2D_node.npy"), allow_pickle=True) / syn.FEAT_MAX
+        spatial = np.load(os.path.join(d, "2D_geometry.npy"), allow_pickle=True) / syn.BOX
+        rel = np.load(os.path.join(d, "2D_rel.npy"), allow_pickle=True) / syn.BOX
+        # the reference reads factors from train/ for both splits (input_data.py:103)
+        factor = np.load(os.path.join(path, "train", "2D_prop.npy"), allow_pickle=True)
+        adj_truth = _clean_adj(adj)
+    else:
+        data = syn.generate_synthetic(
+            num_graphs_fallback,
+            num_nodes_fallback,
+            seed=seed + (0 if split == "train" else 10_000),
+        )
+        adj_truth = data["adj"]
+        node = data["node"] / syn.FEAT_MAX
+        spatial = data["geometry"] / syn.BOX
+        rel = data["rel"] / syn.BOX
+        factor = data["prop"]
+
+    adj_samples = sample_spanning_trees(adj_truth, sampling_num, seed=seed)
+    rng = np.random.default_rng(seed)
+    return _shuffle_all(rng, node, spatial, adj_samples, rel, factor, adj_truth)
+
+
+def tile_skew_pairing(node: np.ndarray, rel: np.ndarray,
+                      num_samples: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference's sample/graph pairing skew as per-sample arrays
+    (stream index m of the tree-major sample stream is fed graph m % G)."""
+    G = node.shape[0]
+    m = np.arange(G * num_samples)
+    skew = (m % G).reshape(G, num_samples)
+    return node[skew], rel[skew]
+
+
+def _load_raw(cfg: Config, split: str, num_graphs: Optional[int]):
+    if cfg.dataset not in SYNTHETIC_SUBDIRS:
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r} is not ported yet (synthetic1/2/3 are)"
+        )
+    node, spatial, adj_s, rel, factor, adj_truth = load_data_syn(
+        split, os.path.join(cfg.dataset_path, SYNTHETIC_SUBDIRS[cfg.dataset]),
+        cfg.sampling_num, seed=cfg.train.seed,
+        num_graphs_fallback=num_graphs or 200, num_nodes_fallback=cfg.num_nodes,
+    )
+    feat_s = rel_s = None
+    if cfg.reproduce_pairing_skew:
+        feat_s, rel_s = tile_skew_pairing(
+            node if node.ndim == 3 else node[..., None],
+            rel if rel.ndim == 4 else rel[..., None],
+            adj_s.shape[1],
+        )
+    return adj_truth, node, spatial, rel, adj_s, factor, feat_s, rel_s
+
+
+def train_coord_bounds(cfg: Config) -> Tuple[float, float]:
+    """Scalar (lo, hi) bounds of the train split's raw coordinates, the
+    affine map of ``Config.normalize_coords``."""
+    spatial = _load_raw(cfg, "train", None)[2]
+    c = spatial.astype(np.float32)
+    return float(c.min()), float(c.max())
+
+
+def load_dataset(cfg: Config, split: str = "train", num_graphs: Optional[int] = None,
+                 device: DeviceLike = None) -> GraphBatch:
+    """The configured dataset as a float32 GraphBatch on ``device`` (CUDA
+    unless named).  Spanning-tree samples pair with their own graph unless
+    ``cfg.reproduce_pairing_skew``; ``cfg.normalize_coords`` maps
+    coordinates and rel distances by the train split's bounds."""
+    dev = resolve_device(device)
+    adj, node, spatial, rel, adj_s, factor, feat_s, rel_s = _load_raw(cfg, split, num_graphs)
+    batch = from_numpy(adj, node, spatial, rel, adj_samples=adj_s, factors=factor,
+                       feat_samples=feat_s, rel_samples=rel_s)
+    if cfg.normalize_coords:
+        lo, hi = train_coord_bounds(cfg)
+        scale = max(hi - lo, 1e-9)
+        batch.coords = (batch.coords - lo) / scale
+        batch.rel = batch.rel / scale
+        if batch.rel_samples is not None:
+            batch.rel_samples = batch.rel_samples / scale
+    return batch.to(dev)

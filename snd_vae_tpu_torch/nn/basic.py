@@ -1,0 +1,125 @@
+"""Basic NN ops: activation, dense, 1-D conv, normalization — the port of
+``snd_vae_tpu/nn/basic.py:32-171``.
+
+Public layouts follow the JAX package: features on the last axis, 1-D convs
+on NWC maps.  Parameters keep the flax names (``kernel``, ``bias``,
+``gamma``, ``beta``); ``Conv1D.kernel`` is stored in torch's [out, in, k]
+layout (``params.state_dict_from_flax`` transposes the flax [k, in, out]).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import init as inits
+
+
+def lrelu(x: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
+    """Leaky ReLU, max(x, leak*x) (reference layers.py:112-113)."""
+    return torch.maximum(x, leak * x)
+
+
+class Dense(nn.Module):
+    """XW + b over the last axis; W ~ N(0, stddev²), b = bias_start."""
+
+    def __init__(self, in_features: int, features: int, generator: torch.Generator,
+                 stddev: float = 0.02, bias_start: float = 0.0):
+        super().__init__()
+        self.kernel = nn.Parameter(inits.normal((in_features, features), stddev, generator))
+        self.bias = nn.Parameter(torch.full((features,), float(bias_start)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.kernel) + self.bias
+
+
+def same_pad(length: int, kernel_size: int, stride: int) -> Tuple[int, int]:
+    """TF/XLA SAME padding (left, right) of one spatial axis: the output
+    has ceil(length/stride) positions and any odd pad goes to the right."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + kernel_size - length, 0)
+    return total // 2, total - total // 2
+
+
+class Conv1D(nn.Module):
+    """``tf.layers.conv1d`` with SAME padding on an NWC map [..., L, C]:
+    glorot-uniform kernel, zero bias, linear output.  Explicit padding, so
+    stride > 1 works (torch's padding="same" refuses it)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 generator: torch.Generator, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        w = inits.glorot_uniform((kernel_size, in_features, features), generator)
+        self.kernel = nn.Parameter(w.permute(2, 1, 0).contiguous())   # [out, in, k]
+        self.bias = nn.Parameter(inits.zeros((features,)))
+
+    def out_length(self, length: int) -> int:
+        return -(-length // self.stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, (L, C) = x.shape[:-2], x.shape[-2:]
+        xb = x.reshape(-1, L, C).transpose(1, 2)                       # NCW
+        xb = F.pad(xb, same_pad(L, self.kernel.shape[-1], self.stride))
+        y = F.conv1d(xb, self.kernel, self.bias, stride=self.stride)
+        y = y.transpose(1, 2)                                          # NWC
+        return y.reshape(lead + y.shape[1:])
+
+
+def _block_params(gamma, beta, x, block):
+    if block is None:
+        return gamma, beta
+    lo, hi = block
+    if hi - lo != x.shape[-1]:
+        raise ValueError(
+            f"block {block} width {hi - lo} != input channels {x.shape[-1]} "
+            f"(shape {tuple(x.shape)})"
+        )
+    return gamma[lo:hi], beta[lo:hi]
+
+
+class FrozenBatchNorm(nn.Module):
+    """Keras BN with its moving statistics frozen at init (parity mode):
+    y = gamma * x / sqrt(1 + eps) + beta over the last axis.  ``block=(lo,
+    hi)`` applies channels [lo, hi) of the full width to an input holding
+    only those channels."""
+
+    def __init__(self, features: int, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = epsilon
+        self.gamma = nn.Parameter(inits.ones((features,)))
+        self.beta = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor,
+                block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        gamma, beta = _block_params(self.gamma, self.beta, x, block)
+        return x * (gamma * (1.0 / math.sqrt(1.0 + self.epsilon))) + beta
+
+
+class BatchStatNorm(nn.Module):
+    """Corrected batch norm: normalize with the current batch's statistics
+    over all axes but the last; trainable gamma/beta."""
+
+    def __init__(self, features: int, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = epsilon
+        self.gamma = nn.Parameter(inits.ones((features,)))
+        self.beta = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor,
+                block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        gamma, beta = _block_params(self.gamma, self.beta, x, block)
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes, keepdim=True)
+        var = x.var(dim=axes, keepdim=True, unbiased=False)
+        return (x - mean) * torch.rsqrt(var + self.epsilon) * gamma + beta
+
+
+def make_norm(features: int, parity: bool = True, epsilon: float = 1e-3) -> nn.Module:
+    if parity:
+        return FrozenBatchNorm(features, epsilon)
+    return BatchStatNorm(features, epsilon)

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), the port's counterpart of
+the JAX package's ``nn/pallas``.
+
+  * ``motif_combine``: ``fused_motif_combine`` (K1), the autograd wrapper
+    ``motif_combine`` (K2) and the plain version ``motif_combine_plain``;
+  * ``adj_matmul``: ``blocked_adj_matmul`` (K3), its autograd wrapper
+    ``adj_matmul`` and the plain version ``adj_matmul_plain``;
+  * ``build``: compiles ``csrc/*.cu`` with nvcc and loads them with ctypes.
+
+Each wrapper counts its launches in an integer attribute ``launches``.
+"""

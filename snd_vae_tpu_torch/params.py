@@ -1,0 +1,52 @@
+"""The weights bridge: a flax parameter tree of the JAX package as a torch
+``state_dict`` of the port.
+
+``state_dict_from_flax`` takes the tree flattened to ``"module/leaf"`` paths
+(``flax.traverse_util.flatten_dict(params, sep="/")``, as numpy arrays) and
+returns tensors that ``load_state_dict`` takes with no missing or unexpected
+keys:
+
+  * list entries ``name_<i>`` become ``name.<i>`` (``g_convs_0/kernel`` ->
+    ``g_convs.0.kernel``, ``d_bn_e_0/gamma`` -> ``d_bn_e.0.gamma``);
+  * a Conv1D ``kernel`` [k, in, out] becomes torch's [out, in, k];
+  * an E2E ``w1`` [1, k_h, C, O] becomes the row conv's [O, C, 1, k_h] (the
+    column conv uses its transpose [O, C, k_h, 1] inside the module);
+  * everything else (Dense and GraphConv ``kernel`` [in, out], the motif
+    ``Matrix*``, biases, BN ``gamma``/``beta``) keeps its layout.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_LIST_ENTRY = re.compile(r"(.+)_(\d+)")
+
+
+def torch_name(flax_path: str) -> str:
+    parts = flax_path.split("/")
+    out = []
+    for p in parts[:-1]:
+        m = _LIST_ENTRY.fullmatch(p)
+        out.append(f"{m.group(1)}.{m.group(2)}" if m else p)
+    return ".".join(out + [parts[-1]])
+
+
+def torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
+    leaf = flax_path.rsplit("/", 1)[-1]
+    if leaf == "kernel" and value.ndim == 3:       # Conv1D [k, in, out]
+        return np.transpose(value, (2, 1, 0))
+    if leaf == "w1" and value.ndim == 4:           # E2E [1, k_h, C, O]
+        return np.transpose(value, (3, 2, 0, 1))
+    return value
+
+
+def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {
+        torch_name(path): torch.from_numpy(
+            np.ascontiguousarray(torch_layout(path, np.asarray(value))))
+        for path, value in flat.items()
+    }
