@@ -5,16 +5,21 @@
 
 Phases, one output line each:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds both kernels from csrc/ (sm_90a), in parallel;
-  3. kernels — each kernel against its plain PyTorch version on the card at
+  2. build   — nvcc builds every kernel from csrc/ (sm_90a), in parallel;
+  3. kernels — the timing floor (a one-element fill_ timed the same way);
+               each kernel against its plain PyTorch version on the card at
                the shapes the served path gives it (and a large one), with
                its median device time over 100 launches, the plain
-               version's, the least time the card could take (bound), and
-               for A@X+lrelu one library call's (torch.bmm + leaky_relu);
+               version's, the least time the card could take (bound), for
+               A@X+lrelu one library call's (torch.bmm + leaky_relu), and
+               for motif_level3 the time of the chain it replaced
+               (projections, motif_combine, lrelu, j-sum);
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
-               kernel launches; one batch against the same weights on the
-               CPU (plain versions); graphs/s in float32 and bfloat16;
+               kernel launches (motif_level3 and adj_matmul twice per
+               batch, motif_combine never); one batch against the same
+               weights on the CPU (plain versions); graphs/s in float32
+               and bfloat16;
   5. the kernels line (JSON); 6. the result line (JSON), last.
 
 Any failed check raises: the script then exits non-zero without a result
@@ -40,6 +45,7 @@ HBM_BYTES_PER_S = 3.35e12                                      # H100 SXM, data 
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
 SERVE_BATCHES = 5
 SAMPLE_GRAPHS = 100
+L3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3.cu"
 K1_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_combine.cu"
 K3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul.cu"
 K1_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:204"
@@ -89,18 +95,22 @@ def compare(got, want, dtype) -> float:
 
 
 def compare_f64_bound(got, inputs, n_terms: int, plain) -> tuple:
-    """f32 K1 against the plain version in float64 on the same inputs: the
-    error must stay within (n_terms + 8)·2^-24 times the sum of the terms'
-    magnitudes, the worst-case rounding of an f32 sum of that many terms.
-    On a dense large graph the terms reach ~10², so a fixed atol of 1e-5
-    would only measure the f32 plain version's own rounding; its error
-    against float64 is returned beside the kernel's."""
+    """An f32 kernel against its plain version in float64 on the same
+    inputs: the error must stay within (n_terms + 8)·2^-24 times the sum of
+    the terms' magnitudes (the plain version on |inputs|), the worst-case
+    rounding of an f32 sum of that many terms.  K1 sums N terms over k.
+    motif_level3 sums N terms into rf, R + 1 into each of the deg and the
+    v_j sides of m3 and then N over j; lrelu is 1-Lipschitz and passes an
+    error on unchanged, and each product by A or deg adds one rounding, so
+    n_terms = 2N + 2R + 2.  On a dense large graph the terms reach ~10², so a
+    fixed atol of 1e-5 would only measure the f32 plain version's own
+    rounding; its error against float64 is returned beside the kernel's."""
     x64 = [t.double() for t in inputs]
     want = plain(*x64)
     mag = plain(*[t.abs() for t in x64])
     err = (got.double() - want).abs()
     check(bool((err <= (n_terms + 8) * 2.0 ** -24 * mag).all()),
-          f"K1 f32 error {err.max().item()} beyond the f32 summation bound")
+          f"f32 error {err.max().item()} beyond the f32 summation bound")
     plain_err = (plain(*inputs).double() - want).abs().max().item()
     return err.max().item(), plain_err
 
@@ -113,21 +123,86 @@ def motif_inputs(B, N, h, dtype, gen, density):
             (adj, rn(B, N, h), rn(B, N, N, h), rn(B, N, h), rn(B, N, N, h), rn(h))]
 
 
+def level3_inputs(B, N, h, R, dtype, gen, density, weighted=False):
+    """adj, φ(rel), a_i, v_j, deg, M1d, M1f, bias; weights at 0.3 so m3 stays
+    near the served layer's magnitudes.  ``weighted``: A's edges carry
+    weights in [0, 1)."""
+    adj = (torch.rand(B, N, N, generator=gen, device="cuda") < density).float().triu(1)
+    if weighted:
+        adj = adj * torch.rand(B, N, N, generator=gen, device="cuda")
+    adj = adj + adj.transpose(1, 2)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rel = rn(B, N, N, R)
+    return [t.to(dtype).contiguous() for t in
+            (adj, torch.maximum(rel, 0.2 * rel), rn(B, N, h), rn(B, N, h), adj.sum(-1),
+             0.3 * rn(R, h), 0.3 * rn(R, h), 0.3 * rn(h))]
+
+
+def replaced_chain(mc, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias):
+    """What the served path ran at level 3 before motif_level3: the d_ij /
+    f_ik projections, the motif_combine kernel, lrelu and the j-sum."""
+    m3 = mc.fused_motif_combine(adj, a_i, phi_r @ m1d, v_j, phi_r @ m1f, bias)
+    return torch.einsum("bij,bijh->bih", adj, torch.maximum(m3, 0.2 * m3))
+
+
+def level3_bound(x, dtype):
+    """Bytes: every input once, nt once.  Operations: what these inputs
+    need, i.e. rf only at pairs with A[i,j] != 0 and over k with
+    A[j,k] != 0, and the epilogue's 4R+7 FLOP per (i,j,h) with A[i,j] != 0."""
+    adj, phi_r, a_i = x[0], x[1], x[2]
+    R, h = phi_r.shape[-1], a_i.shape[-1]
+    nz = (adj != 0).double()
+    rf_ops = 2 * R * (nz.sum(1) * nz.sum(2)).sum().item()
+    epi_ops = nz.sum().item() * h * (4 * R + 7)
+    nbytes = sum(t.numel() for t in x) * x[0].element_size() + a_i.numel() * a_i.element_size()
+    return bound(nbytes, rf_ops + epi_ops, dtype)
+
+
 def adj_inputs(a_shape, x_shape, dtype, gen, density):
     adj = (torch.rand(*a_shape, generator=gen, device="cuda") < density).float()
     x = torch.randn(*x_shape, generator=gen, device="cuda")
     return adj.to(dtype), x.to(dtype)
 
 
-def check_kernels(mc, am):
+def check_kernels(ml, mc, am):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    # K1: the served path's two layers (h = 20, 50 at B·S = 100 trees of
-    # N = 25), bf16, and a dense large graph held against float64
-    for B, N, h, dt, served, ref64 in ((100, 25, 20, torch.float32, True, False),
-                                       (100, 25, 50, torch.float32, True, False),
-                                       (100, 25, 50, torch.bfloat16, False, False),
-                                       (4, 256, 50, torch.float32, False, True)):
+    # motif_level3: the served path's two layers (h = 20, 50 at B·S = 100
+    # trees of N = 25, R = 1), bf16, a dense large graph held against
+    # float64, and two cases off the served path for the general code: R = 2
+    # with a weighted A at ragged N and h, and several j-tiles, k-chunks and
+    # h chunks with 16-byte copies
+    for B, N, h, R, dt, served, ref64, weighted in (
+            (100, 25, 20, 1, torch.float32, True, False, False),
+            (100, 25, 50, 1, torch.float32, True, False, False),
+            (100, 25, 50, 1, torch.bfloat16, False, False, False),
+            (4, 256, 50, 1, torch.float32, False, True, False),
+            (3, 29, 37, 2, torch.float32, False, True, True),
+            (2, 72, 75, 2, torch.float32, False, True, False)):
+        x = level3_inputs(B, N, h, R, dt, gen, 0.4, weighted)
+        got = ml.fused_motif_level3(*x)
+        extra = {"R": R, "weighted": weighted}
+        if ref64:
+            err, extra["plain_f32_err_vs_f64"] = compare_f64_bound(
+                got, x, 2 * N + 2 * R + 2, ml.motif_level3_plain)
+        else:
+            err = compare(got, ml.motif_level3_plain(*x), dt)
+        extra["max_abs_diff_vs_replaced"] = (
+            got.float() - replaced_chain(mc, *x).float()).abs().max().item()
+        b_ms, b_by = level3_bound(x, dt)
+        rows.append(dict(kernel="motif_level3", shape=[B, N, h], dtype=str(dt)[6:],
+                         served=served, batch_shape=served, max_abs_err=err,
+                         ms=device_ms(lambda: ml.fused_motif_level3(*x)),
+                         plain_ms=device_ms(lambda: ml.motif_level3_plain(*x)),
+                         replaced_ms=device_ms(lambda: replaced_chain(mc, *x)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
+    # K1, off the served path since motif_level3: the shapes the served
+    # layers would give it (h = 20, 50 at B·S = 100 trees of N = 25), bf16,
+    # and a dense large graph held against float64
+    for B, N, h, dt, layer, ref64 in ((100, 25, 20, torch.float32, True, False),
+                                      (100, 25, 50, torch.float32, True, False),
+                                      (100, 25, 50, torch.bfloat16, False, False),
+                                      (4, 256, 50, torch.float32, False, True)):
         x = motif_inputs(B, N, h, dt, gen, 0.4)
         got = mc.fused_motif_combine(*x)
         extra = {}
@@ -140,7 +215,7 @@ def check_kernels(mc, am):
         b_ms, b_by = bound(isz * (B * N * N + 2 * B * N * h + 3 * B * N * N * h + h),
                            2 * B * N ** 3 * h + 6 * B * N * N * h + B * N * N, dt)
         rows.append(dict(kernel="motif_combine", shape=[B, N, h], dtype=str(dt)[6:],
-                         served=served, max_abs_err=err,
+                         served=False, batch_shape=layer, max_abs_err=err,
                          ms=device_ms(lambda: mc.fused_motif_combine(*x)),
                          plain_ms=device_ms(lambda: mc.motif_combine_plain(*x)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
@@ -161,7 +236,8 @@ def check_kernels(mc, am):
         lib = ((lambda: torch.nn.functional.leaky_relu(mm(a, x), leak)) if leak
                else (lambda: mm(a, x)))
         rows.append(dict(kernel="adj_matmul", shape=[list(a_shape), list(x_shape)],
-                         dtype=str(dt)[6:], served=served, leak=leak, max_abs_err=err,
+                         dtype=str(dt)[6:], served=served, batch_shape=served, leak=leak,
+                         max_abs_err=err,
                          ms=device_ms(lambda: am.blocked_adj_matmul(a, x, leak)),
                          plain_ms=device_ms(lambda: am.adj_matmul_plain(a, x, leak)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib)))
@@ -181,13 +257,15 @@ def serve_rate(fn, graphs: int, iters: int) -> float:
 def profile_batches(fn, batches) -> dict:
     """One profiled pass over the batches: wall time, device busy time (the
     sum of kernel times; one stream, so kernels do not overlap), kernels
-    launched, and the kernels that take the most device time, all per
+    launched, the kernels that take the most device time, and the host ops
+    (with their input shapes) whose own launches take the most, all per
     batch.  The profiler's own host cost inflates the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for b in batches:
             fn(b)
@@ -197,6 +275,9 @@ def profile_batches(fn, batches) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     n = len(batches)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
     return {
         "wall_ms_per_batch": wall * 1e3 / n,
         "device_busy_ms_per_batch": busy_us / 1e3 / n,
@@ -204,10 +285,12 @@ def profile_batches(fn, batches) -> dict:
         "kernels_per_batch": sum(e.count for e in kernels) / n,
         "top_kernels": [[e.key[:70], e.self_device_time_total / 1e3 / n, e.count / n]
                         for e in top],
+        "top_ops": [[e.key, str(e.input_shapes)[:120], e.self_device_time_total / 1e3 / n,
+                     e.count / n] for e in top_ops],
     }
 
 
-def run_serving(mc, am):
+def run_serving(ml, mc, am):
     from snd_vae_tpu_torch.config import synthetic2_preset
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
@@ -229,15 +312,18 @@ def run_serving(mc, am):
         torch.cuda.synchronize()
 
         # the main path, counted: 5 reconstructed batches and 100 samples
-        mc.fused_motif_combine.launches = am.blocked_adj_matmul.launches = 0
+        ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
+        am.blocked_adj_matmul.launches = 0
         outs = [reconstruct(model, b) for b in batches]
         drawn = sample(model, SAMPLE_GRAPHS, gen)
         torch.cuda.synchronize()
-        launches = {"motif_combine": mc.fused_motif_combine.launches,
+        launches = {"motif_level3": ml.fused_motif_level3.launches,
+                    "motif_combine": mc.fused_motif_combine.launches,
                     "adj_matmul": am.blocked_adj_matmul.launches}
-        check(launches == {"motif_combine": 2 * SERVE_BATCHES,
+        check(launches == {"motif_level3": 2 * SERVE_BATCHES, "motif_combine": 0,
                            "adj_matmul": 2 * SERVE_BATCHES},
-              f"{dtype_name}: launches {launches}, expected 2 of each per batch")
+              f"{dtype_name}: launches {launches}, expected 2 of motif_level3 and "
+              "adj_matmul per batch and no motif_combine")
 
         N = cfg.num_nodes
         for o in outs:
@@ -289,21 +375,27 @@ def run_serving(mc, am):
 
 
 def kernel_entry(name, source, replaces, tpu_fn, rows, launches):
-    """One kernel's line: its times summed over the shapes one served
-    batch launches it at (f32), with the larger-shape checks beside."""
-    served = [r for r in rows if r["kernel"] == name and r["served"]]
-    total = lambda key: (None if any(r[key] is None for r in served)
-                         else sum(r[key] for r in served))
-    bytes_bound = all(r["bound_by"] == "bytes" for r in served)
-    return {
+    """One kernel's line: its times summed over the shapes one served batch
+    launches it at (f32).  A kernel off the served path has no such rows;
+    its line sums the rows at the shapes the served layers would give it."""
+    mine = [r for r in rows if r["kernel"] == name]
+    served = [r for r in mine if r["served"]]
+    picked = served or [r for r in mine if r["batch_shape"]]
+    total = lambda key: (None if not picked or any(r.get(key) is None for r in picked)
+                         else sum(r[key] for r in picked))
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "tpu_function": tpu_fn, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in served),
+        "tpu_function": tpu_fn, "launches": launches, "on_main_path": bool(served),
+        "max_abs_err": max((r["max_abs_err"] for r in picked), default=None),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if bytes_bound else "operations",
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in picked)
+                     else "operations"),
         "library_ms": total("library_ms"),
-        "per_batch_shapes": [r["shape"] for r in served],
+        "per_batch_shapes": [r["shape"] for r in picked],
     }
+    if any("replaced_ms" in r for r in picked):
+        entry["replaced_ms"] = total("replaced_ms")
+    return entry
 
 
 def main() -> int:
@@ -314,6 +406,7 @@ def main() -> int:
     from snd_vae_tpu_torch.nn.kernels import adj_matmul as am
     from snd_vae_tpu_torch.nn.kernels import build
     from snd_vae_tpu_torch.nn.kernels import motif_combine as mc
+    from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml
 
     # f32 products and convolutions in full f32, for the comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -335,18 +428,23 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln] for k, log in build.build_log.items()}
     emit("build", {"seconds": secs, "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
 
-    # 3. kernels against their plain versions
-    rows = check_kernels(mc, am)
+    # 3. kernels against their plain versions, beside the timing floor: a
+    # one-element fill_ timed as the kernels are
+    one = torch.ones(1, device="cuda")
+    emit("timing_floor", {"fill_ms": device_ms(lambda: one.fill_(1.0))})
+    rows = check_kernels(ml, mc, am)
     for r in rows:
         emit("kernel", r)
 
     # 4. the served path
-    serving = run_serving(mc, am)
+    serving = run_serving(ml, mc, am)
     emit("serve", serving)
 
     # 5. kernels line, 6. result line (the card's line just before)
     launches = serving["float32"]["launches"]
     print(json.dumps({"kernels": [
+        kernel_entry("motif_level3", L3_SOURCE, K1_REPLACES, "fused_motif_combine",
+                     rows, launches["motif_level3"]),
         kernel_entry("motif_combine", K1_SOURCE, K1_REPLACES, "fused_motif_combine",
                      rows, launches["motif_combine"]),
         kernel_entry("adj_matmul", K3_SOURCE, K3_REPLACES, "blocked_adj_matmul",

@@ -22,9 +22,10 @@
 // One block owns a 32(j) x 32(h) tile of out[b,i]; 256 threads each hold
 // 4 (j) accumulators of the sum over k and the matching partial degrees,
 // so deg needs no separate pass.  Ragged N and h are masked on load and
-// store instead of padded.  Taking phi(rel) and M1f in place of f_ik,
-// fusing on through lrelu and the masked j-sum, and wgmma are left to a
-// later change.
+// store instead of padded.  The served path no longer runs this kernel:
+// csrc/motif_level3.cu takes phi(rel), M1d and M1f in place of d_ij and
+// f_ik and fuses on through lrelu and the masked j-sum.  This one stays as
+// the literal counterpart of the TPU kernel.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,0 +1,122 @@
+"""Level 3 of the third-order motif conv in one kernel, in the rank-R
+arithmetic of the JAX default path (snd_vae_tpu/nn/spatial_conv.py:220-238):
+
+  rf[b,i,j,r] = sum_k A[b,j,k] * phi[b,i,k,r]
+  m3[b,i,j,:] = A[b,i,j] * ( deg[b,j] * (a_i[b,i,:] + bias + sum_r phi[b,i,j,r] * M1d[r,:])
+                             + v_j[b,j,:] + sum_r rf[b,i,j,r] * M1f[r,:] )
+  nt[b,i,:]   = sum_j A[b,i,j] * lrelu(m3[b,i,j,:])
+
+with phi = lrelu(rel), M1d / M1f the Matrix1 rows of the r_ij / r_ik slices,
+and v_j the j-only terms.  It takes the place of the projections
+d_ij / f_ik, the motif combine (``motif_combine``, the port of the TPU
+kernel ``fused_motif_combine``), the lrelu and the nt einsum.
+
+``fused_motif_level3`` launches ``csrc/motif_level3.cu`` on CUDA tensors and
+counts the launch in ``fused_motif_level3.launches``; on CPU tensors, and
+only there, it returns ``motif_level3_plain``.  ``motif_level3`` is the
+differentiable entry point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from ._launch import CUDA_DTYPES, check_inputs, raise_on_error, stream_handle
+
+_SIGNATURES = {
+    "motif_level3_launch": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # adj phi a_i v_j
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # deg m1d m1f bias
+        ctypes.c_void_p,                                                     # nt
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch n r h dtype
+        ctypes.c_void_p,                                                     # stream
+    )
+}
+LEAK = 0.2
+
+
+def motif_level3_plain(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
+    """Plain PyTorch version of the formula in the module docstring; bf16 and
+    f16 inputs are computed in f32 and the result cast back."""
+    dt = adj.dtype
+    if dt in (torch.bfloat16, torch.float16):
+        adj, phi_r, a_i, v_j, deg, m1d, m1f, bias = (
+            t.float() for t in (adj, phi_r, a_i, v_j, deg, m1d, m1f, bias))
+    rf = torch.einsum("bjk,bikr->bijr", adj, phi_r)
+    m3 = (deg[:, None, :, None] * (a_i[:, :, None] + bias + phi_r @ m1d)
+          + v_j[:, None] + rf @ m1f)
+    m3 = adj[..., None] * m3
+    nt = torch.einsum("bij,bijh->bih", adj, torch.maximum(m3, LEAK * m3))
+    return nt.to(dt)
+
+
+def _check_shapes(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> None:
+    if adj.dim() != 3 or adj.shape[1] != adj.shape[2]:
+        raise ValueError(f"motif_level3: adj must be [B,N,N], got {tuple(adj.shape)}")
+    B, N = adj.shape[:2]
+    R = phi_r.shape[-1] if phi_r.dim() == 4 else -1
+    h = bias.shape[-1] if bias.dim() == 1 else -1
+    want = {"phi_r": (B, N, N, R), "a_i": (B, N, h), "v_j": (B, N, h), "deg": (B, N),
+            "m1d": (R, h), "m1f": (R, h), "bias": (h,)}
+    got = {"phi_r": phi_r, "a_i": a_i, "v_j": v_j, "deg": deg, "m1d": m1d, "m1f": m1f,
+           "bias": bias}
+    for name, t in got.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(
+                f"motif_level3: {name} has shape {tuple(t.shape)}, expected {want[name]}"
+            )
+
+
+def fused_motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
+    """adj [B,N,N]; phi_r [B,N,N,R]; a_i, v_j [B,N,h]; deg [B,N]; m1d, m1f
+    [R,h]; bias [h]; all of one dtype.  Returns nt [B,N,h] in that dtype."""
+    dev = check_inputs("motif_level3", adj=adj, phi_r=phi_r, a_i=a_i, v_j=v_j, deg=deg,
+                       m1d=m1d, m1f=m1f, bias=bias)
+    _check_shapes(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)
+    if dev.type == "cpu":
+        return motif_level3_plain(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)
+
+    B, N, _, R = phi_r.shape
+    h = bias.shape[0]
+    nt = torch.empty_like(a_i)
+    fn = build.load("motif_level3", _SIGNATURES).motif_level3_launch
+    with torch.cuda.device(dev):
+        code = fn(adj.data_ptr(), phi_r.data_ptr(), a_i.data_ptr(), v_j.data_ptr(),
+                  deg.data_ptr(), m1d.data_ptr(), m1f.data_ptr(), bias.data_ptr(),
+                  nt.data_ptr(), B, N, R, h, CUDA_DTYPES[adj.dtype], stream_handle(dev))
+    raise_on_error("motif_level3", code)
+    fused_motif_level3.launches += 1
+    return nt
+
+
+fused_motif_level3.launches = 0
+
+
+class _MotifLevel3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        return fused_motif_level3(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not wanted:
+            return (None,) * len(inputs)
+        with torch.enable_grad():
+            out = motif_level3_plain(*inputs)
+        got = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+def motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
+    """The differentiable level 3: forward ``fused_motif_level3``, backward
+    autograd through ``motif_level3_plain``.  The forward saves only its
+    inputs, so the backward recomputes rf and m3 ([B,N,N,R] and [B,N,N,h])
+    rather than keeping m3 from the forward: the kernel never writes it."""
+    return _MotifLevel3.apply(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)

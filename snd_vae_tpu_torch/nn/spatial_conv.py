@@ -4,15 +4,15 @@
 The reference materializes [B,N,N,N,·] motif triples.  The JAX package
 factors the masked motif sum into per-node terms, per-pair terms and masked
 matmuls (module docstring there); this port keeps that factored form and
-computes level 3 the way the JAX ``use_pallas`` branch does
-(``spatial_conv.py:210-219``): the pre-projected ``f_ik = φ(rel) @ M1f``,
-the j-only terms folded into ``v_combined``, and
+computes level 3 in the rank-R arithmetic of the JAX default path
+(``spatial_conv.py:220-238``), with the j-only terms folded into
+``v_combined``, as one kernel from φ(rel) to the masked j-sum:
 
-    m3_sum = motif_combine(adj, a_i, d_ij, v_combined, f_ik, bias1)
+    nt = motif_level3(adj, φ(rel), a_i, v_combined, deg, M1d, M1f, bias1)
 
-through kernel K1 (``kernels.motif_combine``).  Levels 2 and 1 are the rank-R
-reassociated sums of ``spatial_conv.py:237-260``.  Public layouts as in JAX:
-adj [B,N,N], x [B,N,F], rel [B,N,N,R] -> [B,N,h2].
+(``kernels.motif_level3``), so no [B,N,N,h0] tensor is built.  Levels 2 and
+1 are the rank-R reassociated sums of ``spatial_conv.py:240-260``.  Public
+layouts as in JAX: adj [B,N,N], x [B,N,F], rel [B,N,N,R] -> [B,N,h2].
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from torch import nn
 
 from . import init as inits
 from .basic import lrelu
-from .kernels.motif_combine import motif_combine
+from .kernels.motif_level3 import motif_level3
 
 
 class SpatialGraphConv(nn.Module):
@@ -57,8 +57,8 @@ class SpatialGraphConv(nn.Module):
 
 def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
                        block_rows: Optional[int] = None) -> torch.Tensor:
-    """Functional factored third-order conv; level 3 through K1 (see the
-    module docstring)."""
+    """Functional factored third-order conv; level 3 through the
+    ``motif_level3`` kernel (see the module docstring)."""
     if block_rows is not None:
         raise NotImplementedError(
             "the blocked streamed lowering (block_rows) is not ported yet"
@@ -80,13 +80,13 @@ def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
     deg = adj.sum(-1)                                    # [B,N]
     neigh_c = nx @ m1[2 * F:3 * F]                       # Σ_k A[j,k]·c_k
     ve = nr @ m1[3 * F + R:3 * F + 2 * R]                # Σ_k A[j,k]·e_jk
-    d_ij = phi_r @ m1[3 * F:3 * F + R]                   # [B,N,N,h0]
-    f_ik = phi_r @ m1[3 * F + 2 * R:]                    # [B,N,N,h0]
     v_combined = deg[..., None] * b_j + neigh_c + ve     # j-only terms
-    m3_sum = motif_combine(adj.contiguous(), a_i.contiguous(), d_ij.contiguous(),
-                           v_combined.contiguous(), f_ik.contiguous(),
-                           b1.contiguous())
-    nt = torch.einsum("bij,bijh->bih", adj, lrelu(m3_sum))   # [B,N,h0]
+    # nt[i] = Σ_j A[i,j]·lrelu(m3_sum[i,j]), d_ij / f_ik folded in through
+    # the R-row slices M1d = m1[3F:3F+R], M1f = m1[3F+2R:]          [B,N,h0]
+    nt = motif_level3(adj.contiguous(), phi_r.contiguous(), a_i.contiguous(),
+                      v_combined.contiguous(), deg.contiguous(),
+                      m1[3 * F:3 * F + R].contiguous(), m1[3 * F + 2 * R:].contiguous(),
+                      b1.contiguous())
 
     # --- level 2: masked pair sum, reassociated --------------------------
     p_i = phi_x @ m2[0:F]

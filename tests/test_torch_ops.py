@@ -183,7 +183,7 @@ def _random_graph(rng, B, N, F, R, weighted=False):
 @pytest.mark.parametrize("F,R,weighted", [(1, 1, False), (3, 1, False), (2, 2, False),
                                           (2, 1, True)])
 def test_spatial_graph_conv(rng, key, F, R, weighted):
-    """The port (level 3 through the motif-combine kernel's plain version)
+    """The port (level 3 through the motif_level3 kernel's plain version)
     against the JAX default rank-R path and the dense oracle, rtol 1e-9."""
     adj, x, rel = _random_graph(rng, 2, 7, F, R, weighted)
     jm = jops.SpatialGraphConv(hidden=(5, 4, 3))
