@@ -11,9 +11,10 @@ Phases, one output line each:
                the shapes the served path gives it (and a large one), with
                its median device time over 100 launches, the plain
                version's, the least time the card could take (bound), for
-               A@X+lrelu one library call's (torch.bmm + leaky_relu), and
-               for motif_level3 the time of the chain it replaced
-               (projections, motif_combine, lrelu, j-sum);
+               K3 the library calls' (torch.matmul for x @ W, torch.bmm /
+               torch.mm, leaky_relu), and the time of the chain each
+               replaced: for motif_level3 the projections, motif_combine,
+               lrelu and j-sum; for K3 with W the separate x @ W and K3;
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
                kernel launches (motif_level3 and adj_matmul twice per
@@ -219,29 +220,80 @@ def check_kernels(ml, mc, am):
                          ms=device_ms(lambda: mc.fused_motif_combine(*x)),
                          plain_ms=device_ms(lambda: mc.motif_combine_plain(*x)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
-    # K3: GraphConv's two aggregations (H = 10, 20), bf16, and the
-    # large-graph contraction (no epilogue)
-    for a_shape, x_shape, leak, dt, served, density in (
-            ((10, 25, 25), (10, 25, 10), 0.2, torch.float32, True, 0.15),
-            ((10, 25, 25), (10, 25, 20), 0.2, torch.float32, True, 0.15),
-            ((10, 25, 25), (10, 25, 20), 0.2, torch.bfloat16, False, 0.15),
-            ((2048, 2048), (2048, 128), None, torch.float32, False, 0.05)):
-        a, x = adj_inputs(a_shape, x_shape, dt, gen, density)
-        err = compare(am.blocked_adj_matmul(a, x, leak), am.adj_matmul_plain(a, x, leak), dt)
-        n, m = a_shape[-2:]
-        hh, b = x_shape[-1], (a_shape[0] if len(a_shape) == 3 else 1)
-        b_ms, b_by = bound(a.element_size() * b * (n * m + m * hh + n * hh),
-                           2 * b * n * m * hh + (2 * b * n * hh if leak else 0), dt)
-        mm = torch.bmm if len(a_shape) == 3 else torch.mm
-        lib = ((lambda: torch.nn.functional.leaky_relu(mm(a, x), leak)) if leak
-               else (lambda: mm(a, x)))
-        rows.append(dict(kernel="adj_matmul", shape=[list(a_shape), list(x_shape)],
-                         dtype=str(dt)[6:], served=served, batch_shape=served, leak=leak,
-                         max_abs_err=err,
-                         ms=device_ms(lambda: am.blocked_adj_matmul(a, x, leak)),
-                         plain_ms=device_ms(lambda: am.adj_matmul_plain(a, x, leak)),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib)))
+    rows += check_adj_matmul(am, gen)
     torch.cuda.synchronize()
+    return rows
+
+
+# K3 cases: A shape, x shape, W's width H (None: no W), leak, dtype, served,
+# density of A.  GraphConv's two served layers with W (x [.,25,1] @ [1,10]
+# and the skip concat [.,25,11] @ [11,20]), the second in bf16; the
+# synthetic2 model at N = 1024 (B = 2); the large-graph contraction at
+# N = 2048 (f32 without epilogue, kept to compare with earlier versions)
+# and 8192 (density 0.01, as benchmarks/large_graph_bench.py); ragged
+# shapes for every edge of the tiles.
+K3_CASES = (
+    ((10, 25, 25), (10, 25, 1), 10, 0.2, torch.float32, True, 0.15),
+    ((10, 25, 25), (10, 25, 11), 20, 0.2, torch.float32, True, 0.15),
+    ((10, 25, 25), (10, 25, 11), 20, 0.2, torch.bfloat16, False, 0.15),
+    ((2, 1024, 1024), (2, 1024, 11), 20, 0.2, torch.float32, False, 0.01),
+    ((2, 1024, 1024), (2, 1024, 11), 20, 0.2, torch.bfloat16, False, 0.01),
+    ((2048, 2048), (2048, 128), None, None, torch.float32, False, 0.05),
+    ((2048, 2048), (2048, 128), None, 0.2, torch.bfloat16, False, 0.05),
+    ((8192, 8192), (8192, 128), None, 0.2, torch.float32, False, 0.01),
+    ((8192, 8192), (8192, 128), None, 0.2, torch.bfloat16, False, 0.01),
+    ((3, 45, 70), (3, 70, 33), None, 0.2, torch.float32, False, 0.3),
+    ((3, 45, 70), (3, 70, 33), None, 0.2, torch.bfloat16, False, 0.3),
+    ((2047, 2047), (2047, 100), None, 0.2, torch.float32, False, 0.05),
+    ((2047, 2047), (2047, 100), None, 0.2, torch.bfloat16, False, 0.05),
+)
+
+
+def check_adj_matmul(am, gen):
+    """K3 at each case against its plain version: f32 with M >= 1024
+    against float64 within the summation bound of M + F terms (the
+    projection's F, then A's M), other f32 at rtol/atol 1e-5, bf16 within
+    2e-2 of the largest magnitude.  W rows also time the pair they replace
+    (torch.matmul for x @ W, then K3 without W)."""
+    rows = []
+    for a_shape, x_shape, hw, leak, dt, served, density in K3_CASES:
+        a, x = adj_inputs(a_shape, x_shape, dt, gen, density)
+        w = (None if hw is None else
+             (0.3 * torch.randn(x_shape[-1], hw, generator=gen, device="cuda")).to(dt))
+        n, m = a_shape[-2:]
+        b = a_shape[0] if len(a_shape) == 3 else 1
+        f, hh = (None, x_shape[-1]) if w is None else (x_shape[-1], hw)
+        kern = lambda: am.blocked_adj_matmul(a, x, leak, w)
+        plain = lambda: am.adj_matmul_plain(a, x, leak, w)
+        got = kern()
+        extra = {}
+        if dt == torch.float32 and m >= 1024:
+            err, extra["plain_f32_err_vs_f64"] = compare_f64_bound(
+                got, [a, x] + ([] if w is None else [w]), m + (f or 0),
+                lambda aa, xx, *ww: am.adj_matmul_plain(aa, xx, leak, *ww))
+        else:
+            err = compare(got, plain(), dt)
+        isz = a.element_size()
+        b_ms, b_by = bound(isz * (b * n * m + b * m * x_shape[-1] + (0 if w is None else f * hh)
+                                  + b * n * hh),
+                           2 * b * n * m * hh + (0 if w is None else 2 * b * m * f * hh)
+                           + (2 * b * n * hh if leak else 0), dt)
+        mm = torch.bmm if len(a_shape) == 3 else torch.mm
+        xw = lambda: x if w is None else torch.matmul(x, w)
+        lib = ((lambda: torch.nn.functional.leaky_relu(mm(a, xw()), leak)) if leak
+               else (lambda: mm(a, xw())))
+        if w is not None:
+            extra["replaced_ms"] = device_ms(
+                lambda: am.blocked_adj_matmul(a, torch.matmul(x, w), leak))
+        plan = am.adj_matmul_plan(b, n, m, hh, f, dt)
+        shape = [list(a_shape), list(x_shape)] + ([] if w is None else [list(w.shape)])
+        rows.append(dict(kernel="adj_matmul", shape=shape, dtype=str(dt)[6:], served=served,
+                         batch_shape=served, leak=leak, density=density,
+                         plan={"variant": plan.variant, "split": plan.split,
+                               "blocks": plan.blocks, "fuse_w": plan.fuse_w,
+                               "tma_a": plan.tma_a, "tma_x": plan.tma_x},
+                         max_abs_err=err, ms=device_ms(kern), plain_ms=device_ms(plain),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib), **extra))
     return rows
 
 
@@ -368,6 +420,8 @@ def run_serving(ml, mc, am):
         res["sample_graphs_per_s"] = serve_rate(
             lambda: sample(model, SAMPLE_GRAPHS, gen), SAMPLE_GRAPHS, 20)
         res["reconstruct_profile"] = profile_batches(lambda b: reconstruct(model, b), batches)
+        # beside the launch check: all kernels of one reconstructed batch
+        res["kernels_per_batch"] = res["reconstruct_profile"]["kernels_per_batch"]
         res["sample_profile"] = profile_batches(
             lambda _: sample(model, SAMPLE_GRAPHS, gen), [None] * SERVE_BATCHES)
         out[dtype_name] = res

@@ -1,9 +1,9 @@
 """``GraphConv``: lrelu(A @ (X W)) — the port of
 ``snd_vae_tpu/nn/graph_conv.py:29-45`` (reference layers.py:115-125).
 
-``x @ W`` is a plain product; the aggregation ``A @ xw`` and the lrelu run
-as one launch of kernel K3 with leak 0.2, through its autograd wrapper
-``kernels.adj_matmul.adj_matmul``, so the kernel gets a gradient.
+The projection ``x @ W``, the aggregation ``A @ xw`` and the lrelu run as
+one launch of kernel K3 with ``w`` and leak 0.2, through its autograd
+wrapper ``kernels.adj_matmul.adj_matmul``, so the kernel gets a gradient.
 """
 
 from __future__ import annotations
@@ -26,5 +26,4 @@ class GraphConv(nn.Module):
         )
 
     def forward(self, adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        xw = torch.matmul(x, self.kernel).contiguous()
-        return adj_matmul(adj.contiguous(), xw, leak=0.2)
+        return adj_matmul(adj.contiguous(), x.contiguous(), leak=0.2, w=self.kernel)

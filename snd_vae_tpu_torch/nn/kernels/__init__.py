@@ -7,8 +7,9 @@ the JAX package's ``nn/pallas``.
   * ``motif_combine``: ``fused_motif_combine`` (K1), the autograd wrapper
     ``motif_combine`` (K2) and the plain version ``motif_combine_plain``,
     the literal counterparts of the TPU kernel, off the served path;
-  * ``adj_matmul``: ``blocked_adj_matmul`` (K3), its autograd wrapper
-    ``adj_matmul`` and the plain version ``adj_matmul_plain``;
+  * ``adj_matmul``: ``blocked_adj_matmul`` (K3, act(A @ X) or with W
+    act(A @ (X W))), its autograd wrapper ``adj_matmul``, the plain version
+    ``adj_matmul_plain`` and the launch plan ``adj_matmul_plan``;
   * ``build``: compiles ``csrc/*.cu`` with nvcc and loads them with ctypes.
 
 Each wrapper counts its launches in an integer attribute ``launches``.

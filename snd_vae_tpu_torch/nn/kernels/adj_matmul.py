@@ -1,44 +1,197 @@
-"""K3: ``act(A @ X)`` with a fused leaky-ReLU epilogue — the port of the TPU
-kernel ``blocked_adj_matmul`` (snd_vae_tpu/nn/pallas/blocked_spmm.py:89).
+"""K3: ``act(A @ X)``, or GraphConv's ``act(A @ (X W))``, with a fused
+leaky-ReLU epilogue — the port of the TPU kernel ``blocked_adj_matmul``
+(snd_vae_tpu/nn/pallas/blocked_spmm.py:89).
 
 ``blocked_adj_matmul`` launches ``csrc/adj_matmul.cu`` on CUDA tensors and
 counts the launch in ``blocked_adj_matmul.launches``; on CPU tensors, and
-only there, it returns ``adj_matmul_plain``.  ``adj_matmul`` is a
+only there, it returns ``adj_matmul_plain``.  ``adj_matmul_plan`` picks the
+kernel's variant and sizes from the shapes alone (pure Python, so the CPU
+tests hold it); the wrapper passes the plan to the launch, which checks it
+against the kernel's sizes and launches it as it stands.  ``adj_matmul`` is a
 ``torch.autograd.Function`` whose forward is that wrapper and whose backward
 is autograd through the plain version (the kernel writes a fresh buffer, so
-without it nothing upstream would get a gradient).  ``GraphConv`` computes
-its ``lrelu(A @ (X W))`` through ``adj_matmul``.
+without it nothing upstream would get a gradient; the TPU kernel has no
+backward kernel either).  ``GraphConv`` computes its ``lrelu(A @ (X W))``
+through ``adj_matmul`` with ``w``: one launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
 from ._launch import CUDA_DTYPES, check_inputs, raise_on_error, stream_handle
 
+# The kernel's sizes, mirrored from csrc/adj_matmul.cu, whose launch
+# refuses a plan that does not match them.
+SMALL_COLS, SMALL_THREADS, SMALL_MAX_NM, SMALL_MAX_SMEM = 32, 512, 64, 48 * 1024
+SIMT_TILE, SIMT_STAGES, SIMT_STAGES_W, SIMT_THREADS = (64, 64, 64), 4, 3, 256
+SIMT_MIN_SMEM = 116 * 1024   # more than half an SM's: one block per SM
+TC_TILE, TC_STAGES, TC_STAGES_W, TC_THREADS = (64, 128, 64), 4, 3, 256
+MAX_FUSED_F = 16          # W fused in the tiled kernels up to this F: the projection
+                          # runs on CUDA cores, F/64 of the tile's work per k-tile
+MAX_SPLIT = 8             # the k-split is a portable thread-block cluster
+SMEM_PER_BLOCK = 232_448  # 227 KB
+GRID_YZ_MAX = 65_535
+VARIANTS = ("small", "simt", "tc")
+# The most clusters of 1, 2, 4 and 8 blocks of each tiled variant an H100
+# SXM holds at once (cudaOccupancyMaxActiveClusters; simt one block per SM,
+# tc two): clusters of 4 and 8 reach only 120 of the 132 SMs, since a
+# cluster lies in one GPC.  The wrapper plans with what the card it runs on
+# reports (``cluster_capacity``); the CPU tests plan for this card.
+H100_CLUSTERS = {"simt": {1: 132, 2: 66, 4: 30, 8: 15}, "tc": {1: 264, 2: 132, 4: 62, 8: 30}}
+
+
+class LaunchPlan(ctypes.Structure):
+    """A plan as ``adj_matmul_launch`` takes it (``struct LaunchPlan`` in
+    csrc/adj_matmul.cu): rank r of the cluster sums k in
+    [k_bound[r], k_bound[r+1])."""
+
+    _fields_ = [("variant", ctypes.c_int), ("split", ctypes.c_int),
+                ("grid", ctypes.c_int * 3), ("threads", ctypes.c_int),
+                ("smem", ctypes.c_int), ("stages", ctypes.c_int), ("tile", ctypes.c_int * 3),
+                ("k_bound", ctypes.c_int * (MAX_SPLIT + 1)),
+                ("tma_a", ctypes.c_int), ("tma_x", ctypes.c_int)]
+
+
 _SIGNATURES = {
     "adj_matmul_launch": (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,            # a, x, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,        # batch, n, m, h
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,                # batch strides
-        ctypes.c_float, ctypes.c_int, ctypes.c_int,                    # leak, has_leak, dtype
-        ctypes.c_void_p,                                               # stream
-    )
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # a, x, w, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, n, m, h, f
+        ctypes.c_float, ctypes.c_int, ctypes.c_int,                            # leak, has_leak, dtype
+        ctypes.POINTER(LaunchPlan), ctypes.c_void_p,                           # plan, stream
+    ),
+    "adj_matmul_max_clusters": (ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
 }
+
+
+@dataclass(frozen=True)
+class AdjMatmulPlan:
+    """One launch of csrc/adj_matmul.cu.  ``variant``: "small" (one block
+    per graph and 32-column tile), "simt" (f32 tiles on CUDA cores) or "tc"
+    (bf16 tiles on tensor cores).  ``tile`` is (rows, columns, k) of one
+    block's output tile and k step; ``split`` blocks of one cluster share
+    each tile's k range, rank r taking ``k_slices[r]`` = [start, end);
+    ``grid`` is (x, y, z) blocks.  ``fuse_w``: W is applied in the kernel;
+    otherwise the wrapper forms x @ w first.  ``tma_a`` / ``tma_x``: the
+    tiled kernel loads that operand with TMA (else with 4-byte cp.async)."""
+
+    variant: str
+    fuse_w: bool
+    tile: Tuple[int, int, int]
+    split: int
+    stages: int
+    threads: int
+    smem: int
+    grid: Tuple[int, int, int]
+    k_slices: Tuple[Tuple[int, int], ...]
+    tma_a: bool = False
+    tma_x: bool = False
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def as_c(self) -> LaunchPlan:
+        bounds = [s for s, _ in self.k_slices] + [self.k_slices[-1][1]]
+        return LaunchPlan(VARIANTS.index(self.variant), self.split, self.grid, self.threads,
+                          self.smem, self.stages, self.tile,
+                          (*bounds, *[0] * (MAX_SPLIT + 1 - len(bounds))),
+                          self.tma_a, self.tma_x)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round8(v: int) -> int:
+    return _cdiv(v, 8) * 8
+
+
+def split_k(m: int, k_step: int, split: int) -> Tuple[Tuple[int, int], ...]:
+    """[0, m) in ``split`` slices of whole k-steps, balanced, in rank order."""
+    k_tiles = _cdiv(m, k_step)
+    return tuple((r * k_tiles // split * k_step, min(m, (r + 1) * k_tiles // split * k_step))
+                 for r in range(split))
+
+
+def adj_matmul_plan(batch: int, n: int, m: int, h: int, f: Optional[int] = None,
+                    dtype: torch.dtype = torch.float32, aligned: bool = True,
+                    clusters: Optional[dict] = None) -> AdjMatmulPlan:
+    """The variant and sizes for [batch,n,m] @ [batch,m,h], or with ``f``
+    [batch,n,m] @ ([batch,m,f] @ [f,h]).  ``aligned``: the operands' data
+    start on 16-byte boundaries (TMA needs it).
+    ``clusters``: how many clusters of each size the card holds at once, per
+    tiled variant (default: an H100 SXM's).
+
+    A graph whose A, X and W fit one block's 48 KB (n, m <= 64) takes the
+    small variant.  Larger ones take tiles; k is split over up to 8 blocks
+    of a cluster while every tile's cluster still fits the card at once."""
+    if dtype not in CUDA_DTYPES:
+        raise TypeError(f"adj_matmul: no kernel for {dtype}")
+    esz = 2 if dtype == torch.bfloat16 else 4
+    xcols = h if f is None else f
+    small_smem = m * SMALL_COLS * 4 + esz * (   # xw in f32; A, x and W staged
+        _round8(n * m + 2) + _round8(m * xcols + 2) + (0 if f is None else _round8(f * h + 2)))
+    if n <= SMALL_MAX_NM and m <= SMALL_MAX_NM and small_smem <= SMALL_MAX_SMEM:
+        col_tiles = _cdiv(h, SMALL_COLS)
+        return AdjMatmulPlan("small", f is not None, (n, SMALL_COLS, m), 1, 1, SMALL_THREADS,
+                             small_smem, (batch * col_tiles, 1, 1), ((0, m),))
+
+    fuse_w = f is not None and f <= MAX_FUSED_F
+    if dtype == torch.bfloat16:
+        variant, tile, threads = "tc", TC_TILE, TC_THREADS
+        stages = TC_STAGES_W if fuse_w else TC_STAGES
+        stage_bytes = (tile[0] * tile[2] + tile[2] * tile[1]) * 2
+        smem = (1024 + stages * stage_bytes
+                + (tile[2] * tile[1] * 2 + f * tile[1] * 4 if fuse_w else 0)
+                + 2 * stages * 8)
+    else:
+        variant, tile, threads = "simt", SIMT_TILE, SIMT_THREADS
+        stages = SIMT_STAGES_W if fuse_w else SIMT_STAGES
+        smem = max(1024 + 4 * (stages * (tile[0] * tile[2] + tile[2] * tile[1])
+                               + (f * tile[1] + tile[2] * tile[1] if fuse_w else 0)
+                               + tile[0] * (tile[1] + 4))   # received rows
+                   + 8 * stages, SIMT_MIN_SMEM)
+    tiles = _cdiv(n, tile[0]) * _cdiv(h, tile[1])
+    if tiles > GRID_YZ_MAX or batch > GRID_YZ_MAX:
+        raise ValueError(f"adj_matmul: {tiles} tiles x batch {batch} exceed the grid")
+    held = (clusters or H100_CLUSTERS)[variant]
+    split = 1
+    while (split * 2 <= MAX_SPLIT and split * 2 <= _cdiv(m, tile[2])
+           and tiles * batch <= held[split * 2]):
+        split *= 2
+    return AdjMatmulPlan(
+        variant, fuse_w, tile, split, stages, threads, smem, (split, tiles, batch),
+        split_k(m, tile[2], split),
+        tma_a=aligned and m > 0 and m % (16 // esz) == 0,   # TMA: 16-byte rows
+        tma_x=aligned and m > 0 and not fuse_w and h % (16 // esz) == 0)
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
 
 
-def adj_matmul_plain(adj: torch.Tensor, x: torch.Tensor,
-                     leak: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version (the JAX ``adj_matmul_reference``): the product
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in at least f32 and rounded to x's dtype (JAX's
+    ``xw.astype(x.dtype)``): a plain product, as the JAX package leaves it
+    to XLA."""
+    acc = _acc_dtype(x.dtype)
+    return torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
+
+
+def adj_matmul_plain(adj: torch.Tensor, x: torch.Tensor, leak: Optional[float] = None,
+                     w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version (the JAX ``adj_matmul_reference``, and with
+    ``w`` JAX's GraphConv): xw = x @ w rounded to x's dtype, the product
     accumulated in at least f32, cast to x's dtype, then max(y, leak*y)."""
+    if w is not None:
+        x = project(x, w)
     acc = _acc_dtype(x.dtype)
     out = torch.matmul(adj.to(acc), x.to(acc)).to(x.dtype)
     if leak is not None:
@@ -46,11 +199,9 @@ def adj_matmul_plain(adj: torch.Tensor, x: torch.Tensor,
     return out
 
 
-def blocked_adj_matmul(adj: torch.Tensor, x: torch.Tensor,
-                       leak: Optional[float] = None) -> torch.Tensor:
-    """K3: [N,M] @ [M,H], or batched [B,N,M] @ [B,M,H]; ``leak`` fuses
-    max(y, leak*y).  Output in x's dtype."""
-    dev = check_inputs("adj_matmul", adj=adj, x=x)
+def _check(adj: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.device:
+    tensors = {"adj": adj, "x": x} if w is None else {"adj": adj, "x": x, "w": w}
+    dev = check_inputs("adj_matmul", **tensors)
     if adj.dim() not in (2, 3) or x.dim() != adj.dim():
         raise ValueError(
             f"adj_matmul: expected [N,M]@[M,H] or [B,N,M]@[B,M,H], got "
@@ -60,21 +211,74 @@ def blocked_adj_matmul(adj: torch.Tensor, x: torch.Tensor,
         raise ValueError(
             f"adj_matmul: shapes {tuple(adj.shape)} and {tuple(x.shape)} do not chain"
         )
+    if w is not None and (w.dim() != 2 or w.shape[0] != x.shape[-1]):
+        raise ValueError(
+            f"adj_matmul: w must be [F,H] with F = x's last axis {x.shape[-1]}, "
+            f"got {tuple(w.shape)}"
+        )
+    return dev
+
+
+def blocked_adj_matmul(adj: torch.Tensor, x: torch.Tensor, leak: Optional[float] = None,
+                       w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: [N,M] @ [M,H], or batched [B,N,M] @ [B,M,H]; with ``w`` [F,H],
+    x is [.., M, F] and the product is A @ (x @ w).  ``leak`` fuses
+    max(y, leak*y).  Output in x's dtype.  One kernel launch."""
+    dev = _check(adj, x, w)
     if dev.type == "cpu":
-        return adj_matmul_plain(adj, x, leak)
+        return adj_matmul_plain(adj, x, leak, w)
 
     n, m = adj.shape[-2:]
-    h = x.shape[-1]
     batch = adj.shape[0] if adj.dim() == 3 else 1
+    h = x.shape[-1] if w is None else w.shape[1]
+    f = None if w is None else w.shape[0]
+    held = cluster_capacity(dev)
+    plan = adj_matmul_plan(batch, n, m, h, f, x.dtype, clusters=held)
+    if w is not None and not plan.fuse_w:   # a wide F: the projection is a plain product
+        x, w, f = project(x, w), None, None
+    aligned = all(t.data_ptr() % 16 == 0 for t in (adj, x))
+    plan = adj_matmul_plan(batch, n, m, h, f, x.dtype, aligned, held)
     out = torch.empty(adj.shape[:-1] + (h,), dtype=x.dtype, device=dev)
     fn = build.load("adj_matmul", _SIGNATURES).adj_matmul_launch
     with torch.cuda.device(dev):
-        code = fn(adj.data_ptr(), x.data_ptr(), out.data_ptr(), batch, n, m, h,
-                  n * m, m * h, n * h, 0.0 if leak is None else float(leak),
-                  int(leak is not None), CUDA_DTYPES[x.dtype], stream_handle(dev))
+        code = fn(*launch_args(adj, x, w, out, leak, plan))
     raise_on_error("adj_matmul", code)
     blocked_adj_matmul.launches += 1
     return out
+
+
+def launch_args(adj: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
+                out: torch.Tensor, leak: Optional[float], plan: AdjMatmulPlan) -> tuple:
+    """The arguments of ``adj_matmul_launch`` for ``plan`` (w given only
+    where the plan fuses it)."""
+    n, m = adj.shape[-2:]
+    batch = adj.shape[0] if adj.dim() == 3 else 1
+    return (adj.data_ptr(), x.data_ptr(), None if w is None else w.data_ptr(), out.data_ptr(),
+            batch, n, m, out.shape[-1], 0 if w is None else w.shape[0],
+            0.0 if leak is None else float(leak), int(leak is not None),
+            CUDA_DTYPES[x.dtype], ctypes.pointer(plan.as_c()), stream_handle(out.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(index: int) -> dict:
+    lib = build.load("adj_matmul", _SIGNATURES)
+    held = {}
+    with torch.cuda.device(index):
+        for dtype, variant in ((0, "simt"), (1, "tc")):
+            held[variant] = {}
+            for split in (1, 2, 4, 8):
+                count = ctypes.c_int(0)
+                raise_on_error("adj_matmul", lib.adj_matmul_max_clusters(dtype, split,
+                                                                         ctypes.byref(count)))
+                held[variant][split] = count.value
+    return held
+
+
+def cluster_capacity(device: torch.device) -> dict:
+    """How many clusters of 1, 2, 4 and 8 blocks of each tiled variant the
+    card holds at once, as ``H100_CLUSTERS`` (cudaOccupancyMaxActiveClusters,
+    asked once per card)."""
+    return _capacity(torch.cuda.current_device() if device.index is None else device.index)
 
 
 blocked_adj_matmul.launches = 0
@@ -82,26 +286,27 @@ blocked_adj_matmul.launches = 0
 
 class _AdjMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, adj, x, leak):
-        ctx.save_for_backward(adj, x)
+    def forward(ctx, adj, x, w, leak):
+        ctx.save_for_backward(adj, x, w)
         ctx.leak = leak
-        return blocked_adj_matmul(adj, x, leak)
+        return blocked_adj_matmul(adj, x, leak, w)
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
+        inputs = [None if t is None else t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
         if not wanted:
-            return None, None, None
+            return None, None, None, None
         with torch.enable_grad():
-            out = adj_matmul_plain(*inputs, ctx.leak)
+            out = adj_matmul_plain(inputs[0], inputs[1], ctx.leak, inputs[2])
         got = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(got) if t.requires_grad else None for t in inputs) + (None,)
+        return tuple(next(got) if t is not None and t.requires_grad else None
+                     for t in inputs) + (None,)
 
 
-def adj_matmul(adj: torch.Tensor, x: torch.Tensor,
-               leak: Optional[float] = None) -> torch.Tensor:
-    """The differentiable A @ X (+ lrelu): forward K3, backward autograd
-    through the plain version."""
-    return _AdjMatmul.apply(adj, x, leak)
+def adj_matmul(adj: torch.Tensor, x: torch.Tensor, leak: Optional[float] = None,
+               w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The differentiable A @ X, or A @ (X W) (+ lrelu): forward K3,
+    backward autograd through the plain version."""
+    return _AdjMatmul.apply(adj, x, w, leak)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``<repo>/build/kernels/lib<name>_<hash>.so`` for ``sm_90a``, keyed on a hash of
-the source and the flags, so an edited source builds anew and an unchanged
+the source, every ``csrc/`` header it includes (followed through headers)
+and the flags, so an edited source or header builds anew and an unchanged
 one loads at once.  ``build()`` starts one ``nvcc`` per missing library and
 waits for all of them; nothing is built when a module is imported.  Each
 library has a plain C interface: raw pointers, shapes and strides in, a CUDA
@@ -14,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,6 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', re.M)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory / spill report) per kernel,
@@ -49,10 +53,28 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` it includes, in
+    the order first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            cand = (path.parent / inc).resolve()
+            if cand.is_file() and CSRC in cand.parents:
+                todo.append(cand)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
