@@ -21,7 +21,20 @@ Phases, one output line each:
                batch, motif_combine never); one batch against the same
                weights on the CPU (plain versions); graphs/s in float32
                and bfloat16;
-  5. the kernels line (JSON); 6. the result line (JSON), last.
+  5. train   — synthetic2 at full width on the generated train split (200
+               graphs, 20 steps an epoch), f32 and bf16 with f32 masters:
+               Trainer.run for 2 epochs with Adam from the seed weights,
+               counting the launches (motif_level3 and adj_matmul twice per
+               step, motif_combine never), finite losses falling from the
+               first epoch to the second; in f32 one step on the card
+               against the same step on the CPU (loss, every gradient and
+               updated parameter); steps/s and graphs/s over 2 epochs after
+               a warm-up epoch, the peak of allocated memory, and a profile
+               of 5 steps: kernels and device-busy ms per step, device ms of
+               the forward, backward and optimizer ranges, the device
+               events no host op launched, the level-3 backward (K2: the
+               plain recompute) and the top backward kernels;
+  6. the kernels line (JSON); 7. the result line (JSON), last.
 
 Any failed check raises: the script then exits non-zero without a result
 line.  Without a CUDA card, or without the rest of the repository beside it,
@@ -31,6 +44,7 @@ it fails before printing anything.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,6 +60,8 @@ HBM_BYTES_PER_S = 3.35e12                                      # H100 SXM, data 
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
 SERVE_BATCHES = 5
 SAMPLE_GRAPHS = 100
+TRAIN_EPOCHS = 2          # the counted run; then 1 warm-up and 2 timed epochs
+PROFILE_STEPS = 5
 L3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3.cu"
 K1_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_combine.cu"
 K3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul.cu"
@@ -428,10 +444,223 @@ def run_serving(ml, mc, am):
     return out
 
 
-def kernel_entry(name, source, replaces, tpu_fn, rows, launches):
+def step_phase(event) -> str:
+    """The train_step range a profiled op ran under: forward, backward (the
+    autograd engine's ops, on its own thread for CUDA tensors) or
+    optimizer."""
+    while event is not None:
+        if event.name.startswith("train_step."):
+            return event.name[len("train_step."):]
+        if event.name.startswith("autograd::engine::evaluate_function"):
+            return "backward"
+        event = event.cpu_parent
+    return "other"
+
+
+def autograd_node(event):
+    while event is not None:
+        if event.name.startswith("autograd::engine::evaluate_function: "):
+            return event.name.split(": ", 1)[1]
+        event = event.cpu_parent
+    return None
+
+
+def profile_steps(step, batches) -> dict:
+    """One profiled pass of train steps over the batches: wall and
+    device-busy ms and kernels per step; the device ms of the kernels each
+    train_step range launched; the device ms of the level-3 and K3
+    backwards (autograd through their plain versions); the backward's top
+    kernels by device time, all per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(batches)
+    # the ranges' own device-side spans (user annotations) are not kernels
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("train_step.")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    phase_us, node_us, bwd, attributed = {}, {}, {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        phase = step_phase(e)
+        phase_us[phase] = phase_us.get(phase, 0.0) + us
+        node = autograd_node(e)
+        if node is not None:
+            node_us[node] = node_us.get(node, 0.0) + us
+        for k in e.kernels:
+            attributed[k.name] = attributed.get(k.name, 0.0) + k.duration
+            if phase == "backward":
+                t, c = bwd.get(k.name, (0.0, 0))
+                bwd[k.name] = (t + k.duration, c + 1)
+    per = lambda us: us / 1e3 / n
+    top = sorted(bwd.items(), key=lambda kv: -kv[1][0])[:8]
+    # device events that no host op launched, by name
+    loose = sorted(((e.key, e.self_device_time_total - attributed.get(e.key, 0.0), e.count)
+                    for e in kernels), key=lambda r: -r[1])[:4]
+    return {
+        "wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": per(busy_us),
+        "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
+        "kernels_per_step": sum(e.count for e in kernels) / n,
+        "device_ms_per_step_by_range": {k: per(v) for k, v in sorted(phase_us.items())},
+        "unattributed_device_ms_per_step": per(busy_us - sum(phase_us.values())),
+        "unattributed_top": [[k[:70], per(us), c / n] for k, us, c in loose],
+        "level3_backward_ms_per_step": per(node_us.get("_MotifLevel3Backward", 0.0)),
+        "adj_matmul_backward_ms_per_step": per(node_us.get("_AdjMatmulBackward", 0.0)),
+        "top_backward_kernels": [[name[:70], per(t), c / n] for name, (t, c) in top],
+    }
+
+
+def level3_backward_bound(cfg, B, dtype) -> dict:
+    """The least time of the level-3 backward of one step (both motif
+    convs): bytes of adj, φ(rel), a_i, v_j, deg and the gradient of nt read,
+    the gradients of a_i, v_j, M1d, M1f and bias written; operations three
+    times the forward's dense count (the recompute, then the two products
+    of each contraction's backward)."""
+    N, R, S = cfg.num_nodes, cfg.rel_dim, cfg.sampling_num
+    T = B * S
+    nbytes = ops = 0
+    for hidden in cfg.encoder.sg_conv_hidden:
+        h = hidden[0]
+        inputs = T * N * N + T * N * N * R + 2 * T * N * h + T * N + T * N * h
+        outputs = 2 * T * N * h + 2 * R * h + h
+        nbytes += (inputs + outputs) * (2 if dtype == torch.bfloat16 else 4)
+        ops += 3 * (2 * T * N ** 3 * R + T * N * N * h * (4 * R + 7))
+    ms, by = bound(nbytes, ops, dtype)
+    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "operations": ops}
+
+
+def card_vs_cpu_step(cfg, batch):
+    """One Adam step from the seed weights on the card and on a CPU copy,
+    same batch and ε: the loss at rtol 1e-5, every gradient at rtol 1e-4 /
+    atol 1e-6.  Adam's first step moves a weight by lr·g/(|g| + eps), which
+    turns a gradient difference dg at |g| ≲ eps into up to lr·dg/eps =
+    8e4·dg, so the updated weights are held (rtol 1e-4 / atol 1e-6) against
+    the CPU's Adam applied to the card's gradients, and their distance to
+    the CPU's own step is only reported.  Returns the largest errors by
+    module group."""
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.models import Latents, build_model
+
+    B, S, enc = cfg.train.batch_size, cfg.sampling_num, cfg.encoder
+    gen = torch.Generator().manual_seed(0)
+    eps = Latents(z_sg=torch.randn(B, S, enc.sg_latent_size, generator=gen),
+                  z_s=torch.randn(B, enc.s_latent_size, generator=gen),
+                  z_g=torch.randn(B, enc.g_latent_size, generator=gen))
+    ran = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev).train()
+        state = tt.TrainState(cfg=cfg, model=model,
+                              optimizer=tt.make_optimizer(cfg, model.parameters()),
+                              generator=torch.Generator(device=dev).manual_seed(0))
+        on = lambda t: t.to(dev)
+        aux = tt.train_step(state, batch.to(dev), torch.zeros((), device=dev),
+                            eps=Latents(z_sg=on(eps.z_sg), z_s=on(eps.z_s), z_g=on(eps.z_g)))
+        ran[dev] = (aux["loss"], dict(model.named_parameters()))
+    (card_loss, card), (cpu_loss, cpu) = ran["cuda"], ran["cpu"]
+    # the CPU's Adam from the seed weights on the card's gradients
+    replay = build_model(cfg, "cpu").train()
+    replayed = dict(replay.named_parameters())
+    for name, p in replayed.items():
+        p.grad = card[name].grad.cpu()
+    tt.make_optimizer(cfg, replay.parameters()).step()
+
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    errs = {"loss": (card_loss.cpu() - cpu_loss).abs().item()}
+    for name, p in cpu.items():
+        group = name.split(".")[0]
+        for kind, got, want, held in (
+                ("grad", card[name].grad, p.grad, True),
+                ("param", card[name].detach(), replayed[name].detach(), True),
+                ("param_vs_cpu_step", card[name].detach(), p.detach(), False)):
+            if held:
+                torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6,
+                                           msg=lambda m: f"{kind} of {name}: {m}")
+            key = f"{group}.{kind}"
+            errs[key] = max(errs.get(key, 0.0), (got.cpu() - want).abs().max().item())
+    return errs
+
+
+def run_training(ml, mc, am):
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "train", device="cuda")
+    nb = data.batch_size // B
+    out = {"batch": [B, cfg.sampling_num, cfg.num_nodes], "graphs": data.batch_size,
+           "steps_per_epoch": nb, "epochs": TRAIN_EPOCHS, "optimizer": cfg.train.optimizer}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for dtype_name in ("float32", "bfloat16"):
+        run_cfg = cfg.with_(compute_dtype=dtype_name)
+        res = {}
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+            trainer = tt.Trainer(run_cfg, data, device="cuda", workdir=workdir)
+            # the main path, counted: Trainer.run over 2 epochs
+            ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
+            am.blocked_adj_matmul.launches = 0
+            trainer.run(TRAIN_EPOCHS, verbose=False)
+            torch.cuda.synchronize()
+            launches = {"motif_level3": ml.fused_motif_level3.launches,
+                        "motif_combine": mc.fused_motif_combine.launches,
+                        "adj_matmul": am.blocked_adj_matmul.launches}
+            steps = TRAIN_EPOCHS * nb
+            check(launches == {"motif_level3": 2 * steps, "motif_combine": 0,
+                               "adj_matmul": 2 * steps},
+                  f"{dtype_name}: launches {launches} over {steps} steps, expected 2 of "
+                  "motif_level3 and adj_matmul per step and no motif_combine")
+            with open(trainer.logger.jsonl_path) as f:
+                means = [json.loads(line)["loss"] for line in f]
+            check(len(means) == TRAIN_EPOCHS and all(math.isfinite(m) for m in means),
+                  f"{dtype_name}: epoch losses {means} not all finite")
+            check(means[1] < means[0], f"{dtype_name}: loss did not fall: {means}")
+            check(trainer.checkpointer.latest_step() == 0, "epoch 0 checkpointed")
+            res.update(launches=launches,
+                       launches_per_step={k: v / steps for k, v in launches.items()},
+                       epoch_mean_loss=means)
+
+            # throughput: 2 epochs after a warm-up epoch
+            trainer.run_epoch(TRAIN_EPOCHS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for e in range(TRAIN_EPOCHS + 1, TRAIN_EPOCHS + 3):
+                trainer.run_epoch(e)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            res.update(steps_per_s=2 * nb / dt, graphs_per_s=2 * nb * B / dt,
+                       peak_allocated_bytes=torch.cuda.max_memory_allocated())
+
+            gi = torch.zeros((), device="cuda")
+            batches = [trainer.batched._map(lambda t, i=i: t[i]) for i in range(PROFILE_STEPS)]
+            res["profile"] = profile_steps(lambda b: tt.train_step(trainer.state, b, gi),
+                                           batches)
+        res["level3_backward_bound"] = level3_backward_bound(cfg, B, getattr(torch, dtype_name))
+        if dtype_name == "float32":
+            res["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, B))
+        out[dtype_name] = res
+    return out
+
+
+def kernel_entry(name, source, replaces, tpu_fn, rows, launches, launches_by_path):
     """One kernel's line: its times summed over the shapes one served batch
-    launches it at (f32).  A kernel off the served path has no such rows;
-    its line sums the rows at the shapes the served layers would give it."""
+    (or one train step's forward: the same shapes) launches it at (f32).  A
+    kernel off the served path has no such rows; its line sums the rows at
+    the shapes the served layers would give it."""
     mine = [r for r in rows if r["kernel"] == name]
     served = [r for r in mine if r["served"]]
     picked = served or [r for r in mine if r["batch_shape"]]
@@ -439,7 +668,8 @@ def kernel_entry(name, source, replaces, tpu_fn, rows, launches):
                          else sum(r[key] for r in picked))
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "tpu_function": tpu_fn, "launches": launches, "on_main_path": bool(served),
+        "tpu_function": tpu_fn, "launches": launches, "launches_by_path": launches_by_path,
+        "on_main_path": bool(served),
         "max_abs_err": max((r["max_abs_err"] for r in picked), default=None),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in picked)
@@ -494,15 +724,20 @@ def main() -> int:
     serving = run_serving(ml, mc, am)
     emit("serve", serving)
 
-    # 5. kernels line, 6. result line (the card's line just before)
-    launches = serving["float32"]["launches"]
+    # 5. the training path
+    training = run_training(ml, mc, am)
+    emit("train", training)
+
+    # 6. kernels line, 7. result line (the card's line just before); the
+    # launches are the f32 runs' of both paths, each counted from 0
+    by_path = {"serve": serving["float32"]["launches"], "train": training["float32"]["launches"]}
+    entry = lambda name, source, tpu_fn, replaces: kernel_entry(
+        name, source, replaces, tpu_fn, rows, sum(p[name] for p in by_path.values()),
+        {path: p[name] for path, p in by_path.items()})
     print(json.dumps({"kernels": [
-        kernel_entry("motif_level3", L3_SOURCE, K1_REPLACES, "fused_motif_combine",
-                     rows, launches["motif_level3"]),
-        kernel_entry("motif_combine", K1_SOURCE, K1_REPLACES, "fused_motif_combine",
-                     rows, launches["motif_combine"]),
-        kernel_entry("adj_matmul", K3_SOURCE, K3_REPLACES, "blocked_adj_matmul",
-                     rows, launches["adj_matmul"]),
+        entry("motif_level3", L3_SOURCE, "fused_motif_combine", K1_REPLACES),
+        entry("motif_combine", K1_SOURCE, "fused_motif_combine", K1_REPLACES),
+        entry("adj_matmul", K3_SOURCE, "blocked_adj_matmul", K3_REPLACES),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

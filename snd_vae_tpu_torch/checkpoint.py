@@ -1,0 +1,77 @@
+"""Checkpoints of the port's training state — the counterpart of
+``snd_vae_tpu/checkpoint.py`` (which writes Orbax directories; the port
+does not read those).
+
+One ``torch.save`` file per saved epoch, ``ckpt_<epoch>.pt`` under the
+directory, holding the model's f32 state_dict, the optimizer's state_dict,
+the step count and the state of the trainer's generator (the ε stream), so
+that a restored run continues bit for bit.  A save goes to a temporary file
+first and is moved into place with ``os.replace``: a crash mid-save leaves
+the previous checkpoints as they were.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+
+_NAME = re.compile(r"ckpt_(\d+)\.pt")
+
+
+def checkpoint_dir(cfg, workdir: str) -> str:
+    """Where a run of ``cfg`` under ``workdir`` keeps its checkpoints:
+    ``<workdir>/<train.checkpoint_dir>/<dataset>_<model_type>``, as the JAX
+    package lays them out."""
+    return os.path.join(workdir, cfg.train.checkpoint_dir, f"{cfg.dataset}_{cfg.model_type}")
+
+
+class Checkpointer:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(os.path.expanduser(directory))
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{int(step)}.pt")
+
+    def save(self, step: int, state) -> None:
+        """Write ``state`` (a ``train.TrainState``) as the checkpoint of
+        epoch ``step``."""
+        os.makedirs(self.directory, exist_ok=True)
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "generator": state.generator.get_state(),
+        }
+        tmp = self.path(step) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.path(step))
+
+    def steps(self):
+        if not os.path.isdir(self.directory):
+            return []
+        found = (_NAME.fullmatch(n) for n in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def load(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """The saved payload of ``step`` (the latest when None), on the CPU."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found under {self.directory}")
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the checkpoint of ``step`` (the latest when None) into
+        ``state`` in place; returns it."""
+        payload = self.load(step)
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = payload["step"]
+        state.generator.set_state(payload["generator"])
+        return state

@@ -1,12 +1,19 @@
-"""Serving CLI of the port.
+"""CLI of the port: training and serving.
 
-  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type sample --num-generate 100
+  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 100
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_reconstruct
+  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type sample --num-generate 100
 
-runs on the CUDA card unless ``--device cpu`` is given, writes the decoded
-arrays as ``.npy`` (as ``snd_vae_tpu/cli.py:480-495`` does) and prints one
-JSON dict.  Checkpoint restore and the evaluation metrics come with the
-training slice; until then the weights are drawn from the seed.
+runs on the CUDA card unless ``--device cpu`` is given and prints one JSON
+dict.  ``train`` trains on the train split (``train.Trainer``), logging
+under ``<workdir>/logs`` and checkpointing under
+``<workdir>/checkpoints/<dataset>_<model_type>``; it resumes from the
+latest checkpoint there.  The serving types restore that checkpoint (the
+latest, or ``train.restore_epoch``), as ``snd_vae_tpu/cli.py:145-160``
+does, and write the decoded arrays as ``.npy`` (as
+``snd_vae_tpu/cli.py:480-495`` does); with no checkpoint they warn and
+serve the weights drawn from the seed.  The evaluation metrics are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,10 +28,12 @@ import numpy as np
 import torch
 
 from . import config as cfg_mod
+from .checkpoint import Checkpointer, checkpoint_dir
 from .data.loaders import load_dataset
-from .device import resolve_device
+from .device import full_f32, resolve_device
 from .models import build_model
 from .serve import reconstruct, sample
+from .train import Trainer
 
 
 def _save(dirpath: str, arrays: Dict[str, torch.Tensor]) -> None:
@@ -32,6 +41,28 @@ def _save(dirpath: str, arrays: Dict[str, torch.Tensor]) -> None:
     for name, t in arrays.items():
         np.save(os.path.join(dirpath, f"{name}.npy"),
                 t.detach().to("cpu", torch.float32).numpy())
+
+
+def restore_for_serving(cfg, workdir: str, device) -> torch.nn.Module:
+    """The model of ``cfg`` with the trained weights of the latest
+    checkpoint (or of ``cfg.train.restore_epoch``), cast to
+    ``cfg.compute_dtype``; without a checkpoint, the seed's weights and a
+    WARNING on stderr."""
+    model = build_model(cfg, device)
+    ck = Checkpointer(checkpoint_dir(cfg, workdir))
+    if ck.latest_step() is None:
+        print(f"WARNING: no checkpoint under {ck.directory}; serving an untrained model "
+              f"drawn from seed {cfg.train.seed} (run --type train first)",
+              file=sys.stderr, flush=True)
+    else:
+        model.load_state_dict(ck.load(cfg.train.restore_epoch)["model"])
+    return model
+
+
+def run_train(cfg, workdir: str, device, epochs=None) -> Dict:
+    trainer = Trainer(cfg, load_dataset(cfg, "train", device=device), device=device,
+                      workdir=workdir)
+    return trainer.run(epochs)
 
 
 def run_test_reconstruct(cfg, model, workdir: str) -> Dict:
@@ -70,15 +101,18 @@ def run_sample(cfg, model, workdir: str, num: int) -> Dict:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="SND-VAE serving on PyTorch/CUDA")
+    p = argparse.ArgumentParser(description="SND-VAE training and serving on PyTorch/CUDA")
     p.add_argument("--dataset", default="synthetic2", choices=list(cfg_mod.PRESETS))
     p.add_argument("--model-type", default=None, choices=list(cfg_mod.MODEL_TYPES))
-    p.add_argument("--type", default="sample", choices=["test_reconstruct", "sample"])
+    p.add_argument("--type", default="train", choices=["train", "test_reconstruct", "sample"])
+    p.add_argument("--epochs", type=int, default=None,
+                   help="epochs to train up to (default: the preset's)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain versions)")
     p.add_argument("--num-generate", type=int, default=None, dest="num_generate",
                    help="graphs to sample with --type sample (default: batch_size)")
-    p.add_argument("--bf16", action="store_true", help="serve in bfloat16")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute in bfloat16 (training keeps f32 master weights)")
     p.add_argument("--dataset-path", default=None)
     p.add_argument("--workdir", default=".")
     return p
@@ -93,15 +127,17 @@ def main(argv=None) -> Dict:
         cfg = cfg.with_(dataset_path=args.dataset_path)
     if args.bf16:
         cfg = cfg.with_(compute_dtype="bfloat16")
+    full_f32()
     device = resolve_device(args.device)
-    print(f"WARNING: checkpoint restore is not ported yet; serving weights "
-          f"drawn from seed {cfg.train.seed}", file=sys.stderr, flush=True)
-    model = build_model(cfg, device)
-    if args.type == "test_reconstruct":
-        out = run_test_reconstruct(cfg, model, args.workdir)
+    if args.type == "train":
+        out = run_train(cfg, args.workdir, device, args.epochs)
     else:
-        out = run_sample(cfg, model, args.workdir,
-                         args.num_generate or cfg.train.batch_size)
+        model = restore_for_serving(cfg, args.workdir, device)
+        if args.type == "test_reconstruct":
+            out = run_test_reconstruct(cfg, model, args.workdir)
+        else:
+            out = run_sample(cfg, model, args.workdir,
+                             args.num_generate or cfg.train.batch_size)
     out["device"] = str(device)
     print(json.dumps(out))
     return out

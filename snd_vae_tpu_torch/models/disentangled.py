@@ -211,16 +211,17 @@ class DisentangledSNDVAE(nn.Module):
 
     def reparameterize(self, stats: LatentStats, eps: Optional[Latents] = None,
                        generator: Optional[torch.Generator] = None) -> Latents:
-        """z = μ + ε·exp(logσ); ε given (a Latents of noise) or drawn from
-        ``generator`` in the order s, sg, g."""
+        """z = μ + ε·exp(logσ); ε given (a Latents of noise, taken in the
+        stats' dtype) or drawn from ``generator`` in the order s, sg, g."""
         if eps is None:
             eps = Latents(z_s=self._normal(stats.mean_s.shape, generator),
                           z_sg=self._normal(stats.mean_sg.shape, generator),
                           z_g=self._normal(stats.mean_g.shape, generator))
+        noise = lambda e, t: e.to(t.device, t.dtype).reshape(t.shape)
         return Latents(
-            z_sg=stats.mean_sg + eps.z_sg * torch.exp(stats.logstd_sg),
-            z_s=stats.mean_s + eps.z_s * torch.exp(stats.logstd_s),
-            z_g=stats.mean_g + eps.z_g * torch.exp(stats.logstd_g),
+            z_sg=stats.mean_sg + noise(eps.z_sg, stats.mean_sg) * torch.exp(stats.logstd_sg),
+            z_s=stats.mean_s + noise(eps.z_s, stats.mean_s) * torch.exp(stats.logstd_s),
+            z_g=stats.mean_g + noise(eps.z_g, stats.mean_g) * torch.exp(stats.logstd_g),
         )
 
     def prior_latents(self, batch_size: int, num_samples: int,

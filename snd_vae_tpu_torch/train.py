@@ -1,0 +1,312 @@
+"""Training: the optimizers, the train step and the epoch loop — the port
+of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
+
+  * ``make_optimizer``: "adam" is ``torch.optim.Adam`` (its step
+    lr/(1-b1^t)·m/(√v/√(1-b2^t) + eps) is optax.adam's m̂/(√v̂ + eps));
+    "tf1-adam" is ``TF1Adam``, TF1's formulation with eps outside the bias
+    correction.
+  * ``train_step(state, batch, global_iter, eps=None)``: forward, ELBO (in
+    f32), the edge accuracy, backward, optimizer step.  The master
+    parameters and the optimizer state are f32; with
+    ``cfg.compute_dtype = "bfloat16"`` the forward runs on bf16 casts of
+    every float parameter and batch tensor (``torch.func.functional_call``),
+    so the gradients reach the f32 masters through the casts — what the JAX
+    ``_compute_cast`` does, op for op, unlike ``torch.autocast``, which picks
+    a precision per op.
+  * ``Trainer(cfg, batch, device=...).run(epochs)``: contiguous batches,
+    global_iter = epoch, one host sync per epoch (the per-step aux values
+    stay on the device until the epoch ends), checkpoints every
+    ``checkpoint_every`` epochs and resume at the saved epoch + 1, a
+    SIGTERM/SIGINT trap that checkpoints and stops, the spanning-tree
+    resampling and the per-epoch reshuffle of corrected mode.
+
+The JAX trainer's ``scan_unroll``, ``epoch_chunk`` and ``max_dispatch_s``
+shape how XLA dispatches an epoch and have no counterpart here.  The
+held-out evaluation (``eval_every``) and the device mesh are not ported yet
+and raise.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+import time
+from collections import defaultdict
+from dataclasses import dataclass, replace
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+from torch.profiler import record_function
+
+from .checkpoint import Checkpointer, checkpoint_dir
+from .config import Config
+from .data.graphbatch import GraphBatch
+from .data.spanning_tree import sample_spanning_trees
+from .device import DeviceLike, dtype_of, full_f32, resolve_device
+from .losses import elbo_loss
+from .models import DisentangledSNDVAE, Latents, build_model
+from .utils.logging import LossesLogger
+
+
+@dataclass
+class TrainState:
+    """What one step reads and updates: the run's config (its
+    ``compute_dtype`` is the forward's), the model holding the f32 master
+    parameters, the optimizer, the generator of the ε stream (on the
+    model's device) and the count of steps taken."""
+
+    cfg: Config
+    model: DisentangledSNDVAE
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+
+class TF1Adam(torch.optim.Optimizer):
+    """Adam in TF1's formulation (``tf.train.AdamOptimizer``, the JAX
+    ``tf1_adam``):
+
+        lr_t = lr · √(1 - b2^t) / (1 - b1^t)
+        w   -= lr_t · m_t / (√v_t + eps)
+
+    eps is added outside the bias correction.  lr_t is computed in float32,
+    as the JAX package computes it from its float32 step count."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @staticmethod
+    def step_size(lr: float, b1: float, b2: float, t: int) -> float:
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        tt = f32(float(t))
+        return float(f32(lr) * torch.sqrt(1 - f32(b2) ** tt) / (1 - f32(b1) ** tt))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            by_t = defaultdict(list)
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                by_t[st["step"]].append(p)
+            for t, params in by_t.items():
+                grads = [p.grad for p in params]
+                ms = [self.state[p]["exp_avg"] for p in params]
+                vs = [self.state[p]["exp_avg_sq"] for p in params]
+                torch._foreach_mul_(ms, b1)
+                torch._foreach_add_(ms, grads, alpha=1 - b1)
+                torch._foreach_mul_(vs, b2)
+                torch._foreach_addcmul_(vs, grads, grads, value=1 - b2)
+                denom = torch._foreach_sqrt(vs)
+                torch._foreach_add_(denom, group["eps"])
+                torch._foreach_addcdiv_(params, ms, denom,
+                                        value=-self.step_size(group["lr"], b1, b2, t))
+        return loss
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    """Adam with the reference's hyperparameters (b1 0.9, b2 0.999, eps
+    1e-8); ``cfg.train.optimizer`` picks "adam" or "tf1-adam"."""
+    name, lr = cfg.train.optimizer, cfg.train.learning_rate
+    if name == "tf1-adam":
+        return TF1Adam(params, lr)
+    if name == "adam":
+        return torch.optim.Adam(params, lr, betas=(0.9, 0.999), eps=1e-8)
+    raise ValueError(f"unknown TrainConfig.optimizer {name!r}")
+
+
+def _forward(state: TrainState, batch: GraphBatch, eps: Optional[Latents]):
+    """The model on the batch, in ``cfg.compute_dtype``: float32 runs the
+    masters as they are; a narrower dtype runs the model on casts of every
+    float parameter and of the batch's float tensors."""
+    model, cd = state.model, dtype_of(state.cfg.compute_dtype)
+    kw = dict(generator=state.generator, eps=eps)
+    if cd == torch.float32:
+        return model(batch, **kw)
+    params = {n: p.to(cd) if p.is_floating_point() else p
+              for n, p in model.named_parameters()}
+    return functional_call(model, params, (batch.to(dtype=cd),), kw)
+
+
+def train_step(state: TrainState, batch: GraphBatch, global_iter,
+               eps: Optional[Latents] = None) -> Dict[str, torch.Tensor]:
+    """One update of ``state`` on ``batch``; returns the aux values (the
+    ELBO's terms and ``adj_acc``) as device tensors.  ε is drawn from
+    ``state.generator`` in the order s, sg, g unless given.  After the call
+    each parameter's ``.grad`` holds this step's gradient.  The three
+    phases run under ``record_function`` ranges (``train_step.forward``,
+    ``.backward``, ``.optimizer``) for the profiler."""
+    with record_function("train_step.forward"):
+        out = _forward(state, batch, eps)
+        total, aux = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
+                               global_iter, node_mask=batch.node_mask)
+        # edge accuracy of the decoded graphs against the truth
+        aux["adj_acc"] = (out.decoded.adj == batch.adj).float().mean()
+    with record_function("train_step.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+    with record_function("train_step.optimizer"):
+        state.optimizer.step()
+    state.step += 1
+    return {k: v.detach() for k, v in aux.items()}
+
+
+def rebatch(data: GraphBatch, batch_size: int) -> GraphBatch:
+    """[G, ...] -> [G//B, B, ...] contiguous batches (the remainder is
+    dropped, as the reference's int(G/B) loop does)."""
+    nb = data.batch_size // batch_size
+    return data._map(lambda t: t[: nb * batch_size].reshape((nb, batch_size) + t.shape[1:]))
+
+
+def _maybe_reshuffle(state: TrainState, batched: GraphBatch) -> GraphBatch:
+    """Corrected mode's per-epoch reshuffle (``cfg.train.reshuffle``): a
+    fresh graph->batch assignment drawn from the trainer's generator.  JAX
+    draws its permutation from its PRNG key, a stream this one cannot
+    match.  Identity in parity mode: the reference trains on fixed
+    contiguous batches."""
+    if not state.cfg.train.reshuffle:
+        return batched
+    nb, b = batched.adj.shape[:2]
+    perm = torch.randperm(nb * b, generator=state.generator, device=state.generator.device)
+    return batched._map(
+        lambda t: t.reshape((nb * b,) + t.shape[2:])[perm].reshape(t.shape))
+
+
+class _GracefulStop:
+    """SIGTERM/SIGINT trap: training finishes the current epoch, saves a
+    checkpoint and returns instead of dying mid-step.  Installed only on the
+    main thread; restores the previous handlers on exit."""
+
+    def __init__(self):
+        self.stop = False
+        self._prev = {}
+
+    def _handler(self, signum, frame):
+        self.stop = True
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for s in (signal.SIGTERM, signal.SIGINT):
+                self._prev[s] = signal.signal(s, self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        return False
+
+
+class Trainer:
+    """The epoch loop (the JAX ``Trainer``, the reference's main.py:300-356).
+
+    Builds the model of ``cfg`` in f32 from ``cfg.train.seed`` on
+    ``device`` (CUDA unless named), its optimizer and the ε generator,
+    seeded from ``cfg.train.seed`` too; logs to
+    ``<workdir>/<log_dir>/train_loss_<dataset>_<model_type>.txt`` and
+    ``.jsonl`` and checkpoints to ``checkpoint.checkpoint_dir(cfg, workdir)``."""
+
+    def __init__(self, cfg: Config, train_batch: GraphBatch, device: DeviceLike = None,
+                 workdir: str = "."):
+        if cfg.train.eval_every > 0:
+            raise NotImplementedError(
+                "held-out evaluation (train.eval_every > 0) is not ported yet "
+                "(ROADMAP.md queue 1, item 9)")
+        if cfg.mesh.data * cfg.mesh.model > 1:
+            raise NotImplementedError(
+                "training over a device mesh is not ported yet (ROADMAP.md queue 1, item 10)")
+        full_f32()
+        dev = resolve_device(device)
+        self.cfg, self.device, self.workdir = cfg, dev, workdir
+        model = build_model(cfg.with_(compute_dtype="float32"), dev).train()
+        self.state = TrainState(
+            cfg=cfg, model=model, optimizer=make_optimizer(cfg, model.parameters()),
+            generator=torch.Generator(device=dev).manual_seed(cfg.train.seed))
+        self.data = train_batch.to(dev)
+        self.batched = rebatch(self.data, cfg.train.batch_size)
+        self.logger = LossesLogger(os.path.join(
+            workdir, cfg.train.log_dir, f"train_loss_{cfg.dataset}_{cfg.model_type}.txt"))
+        self.checkpointer = Checkpointer(checkpoint_dir(cfg, workdir))
+        # epoch of the spanning-tree draw in effect (0 = the load-time draw)
+        self._tree_boundary = 0
+
+    def _maybe_resample_trees(self, epoch: int) -> None:
+        """Corrected mode (``cfg.train.resample_trees_every = k``): at the
+        k-th epoch boundaries, draw new spanning trees of the original
+        adjacencies with the numpy Kruskal seeded by seed + boundary, the
+        JAX trainer's draw bit for bit.  Keyed by the boundary epoch
+        (epoch // k)·k, so a run resumed mid-interval draws that boundary's
+        trees again."""
+        k = self.cfg.train.resample_trees_every
+        if k <= 0 or self.data.adj_samples is None:
+            return
+        boundary = (epoch // k) * k
+        if boundary == 0 or boundary == self._tree_boundary:
+            return
+        new = sample_spanning_trees(self.data.adj.cpu().numpy(), self.data.adj_samples.shape[1],
+                                    seed=self.cfg.train.seed + boundary)
+        self._tree_boundary = boundary
+        self.data = replace(self.data, adj_samples=torch.as_tensor(
+            new, dtype=self.data.adj_samples.dtype, device=self.device))
+        self.batched = rebatch(self.data, self.cfg.train.batch_size)
+
+    def maybe_restore(self) -> int:
+        """Resume from the latest checkpoint if there is one; returns the
+        epoch to start at.  A checkpoint of epoch e holds the state after
+        e's updates, so training resumes at e + 1."""
+        step = self.checkpointer.latest_step()
+        if step is None:
+            return 0
+        self.checkpointer.restore(self.state, step)
+        return step + 1
+
+    def run_epoch(self, epoch: int) -> Dict[str, list]:
+        """One epoch of steps over the contiguous batches (global_iter =
+        ``epoch``); returns each aux value's per-step list, fetched from the
+        device in the epoch's one host sync."""
+        self._maybe_resample_trees(epoch)
+        batched = _maybe_reshuffle(self.state, self.batched)
+        global_iter = torch.full((), float(epoch), device=self.device)
+        auxes = [train_step(self.state, batched._map(lambda t: t[i]), global_iter)
+                 for i in range(batched.adj.shape[0])]
+        keys = list(auxes[0])
+        values = torch.stack([torch.stack([a[k].double() for k in keys])
+                              for a in auxes]).cpu().numpy()
+        return {k: values[:, j].tolist() for j, k in enumerate(keys)}
+
+    def run(self, epochs: Optional[int] = None, verbose: bool = True) -> Dict[str, float]:
+        """Train up to ``epochs`` (``cfg.train.epochs`` when None); returns
+        the last epoch's means."""
+        cfg = self.cfg
+        epochs = cfg.train.epochs if epochs is None else epochs
+        last_means: Dict[str, float] = {}
+        start = self.maybe_restore()
+        with _GracefulStop() as stopper:
+            for epoch in range(start, epochs):
+                t0 = time.time()
+                storer = self.run_epoch(epoch)
+                if verbose:
+                    print(f"Epoch: {epoch + 1:04d} loss= {np.mean(storer['loss']):.5f}")
+                    print(f"epoch time= {time.time() - t0:.5f}")
+                if epoch % cfg.train.checkpoint_every == 0:
+                    self.checkpointer.save(epoch, self.state)
+                last_means = self.logger.log(epoch, storer)
+                if stopper.stop:
+                    self.checkpointer.save(epoch, self.state)
+                    if verbose:
+                        print(f"interrupted: checkpointed epoch {epoch}")
+                    break
+        return last_means

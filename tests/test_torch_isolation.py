@@ -39,7 +39,8 @@ def test_port_files_import_no_jax():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import snd_vae_tpu_torch, snd_vae_tpu_torch.models, snd_vae_tpu_torch.serve, "
-            "snd_vae_tpu_torch.cli, snd_vae_tpu_torch.params, snd_vae_tpu_torch.data, sys; "
+            "snd_vae_tpu_torch.cli, snd_vae_tpu_torch.params, snd_vae_tpu_torch.data, "
+            "snd_vae_tpu_torch.train, snd_vae_tpu_torch.losses, snd_vae_tpu_torch.checkpoint, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'snd_vae_tpu')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -53,12 +54,15 @@ def test_entry_points_refuse_a_missing_card():
     from snd_vae_tpu_torch.config import synthetic2_preset
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
+    from snd_vae_tpu_torch.train import Trainer
 
     cfg = synthetic2_preset()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_dataset(cfg, "test", num_graphs=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, load_dataset(cfg, "train", num_graphs=10, device="cpu"))
     proc = subprocess.run([sys.executable, "-m", "snd_vae_tpu_torch.cli", "--type", "sample"],
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "CUDA" in proc.stderr

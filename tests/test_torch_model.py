@@ -2,22 +2,22 @@
 parameters carried across by ``params.state_dict_from_flax``: the full
 synthetic2 model (B=2 graphs x S=10 trees) and a small-width config.
 
-float64 comparisons run under ``exact_f64``: JAX's Dense and GraphConv ask
-for ``preferred_element_type=float32`` even on float64 operands, and the
-fixture lifts that to float64 for float64 operands so that the comparison
-is free of f32 rounding (the JAX package itself is unchanged).  The f32
-comparison runs JAX as it is."""
-
-import dataclasses
+float64 comparisons run under ``exact_f64`` (``torch_parity.py``): JAX's
+Dense and GraphConv ask for ``preferred_element_type=float32`` even on
+float64 operands, and the fixture lifts that to float64 for float64
+operands so that the comparison is free of f32 rounding (the JAX package
+itself is unchanged).  The f32 comparison runs JAX as it is."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict, unflatten_dict
+from flax.traverse_util import unflatten_dict
+from torch_parity import configs as _configs
+from torch_parity import exact_f64, one_thread  # noqa: F401  (fixtures)
+from torch_parity import random_params as _random_params
 
-from snd_vae_tpu import config as jcfg
 from snd_vae_tpu.data.graphbatch import from_numpy as jax_batch
 from snd_vae_tpu.models import DisentangledSNDVAE as JaxModel
 from snd_vae_tpu.models import build_model as jax_build_model
@@ -29,62 +29,7 @@ from snd_vae_tpu_torch.models import build_model
 from snd_vae_tpu_torch.models.outputs import Latents
 from snd_vae_tpu_torch.params import state_dict_from_flax
 
-SMALL = dict(
-    num_nodes=8, sampling_num=3,
-    encoder=dict(s_channels=(4, 4), s_kernel_sizes=(3, 3), s_strides=(1, 2),
-                 s_hidden_size=4, s_latent_size=4, g_conv_hidden=(4, 4),
-                 g_hidden_size=4, g_latent_size=4,
-                 sg_conv_hidden=((4, 4, 4), (4, 4, 4)), sg_hidden_size=4,
-                 sg_latent_size=4),
-    decoder=dict(node_h_size=4, s_d_channels=(4, 4), s_d_kernel_sizes=(3, 3),
-                 s_d_strides=(1, 1), n_d_channels=(4, 4), n_d_kernel_sizes=(4, 3),
-                 n_d_strides=(1, 1), e_d_hidden=(4, 4), edge_from_coords=True),
-)
-
-
-def _configs(case):
-    """The same Config in both packages (their fields are identical)."""
-    if case == "synthetic2":
-        return jcfg.synthetic2_preset(), tcfg.synthetic2_preset()
-    out = []
-    for mod in (jcfg, tcfg):
-        kw = dict(SMALL, encoder=mod.EncoderConfig(**SMALL["encoder"]),
-                  decoder=mod.DecoderConfig(**SMALL["decoder"]))
-        out.append(mod.synthetic2_preset(**kw))
-    # every field equal but the dataset path, whose port default lies in its checkout
-    same = [dict(dataclasses.asdict(c), dataset_path=None) for c in out]
-    assert same[0] == same[1]
-    return tuple(out)
-
-
-@pytest.fixture
-def exact_f64(monkeypatch):
-    dot, einsum = jnp.dot, jnp.einsum
-
-    def lift(kw, operands):
-        if kw.get("preferred_element_type") == jnp.float32 and any(
-            getattr(o, "dtype", None) == jnp.float64 for o in operands
-        ):
-            kw = dict(kw, preferred_element_type=jnp.float64)
-        return kw
-
-    monkeypatch.setattr(jnp, "dot", lambda a, b, **kw: dot(a, b, **lift(kw, (a, b))))
-    monkeypatch.setattr(
-        jnp, "einsum", lambda s, *ops, **kw: einsum(s, *ops, **lift(kw, ops))
-    )
-    with jax.enable_x64():
-        yield
-
-
-def _random_params(shapes, rng):
-    """Seeded values for every leaf of the flax tree: kernels ~0.1·N(0,1),
-    BN gamma ~1+0.1·N(0,1), biases and beta ~0.1·N(0,1) (non-zero, unlike
-    the initializers, so that every bias path is checked)."""
-    flat = {}
-    for path, leaf in flatten_dict(shapes, sep="/").items():
-        v = 0.1 * rng.standard_normal(leaf.shape)
-        flat[path] = v + 1.0 if path.endswith("gamma") else v
-    return flat
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _setup(case, np_dtype):
