@@ -8,13 +8,15 @@ Phases, one output line each:
   2. build   — nvcc builds every kernel from csrc/ (sm_90a), in parallel;
   3. kernels — the timing floor (a one-element fill_ timed the same way);
                each kernel against its plain PyTorch version on the card at
-               the shapes the served path gives it (and a large one), with
-               its median device time over 100 launches, the plain
-               version's, the least time the card could take (bound), for
-               K3 the library calls' (torch.matmul for x @ W, torch.bmm /
-               torch.mm, leaky_relu), and the time of the chain each
-               replaced: for motif_level3 the projections, motif_combine,
-               lrelu and j-sum; for K3 with W the separate x @ W and K3;
+               the shapes the paths give it (and large ones), with its
+               median device time over 100 launches, the plain version's,
+               the least time the card could take (bound), for K3 the
+               library calls' (torch.matmul for x @ W, torch.bmm / torch.mm,
+               leaky_relu), and the time of the chain each replaced: for
+               motif_level3 the projections, motif_combine, lrelu and j-sum;
+               for K3 with W the separate x @ W and K3.  motif_level3 also
+               at the joint model's shapes over synthetic2 truth graphs and
+               at scene's over a directed A of integer weights 0..4;
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
                kernel launches (motif_level3 and adj_matmul twice per
@@ -34,15 +36,32 @@ Phases, one output line each:
                the forward, backward and optimizer ranges, the device
                events no host op launched, the level-3 backward (K2: the
                plain recompute) and the top backward kernels;
-  6. the kernels line (JSON); 7. the result line (JSON), last.
+  6. joint_serve — the joint model ("base") at synthetic2 width, as 4. (2
+               motif_level3 per batch, no adj_matmul, no motif_combine);
+  7. joint_train — the joint model: Trainer.run for 2 epochs in f32 (2
+               motif_level3 per step), the loss falling, one step on the
+               card against the CPU's, one step at dropout keep 0.8 run
+               twice from one generator seed, a profile of 5 steps;
+  8. scene   — the scene preset (joint model, K-way edges, categorical
+               node head) on the seeded fallback data: one reconstructed
+               batch on the card against the CPU, 3 train steps;
+  9. geoGCN, posGCN — one reconstructed batch each at synthetic2 width on
+               the card against the CPU (adj_matmul twice, no motif conv);
+ 10. separable — the disentangled synthetic2 widths at num_nodes 128: the
+               separable adjacency head against the dense one on the card,
+               the card against the CPU, both heads' device ms;
+ 11. the launches per path and the kernels line (JSON); 12. the result
+               line (JSON), last.
 
-Any failed check raises: the script then exits non-zero without a result
-line.  Without a CUDA card, or without the rest of the repository beside it,
+Each path's launches are counted from 0 just before it runs and read just
+after.  Any failed check raises: the script then exits non-zero without a
+result line.  Without a CUDA card, or without the rest of the repository beside it,
 it fails before printing anything.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -60,6 +79,8 @@ HBM_BYTES_PER_S = 3.35e12                                      # H100 SXM, data 
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
 SERVE_BATCHES = 5
 SAMPLE_GRAPHS = 100
+SCENE_TRAIN_STEPS = 3
+SEPARABLE_NODES = 128
 TRAIN_EPOCHS = 2          # the counted run; then 1 warm-up and 2 timed epochs
 PROFILE_STEPS = 5
 L3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3.cu"
@@ -76,6 +97,23 @@ def emit(phase: str, payload) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def zero_counts(ml, mc, am) -> None:
+    ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
+    am.blocked_adj_matmul.launches = 0
+
+
+def read_counts(ml, mc, am) -> dict:
+    torch.cuda.synchronize()
+    return {"motif_level3": ml.fused_motif_level3.launches,
+            "motif_combine": mc.fused_motif_combine.launches,
+            "adj_matmul": am.blocked_adj_matmul.launches}
+
+
+def per(n: int, ml3: int = 0, k3: int = 0) -> dict:
+    """The launches n batches or steps should count."""
+    return {"motif_level3": n * ml3, "motif_combine": 0, "adj_matmul": n * k3}
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -140,16 +178,18 @@ def motif_inputs(B, N, h, dtype, gen, density):
             (adj, rn(B, N, h), rn(B, N, N, h), rn(B, N, h), rn(B, N, N, h), rn(h))]
 
 
-def level3_inputs(B, N, h, R, dtype, gen, density, weighted=False):
+def level3_inputs(B, N, h, R, dtype, gen, density, weighted=False, adj=None, rel=None):
     """adj, φ(rel), a_i, v_j, deg, M1d, M1f, bias; weights at 0.3 so m3 stays
     near the served layer's magnitudes.  ``weighted``: A's edges carry
-    weights in [0, 1)."""
-    adj = (torch.rand(B, N, N, generator=gen, device="cuda") < density).float().triu(1)
-    if weighted:
-        adj = adj * torch.rand(B, N, N, generator=gen, device="cuda")
-    adj = adj + adj.transpose(1, 2)
+    weights in [0, 1).  ``adj`` / ``rel`` given: those, as they are."""
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    rel = rn(B, N, N, R)
+    if adj is None:
+        adj = (torch.rand(B, N, N, generator=gen, device="cuda") < density).float().triu(1)
+        if weighted:
+            adj = adj * torch.rand(B, N, N, generator=gen, device="cuda")
+        adj = adj + adj.transpose(1, 2)
+    if rel is None:
+        rel = rn(B, N, N, R)
     return [t.to(dtype).contiguous() for t in
             (adj, torch.maximum(rel, 0.2 * rel), rn(B, N, h), rn(B, N, h), adj.sum(-1),
              0.3 * rn(R, h), 0.3 * rn(R, h), 0.3 * rn(h))]
@@ -213,6 +253,7 @@ def check_kernels(ml, mc, am):
                          plain_ms=device_ms(lambda: ml.motif_level3_plain(*x)),
                          replaced_ms=device_ms(lambda: replaced_chain(mc, *x)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
+    rows += check_level3_new_inputs(ml, mc, gen)
     # K1, off the served path since motif_level3: the shapes the served
     # layers would give it (h = 20, 50 at B·S = 100 trees of N = 25), bf16,
     # and a dense large graph held against float64
@@ -238,6 +279,49 @@ def check_kernels(ml, mc, am):
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
     rows += check_adj_matmul(am, gen)
     torch.cuda.synchronize()
+    return rows
+
+
+def check_level3_new_inputs(ml, mc, gen):
+    """motif_level3 on the inputs the joint model gives it: its two layers
+    (h = 20, 50) over B = 10 synthetic2 truth graphs and their distances
+    (denser than spanning trees), f32 at rtol/atol 1e-5; and scene's
+    [2,10,10,20|50] over a directed A of integer weights 0..4 (zero
+    diagonal; the kernel reads row j of A for rf and row i for the mask and
+    the j-sum, so an asymmetric A shows any assumed symmetry), f32 against
+    float64 within the summation bound, and bf16."""
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    truth = load_dataset(synthetic2_preset(dataset_path=str(ROOT / "dataset")), "test",
+                         num_graphs=10, device="cuda")
+    rows = []
+    scene_adj = torch.randint(0, 5, (2, 10, 10), generator=gen, device="cuda").float()
+    scene_adj *= 1.0 - torch.eye(10, device="cuda")
+    check(not torch.equal(scene_adj, scene_adj.transpose(1, 2)), "scene A is asymmetric")
+    scene_rel = 10.0 * torch.rand(2, 10, 10, 1, generator=gen, device="cuda")
+    for path, h, dt in (("joint", 20, torch.float32), ("joint", 50, torch.float32),
+                        ("scene", 20, torch.float32), ("scene", 50, torch.float32),
+                        ("scene", 50, torch.bfloat16)):
+        adj, rel = (truth.adj, truth.rel) if path == "joint" else (scene_adj, scene_rel)
+        B, N, R = adj.shape[0], adj.shape[1], rel.shape[-1]
+        x = level3_inputs(B, N, h, R, dt, gen, None, adj=adj, rel=rel)
+        got = ml.fused_motif_level3(*x)
+        extra = {"R": R, "density": (adj != 0).float().mean().item(),
+                 "symmetric": bool(torch.equal(adj, adj.transpose(1, 2))),
+                 "weights": sorted(set(adj.unique().tolist()))}
+        if path == "scene" and dt == torch.float32:
+            err, extra["plain_f32_err_vs_f64"] = compare_f64_bound(
+                got, x, 2 * N + 2 * R + 2, ml.motif_level3_plain)
+        else:
+            err = compare(got, ml.motif_level3_plain(*x), dt)
+        b_ms, b_by = level3_bound(x, dt)
+        rows.append(dict(kernel="motif_level3", path=path, shape=[B, N, h], dtype=str(dt)[6:],
+                         served=False, batch_shape=False, max_abs_err=err,
+                         ms=device_ms(lambda: ml.fused_motif_level3(*x)),
+                         plain_ms=device_ms(lambda: ml.motif_level3_plain(*x)),
+                         replaced_ms=device_ms(lambda: replaced_chain(mc, *x)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
     return rows
 
 
@@ -358,90 +442,104 @@ def profile_batches(fn, batches) -> dict:
     }
 
 
-def run_serving(ml, mc, am):
-    from snd_vae_tpu_torch.config import synthetic2_preset
+def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
+                n_batches=SERVE_BATCHES, sample_graphs=SAMPLE_GRAPHS, num_graphs=None,
+                timed=True):
+    """Serve ``cfg`` from the seed weights: reconstruct ``n_batches`` of the
+    test split and sample ``sample_graphs`` graphs from the prior in each
+    dtype, counting the launches (``per_batch`` per reconstructed batch;
+    decoding launches none); the outputs' shapes and finiteness; in f32 one
+    batch against the same weights on the CPU (plain versions) at rtol 1e-4
+    / atol 1e-5; with ``timed``, graphs/s and profiles."""
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
     from snd_vae_tpu_torch.serve import reconstruct, sample
 
-    # the dataset path lies inside this checkout, which commits no data
-    # files: the test split is generated from the seed
-    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
-    B = cfg.train.batch_size
-    data = load_dataset(cfg, "test", device="cuda")
-    batches = [data.slice_batch(i * B, B) for i in range(SERVE_BATCHES)]
-    out = {"batch": [B, cfg.sampling_num, cfg.num_nodes], "batches": SERVE_BATCHES}
+    B, N, K = cfg.train.batch_size, cfg.num_nodes, cfg.decoder.num_edge_feature
+    scene = cfg.dataset == "scene"
+    F = 1 if scene else cfg.num_features           # scene: the shape's class index
+    data = load_dataset(cfg, "test", num_graphs=num_graphs, device="cuda")
+    batches = [data.slice_batch(i * B, B) for i in range(n_batches)]
+    out = {"model_type": cfg.model_type, "dataset": cfg.dataset,
+           "batch": [B, 1 if cfg.model_type in ("base", "geoGCN", "posGCN")
+                     else data.num_samples, N], "batches": n_batches,
+           "adj_head_factored": cfg.adj_factored_engaged}
+    ref_out = None
 
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name in dtypes:
         model = build_model(cfg.with_(compute_dtype=dtype_name), device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
         reconstruct(model, batches[0])               # warm-up: cuDNN plans, caches
-        sample(model, SAMPLE_GRAPHS, gen)
+        if sample_graphs:
+            sample(model, sample_graphs, gen)
         torch.cuda.synchronize()
 
-        # the main path, counted: 5 reconstructed batches and 100 samples
-        ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
-        am.blocked_adj_matmul.launches = 0
+        # the path, counted: the reconstructed batches and the samples
+        zero_counts(ml, mc, am)
         outs = [reconstruct(model, b) for b in batches]
-        drawn = sample(model, SAMPLE_GRAPHS, gen)
-        torch.cuda.synchronize()
-        launches = {"motif_level3": ml.fused_motif_level3.launches,
-                    "motif_combine": mc.fused_motif_combine.launches,
-                    "adj_matmul": am.blocked_adj_matmul.launches}
-        check(launches == {"motif_level3": 2 * SERVE_BATCHES, "motif_combine": 0,
-                           "adj_matmul": 2 * SERVE_BATCHES},
-              f"{dtype_name}: launches {launches}, expected 2 of motif_level3 and "
-              "adj_matmul per batch and no motif_combine")
+        drawn = sample(model, sample_graphs, gen) if sample_graphs else None
+        launches = read_counts(ml, mc, am)
+        check(launches == per(n_batches, **per_batch),
+              f"{cfg.model_type}/{cfg.dataset} {dtype_name}: launches {launches}, expected "
+              f"{per_batch} per batch over {n_batches}")
 
-        N = cfg.num_nodes
         for o in outs:
             d = o.decoded
-            check(d.adj_prob.shape == (B, N, N, 2) and d.coords.shape == (B, N, 2)
-                  and d.node_feat.shape == (B, N, 1), "reconstruct shapes")
+            check(d.adj_prob.shape == (B, N, N, K) and d.coords.shape == (B, N, cfg.spatial_dim)
+                  and d.node_feat.shape == (B, N, F), "reconstruct shapes")
             for t in (d.adj_prob, d.coords, d.node_feat, o.stats.mean_sg):
                 check(bool(torch.isfinite(t).all()), "reconstruct outputs finite")
-        check(drawn.adj.shape == (SAMPLE_GRAPHS, N, N)
-              and drawn.coords.shape == (SAMPLE_GRAPHS, N, 2)
-              and drawn.node_feat.shape == (SAMPLE_GRAPHS, N, 1), "sample shapes")
-        for t in (drawn.adj_prob, drawn.coords, drawn.node_feat):
-            check(bool(torch.isfinite(t).all()), "sample outputs finite")
-        check(bool(((drawn.adj == 0) | (drawn.adj == 1)).all()), "sampled adj is 0/1")
+        if drawn is not None:
+            check(drawn.adj.shape == (sample_graphs, N, N)
+                  and drawn.coords.shape == (sample_graphs, N, cfg.spatial_dim)
+                  and drawn.node_feat.shape == (sample_graphs, N, F), "sample shapes")
+            for t in (drawn.adj_prob, drawn.coords, drawn.node_feat):
+                check(bool(torch.isfinite(t).all()), "sample outputs finite")
+            check(bool(((drawn.adj >= 0) & (drawn.adj < K)).all()), "sampled adj classes")
 
         res = {"launches": launches}
         if dtype_name == "float32":
-            f32_out = outs[0]
+            ref_out = outs[0]
             # the same weights on the CPU, where the wrappers run the plain versions
             cpu = build_model(cfg, device="cpu")
             cpu.load_state_dict(model.state_dict())
             ref = reconstruct(cpu, batches[0].to("cpu"))
-            errs = {}
-            for name, got, want in (
-                    ("mean_sg", outs[0].stats.mean_sg, ref.stats.mean_sg),
-                    ("mean_s", outs[0].stats.mean_s, ref.stats.mean_s),
-                    ("mean_g", outs[0].stats.mean_g, ref.stats.mean_g),
-                    ("adj_prob", outs[0].decoded.adj_prob, ref.decoded.adj_prob),
-                    ("coords", outs[0].decoded.coords, ref.decoded.coords),
-                    ("node_feat", outs[0].decoded.node_feat, ref.decoded.node_feat)):
-                torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
-                errs[name] = (got.cpu() - want).abs().max().item()
-            res["cpu_max_abs_err"] = errs
+            res["cpu_max_abs_err"] = held_to_cpu(outs[0], ref, scene)
         else:
             res["max_abs_diff_vs_f32"] = {
                 "adj_prob": (outs[0].decoded.adj_prob.float()
-                             - f32_out.decoded.adj_prob).abs().max().item(),
+                             - ref_out.decoded.adj_prob).abs().max().item(),
                 "coords": (outs[0].decoded.coords.float()
-                           - f32_out.decoded.coords).abs().max().item()}
-        res["reconstruct_graphs_per_s"] = serve_rate(
-            lambda: [reconstruct(model, b) for b in batches], B * SERVE_BATCHES, 20)
-        res["sample_graphs_per_s"] = serve_rate(
-            lambda: sample(model, SAMPLE_GRAPHS, gen), SAMPLE_GRAPHS, 20)
-        res["reconstruct_profile"] = profile_batches(lambda b: reconstruct(model, b), batches)
-        # beside the launch check: all kernels of one reconstructed batch
-        res["kernels_per_batch"] = res["reconstruct_profile"]["kernels_per_batch"]
-        res["sample_profile"] = profile_batches(
-            lambda _: sample(model, SAMPLE_GRAPHS, gen), [None] * SERVE_BATCHES)
+                           - ref_out.decoded.coords).abs().max().item()}
+        if timed:
+            res["reconstruct_graphs_per_s"] = serve_rate(
+                lambda: [reconstruct(model, b) for b in batches], B * n_batches, 20)
+            res["sample_graphs_per_s"] = serve_rate(
+                lambda: sample(model, sample_graphs, gen), sample_graphs, 20)
+            res["reconstruct_profile"] = profile_batches(lambda b: reconstruct(model, b),
+                                                         batches)
+            # beside the launch check: all kernels of one reconstructed batch
+            res["kernels_per_batch"] = res["reconstruct_profile"]["kernels_per_batch"]
+            res["sample_profile"] = profile_batches(
+                lambda _: sample(model, sample_graphs, gen), [None] * n_batches)
         out[dtype_name] = res
     return out
+
+
+def held_to_cpu(got, want, scene) -> dict:
+    """The card's f32 outputs against the CPU's at rtol 1e-4 / atol 1e-5:
+    every posterior mean the model has and the decoded heads (scene: the
+    node logits, not their argmax); returns the largest errors."""
+    pairs = [(f, getattr(got.stats, f), getattr(want.stats, f))
+             for f in ("mean_sg", "mean_s", "mean_g") if getattr(want.stats, f) is not None]
+    pairs += [(f, getattr(got.decoded, f), getattr(want.decoded, f))
+              for f in ("adj_prob", "coords", "node_feat_prob" if scene else "node_feat")]
+    errs = {}
+    for name, g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        errs[name] = (g.cpu() - w).abs().max().item()
+    return errs
 
 
 def step_phase(event) -> str:
@@ -540,6 +638,25 @@ def level3_backward_bound(cfg, B, dtype) -> dict:
     return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "operations": ops}
 
 
+def adj_matmul_backward_bound(cfg, B, dtype) -> dict:
+    """The least time of the K3 backward of one step (both GraphConvs):
+    bytes of A, x, W and the gradient in read, the gradients of x (all but
+    the first layer, whose x is the data) and W written; operations twice
+    the forward's (A^T @ g and its product with W^T for x, x^T @ (A^T g)
+    for W)."""
+    N, F = cfg.num_nodes, cfg.num_features
+    nbytes = ops = 0
+    f = F
+    for i, h in enumerate(cfg.encoder.g_conv_hidden):
+        reads = B * N * N + B * N * f + f * h + B * N * h
+        writes = (B * N * f if i else 0) + f * h
+        nbytes += (reads + writes) * (2 if dtype == torch.bfloat16 else 4)
+        ops += 2 * (2 * B * N * N * h + 2 * B * N * f * h + 2 * B * N * h)
+        f = h + F                                   # the skip concat of the features
+    ms, by = bound(nbytes, ops, dtype)
+    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "operations": ops}
+
+
 def card_vs_cpu_step(cfg, batch):
     """One Adam step from the seed weights on the card and on a CPU copy,
     same batch and ε: the loss at rtol 1e-5, every gradient at rtol 1e-4 /
@@ -552,7 +669,8 @@ def card_vs_cpu_step(cfg, batch):
     from snd_vae_tpu_torch import train as tt
     from snd_vae_tpu_torch.models import Latents, build_model
 
-    B, S, enc = cfg.train.batch_size, cfg.sampling_num, cfg.encoder
+    B, enc = cfg.train.batch_size, cfg.encoder
+    S = 1 if cfg.model_type == "base" else cfg.sampling_num     # the joint model: z_sg only
     gen = torch.Generator().manual_seed(0)
     eps = Latents(z_sg=torch.randn(B, S, enc.sg_latent_size, generator=gen),
                   z_s=torch.randn(B, enc.s_latent_size, generator=gen),
@@ -611,16 +729,11 @@ def run_training(ml, mc, am):
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
             trainer = tt.Trainer(run_cfg, data, device="cuda", workdir=workdir)
             # the main path, counted: Trainer.run over 2 epochs
-            ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
-            am.blocked_adj_matmul.launches = 0
+            zero_counts(ml, mc, am)
             trainer.run(TRAIN_EPOCHS, verbose=False)
-            torch.cuda.synchronize()
-            launches = {"motif_level3": ml.fused_motif_level3.launches,
-                        "motif_combine": mc.fused_motif_combine.launches,
-                        "adj_matmul": am.blocked_adj_matmul.launches}
+            launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == {"motif_level3": 2 * steps, "motif_combine": 0,
-                               "adj_matmul": 2 * steps},
+            check(launches == per(steps, ml3=2, k3=2),
                   f"{dtype_name}: launches {launches} over {steps} steps, expected 2 of "
                   "motif_level3 and adj_matmul per step and no motif_combine")
             with open(trainer.logger.jsonl_path) as f:
@@ -650,35 +763,201 @@ def run_training(ml, mc, am):
             res["profile"] = profile_steps(lambda b: tt.train_step(trainer.state, b, gi),
                                            batches)
         res["level3_backward_bound"] = level3_backward_bound(cfg, B, getattr(torch, dtype_name))
+        res["adj_matmul_backward_bound"] = adj_matmul_backward_bound(
+            cfg, B, getattr(torch, dtype_name))
         if dtype_name == "float32":
             res["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, B))
         out[dtype_name] = res
     return out
 
 
-def kernel_entry(name, source, replaces, tpu_fn, rows, launches, launches_by_path):
+def run_joint_training(ml, mc, am):
+    """The joint model at synthetic2 width in f32: Trainer.run for 2 epochs
+    from the seed weights (counted: 2 motif_level3 per step), the epoch
+    loss falling; a timed epoch and a profile of 5 steps; one step on the
+    card against the CPU's; the dropout step."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(model_type="base", dataset_path=str(ROOT / "dataset"))
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "train", device="cuda")
+    nb = data.batch_size // B
+    res = {"batch": [B, 1, cfg.num_nodes], "steps_per_epoch": nb, "epochs": TRAIN_EPOCHS}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+        zero_counts(ml, mc, am)
+        trainer.run(TRAIN_EPOCHS, verbose=False)
+        launches = read_counts(ml, mc, am)
+        steps = TRAIN_EPOCHS * nb
+        check(launches == per(steps, ml3=2),
+              f"joint train: launches {launches} over {steps} steps, expected 2 motif_level3 "
+              "per step and nothing else")
+        with open(trainer.logger.jsonl_path) as f:
+            means = [json.loads(line)["loss"] for line in f]
+        check(len(means) == TRAIN_EPOCHS and all(math.isfinite(m) for m in means),
+              f"joint train: epoch losses {means} not all finite")
+        check(means[1] < means[0], f"joint train: loss did not fall: {means}")
+        res.update(launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+                   epoch_mean_loss=means)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_epoch(TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        res["steps_per_s"] = nb / (time.perf_counter() - t0)
+        res["graphs_per_s"] = res["steps_per_s"] * B
+        gi = torch.zeros((), device="cuda")
+        batches = [trainer.batched._map(lambda t, i=i: t[i]) for i in range(PROFILE_STEPS)]
+        res["profile"] = profile_steps(lambda b: tt.train_step(trainer.state, b, gi), batches)
+    res["level3_backward_bound"] = level3_backward_bound(cfg.with_(sampling_num=1), B,
+                                                         torch.float32)
+    res["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, B))
+    res["dropout"] = dropout_step(cfg, data.slice_batch(0, B))
+    return res
+
+
+def dropout_step(cfg, batch, keep=0.8) -> dict:
+    """One f32 train step at dropout keep 0.8, twice from the same seed of
+    the card's generator (the masks and ε come from it): the same loss (rtol
+    1e-6); keep 1 from that seed gives another loss.  The updated weights'
+    largest difference between the two runs is reported: Adam's first step
+    turns any difference of a tiny gradient (cuDNN's backward need not sum
+    in a fixed order) into up to lr·dg/eps."""
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.models import build_model
+
+    gi = torch.zeros((), device="cuda")
+
+    def run(k):
+        c = cfg.with_(train=dataclasses.replace(cfg.train, dropout_keep_prob=k))
+        model = build_model(c, "cuda").train()
+        state = tt.TrainState(cfg=c, model=model,
+                              optimizer=tt.make_optimizer(c, model.parameters()),
+                              generator=torch.Generator(device="cuda").manual_seed(5))
+        loss = tt.train_step(state, batch, gi)["loss"]
+        return loss.item(), [p.detach().clone() for p in model.parameters()]
+
+    (l1, p1), (l2, p2), (l_full, _) = run(keep), run(keep), run(1.0)
+    check(math.isfinite(l1), f"dropout step loss {l1}")
+    torch.testing.assert_close(torch.tensor(l2), torch.tensor(l1), rtol=1e-6, atol=0)
+    param_diff = max((a - b).abs().max().item() for a, b in zip(p1, p2))
+    check(l_full != l1, "dropout changed nothing")
+    return {"keep": keep, "loss": l1, "rerun_loss_diff": abs(l2 - l1),
+            "rerun_param_max_diff": param_diff, "loss_keep_1": l_full}
+
+
+def run_scene(ml, mc, am):
+    """The scene preset (the joint model, K-way edge logits without a
+    diagonal mask, the categorical node head) on the seeded fallback data:
+    one reconstructed batch against the CPU (2 motif_level3); 3 train steps
+    on one batch, counted (2 motif_level3 each), the loss finite and
+    falling."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import scene_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = scene_preset(dataset_path=str(ROOT / "dataset"))
+    res = {"serve": serve_phase(ml, mc, am, cfg, {"ml3": 2}, dtypes=("float32",), n_batches=1,
+                                sample_graphs=SAMPLE_GRAPHS, timed=False)}
+    data = load_dataset(cfg, "train", device="cuda")
+    check(data.adj_samples is None and not torch.equal(data.adj, data.adj.transpose(1, 2)),
+          "scene: a directed adjacency and no spanning trees")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+        batch = trainer.batched._map(lambda t: t[0])
+        gi = torch.zeros((), device="cuda")
+        zero_counts(ml, mc, am)
+        auxes = [tt.train_step(trainer.state, batch, gi) for _ in range(SCENE_TRAIN_STEPS)]
+        launches = read_counts(ml, mc, am)
+    losses = [a["loss"].item() for a in auxes]
+    check(launches == per(SCENE_TRAIN_STEPS, ml3=2), f"scene train: launches {launches}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"scene train: losses {losses}")
+    res["train"] = {"launches": launches, "losses": losses,
+                    "adj_loss": [a["adj_loss"].item() for a in auxes]}
+    return res
+
+
+def run_separable(ml, mc, am):
+    """The disentangled synthetic2 widths at num_nodes 128, one batch of 10
+    graphs: the separable head (adj_head_factored=True) against the dense
+    one (False) on the card at rtol 1e-4 / atol 1e-5, the separable model
+    on the card against the CPU, and each head's median device ms on the
+    same per-node states."""
+    from snd_vae_tpu_torch.config import DecoderConfig, synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import build_model
+    from snd_vae_tpu_torch.serve import reconstruct
+
+    base = synthetic2_preset(dataset_path=str(ROOT / "dataset"), num_nodes=SEPARABLE_NODES)
+    cfgs = {name: base.with_(decoder=DecoderConfig(node_h_size=20, adj_head_factored=f))
+            for name, f in (("factored", True), ("dense", False))}
+    B = base.train.batch_size
+    res = {"serve": serve_phase(ml, mc, am, cfgs["factored"], {"ml3": 2, "k3": 2},
+                                dtypes=("float32",), n_batches=1, sample_graphs=0,
+                                num_graphs=B, timed=False)}
+    batch = load_dataset(base, "test", num_graphs=B, device="cuda")
+    models = {name: build_model(c, "cuda") for name, c in cfgs.items()}
+    outs = {name: reconstruct(m, batch) for name, m in models.items()}
+    torch.testing.assert_close(outs["factored"].decoded.adj_prob, outs["dense"].decoded.adj_prob,
+                               rtol=1e-4, atol=1e-5)
+    res["factored_vs_dense_max_abs_err"] = (outs["factored"].decoded.adj_prob
+                                            - outs["dense"].decoded.adj_prob).abs().max().item()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(B, SEPARABLE_NODES, 2 * base.decoder.node_h_size, generator=gen,
+                    device="cuda")
+    coords = torch.rand(B, SEPARABLE_NODES, base.spatial_dim, generator=gen, device="cuda")
+    with torch.inference_mode():
+        res["head_ms"] = {name: device_ms(lambda m=m: m._adj_head(h, coords), reps=20)
+                          for name, m in models.items()}
+    return res
+
+
+def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
     """One kernel's line: its times summed over the shapes one served batch
-    (or one train step's forward: the same shapes) launches it at (f32).  A
-    kernel off the served path has no such rows; its line sums the rows at
-    the shapes the served layers would give it."""
+    of the disentangled model (or one train step's forward: the same
+    shapes) launches it at (f32).  A kernel off that path has no such rows;
+    its line sums the rows at the shapes the served layers would give it.
+    ``rows_by_path`` sums the rows of the joint model's and scene's shapes
+    the same way, per dtype."""
     mine = [r for r in rows if r["kernel"] == name]
     served = [r for r in mine if r["served"]]
     picked = served or [r for r in mine if r["batch_shape"]]
-    total = lambda key: (None if not picked or any(r.get(key) is None for r in picked)
-                         else sum(r[key] for r in picked))
+
+    def total(rs, key):
+        return (None if not rs or any(r.get(key) is None for r in rs)
+                else sum(r[key] for r in rs))
+
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "tpu_function": tpu_fn, "launches": launches, "launches_by_path": launches_by_path,
-        "on_main_path": bool(served),
+        "tpu_function": tpu_fn, "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path, "on_main_path": bool(served),
         "max_abs_err": max((r["max_abs_err"] for r in picked), default=None),
-        "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "ms": total(picked, "ms"), "plain_ms": total(picked, "plain_ms"),
+        "bound_ms": total(picked, "bound_ms"),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in picked)
                      else "operations"),
-        "library_ms": total("library_ms"),
+        "library_ms": total(picked, "library_ms"),
         "per_batch_shapes": [r["shape"] for r in picked],
     }
     if any("replaced_ms" in r for r in picked):
-        entry["replaced_ms"] = total("replaced_ms")
+        entry["replaced_ms"] = total(picked, "replaced_ms")
+    by_path = {}
+    for r in mine:
+        if r.get("path"):
+            by_path.setdefault(f"{r['path']}_{r['dtype']}", []).append(r)
+    if by_path:
+        entry["rows_by_path"] = {
+            key: {"shapes": [r["shape"] for r in rs], "ms": total(rs, "ms"),
+                  "plain_ms": total(rs, "plain_ms"), "bound_ms": total(rs, "bound_ms"),
+                  "max_abs_err": max(r["max_abs_err"] for r in rs)}
+            for key, rs in by_path.items()}
     return entry
 
 
@@ -721,19 +1000,48 @@ def main() -> int:
         emit("kernel", r)
 
     # 4. the served path
-    serving = run_serving(ml, mc, am)
+    from snd_vae_tpu_torch.config import synthetic2_preset
+
+    # the dataset path lies inside this checkout, which commits no data
+    # files: the splits are generated from the seed
+    s2 = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    serving = serve_phase(ml, mc, am, s2, {"ml3": 2, "k3": 2})
     emit("serve", serving)
 
     # 5. the training path
     training = run_training(ml, mc, am)
     emit("train", training)
 
-    # 6. kernels line, 7. result line (the card's line just before); the
-    # launches are the f32 runs' of both paths, each counted from 0
-    by_path = {"serve": serving["float32"]["launches"], "train": training["float32"]["launches"]}
+    # 6.-10. the joint model, scene, the geoGCN / posGCN encoders and the
+    # separable adjacency head
+    joint_serving = serve_phase(ml, mc, am, s2.with_(model_type="base"), {"ml3": 2})
+    emit("joint_serve", joint_serving)
+    joint_training = run_joint_training(ml, mc, am)
+    emit("joint_train", joint_training)
+    scene = run_scene(ml, mc, am)
+    emit("scene", scene)
+    baselines = {mt: serve_phase(ml, mc, am, s2.with_(model_type=mt), {"k3": 2},
+                                 dtypes=("float32",), n_batches=1, sample_graphs=SAMPLE_GRAPHS,
+                                 num_graphs=s2.train.batch_size, timed=False)
+                 for mt in ("geoGCN", "posGCN")}
+    emit("baselines", baselines)
+    separable = run_separable(ml, mc, am)
+    emit("separable", separable)
+
+    # 11. launches per path (the f32 runs, each counted from 0), the kernels
+    # line; 12. the result line (the card's line just before)
+    by_path = {"serve": serving["float32"]["launches"],
+               "train": training["float32"]["launches"],
+               "joint_serve": joint_serving["float32"]["launches"],
+               "joint_train": joint_training["launches"],
+               "scene_serve": scene["serve"]["float32"]["launches"],
+               "scene_train": scene["train"]["launches"],
+               "geoGCN_serve": baselines["geoGCN"]["float32"]["launches"],
+               "posGCN_serve": baselines["posGCN"]["float32"]["launches"],
+               "separable_serve": separable["serve"]["float32"]["launches"]}
+    emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
-        name, source, replaces, tpu_fn, rows, sum(p[name] for p in by_path.values()),
-        {path: p[name] for path, p in by_path.items()})
+        name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})
     print(json.dumps({"kernels": [
         entry("motif_level3", L3_SOURCE, "fused_motif_combine", K1_REPLACES),
         entry("motif_combine", K1_SOURCE, "fused_motif_combine", K1_REPLACES),

@@ -3,9 +3,13 @@
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 100
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_reconstruct
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type sample --num-generate 100
+  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --model-type base --type train
+  python -m snd_vae_tpu_torch.cli --dataset scene --type train     # the joint model
 
-runs on the CUDA card unless ``--device cpu`` is given and prints one JSON
-dict.  ``train`` trains on the train split (``train.Trainer``), logging
+takes synthetic1/2/3 and scene with any model type the dataset's inputs
+allow (scene has no spanning trees: its preset is the joint model "base";
+geoGCN and posGCN read the truth graph), runs on the CUDA card unless
+``--device cpu`` is given and prints one JSON dict.  ``train`` trains on the train split (``train.Trainer``), logging
 under ``<workdir>/logs`` and checkpointing under
 ``<workdir>/checkpoints/<dataset>_<model_type>``; it resumes from the
 latest checkpoint there.  The serving types restore that checkpoint (the
@@ -66,26 +70,26 @@ def run_train(cfg, workdir: str, device, epochs=None) -> Dict:
 
 
 def run_test_reconstruct(cfg, model, workdir: str) -> Dict:
-    """Posterior-mean reconstruction of the test split in batches of
-    ``cfg.train.batch_size``; writes the decoded graphs and the latent
-    means (z_sg averaged over the trees, as the reference does)."""
+    """Posterior-mean reconstruction of the test split (scene: val) in
+    batches of ``cfg.train.batch_size``; writes the decoded graphs and the
+    latent means (z_sg averaged over the trees, as the reference does; the
+    joint model has z_sg only)."""
     batch = load_dataset(cfg, "test", device=model.device)
     B = cfg.train.batch_size
-    outs, zs, zgs, zsgs = [], [], [], []
+    outs, stats = [], []
     for i in range(max(batch.batch_size // B, 1)):
         out = reconstruct(model, batch.slice_batch(i * B, B))
         outs.append(out.decoded)
-        zs.append(out.stats.mean_s)
-        zgs.append(out.stats.mean_g)
-        zsgs.append(out.stats.mean_sg.mean(dim=1))
+        stats.append({"z_sg": out.stats.mean_sg.mean(dim=1), "z_s": out.stats.mean_s,
+                      "z_g": out.stats.mean_g})
     cat = lambda name: torch.cat([getattr(o, name) for o in outs])
     rec_dir = os.path.join(workdir, "reconstructed", f"{cfg.dataset}_{cfg.model_type}")
     _save(rec_dir, {"adj": cat("adj"), "coords": cat("coords"),
                     "node_feat": cat("node_feat")})
     vt = cfg.model_type
     _save(os.path.join(workdir, "qualitative_evaluation", cfg.dataset),
-          {f"{vt}_z_sg": torch.cat(zsgs), f"{vt}_z_s": torch.cat(zs),
-           f"{vt}_z_g": torch.cat(zgs)})
+          {f"{vt}_{k}": torch.cat([s[k] for s in stats]) for k in ("z_sg", "z_s", "z_g")
+           if stats[0][k] is not None})
     return {"num_reconstructed": len(outs) * B, "dir": rec_dir,
             "adj_shape": list(cat("adj").shape)}
 

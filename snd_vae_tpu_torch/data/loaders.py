@@ -1,14 +1,17 @@
-"""Dataset loading for the synthetic datasets — the port of
-``snd_vae_tpu/data/loaders.py:58-99`` and ``:282-365``.
+"""Dataset loading for the synthetic datasets and scene — the port of
+``snd_vae_tpu/data/loaders.py:58-99``, ``:206-275`` and ``:282-384``.
 
-Reads the reference's on-disk ``.npy`` layout when present and generates
-the synthetic data from the seed otherwise, exactly as the JAX loader does
-with its numpy spanning-tree sampler: for the same cfg and seed, every
-array is bit-equal.  protein, mnist and scene come in a later slice.
+Reads the reference's on-disk layouts when present (the synthetic ``.npy``
+files, CLEVR's ``CLEVR_<split>_scenes.json``) and generates the data from
+the seed otherwise, exactly as the JAX loader does with its numpy
+spanning-tree sampler: for the same cfg and seed, every array is bit-equal.
+Scene has no spanning trees and a directed adjacency of relation codes.
+protein and mnist come in a later slice and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional, Tuple
 
@@ -95,10 +98,75 @@ def tile_skew_pairing(node: np.ndarray, rel: np.ndarray,
     return node[skew], rel[skew]
 
 
+def load_data_scene(type_: str, path: str, seed: int = 1,
+                    num_graphs_fallback: int = 64) -> Tuple[np.ndarray, ...]:
+    """CLEVR scenes with exactly 10 objects (input_data.py:309-415):
+    returns (node, spatial, adj, rel) with one-hot shapes [G,10,3], 3D
+    coordinates, a directed adjacency of relation codes 0..4 (none, then
+    the merged right-left / behind-front pairs) and pairwise distances.
+    The eval split is ``val``.  Without the JSON file, a seeded generator
+    (codes 1 and 2 from the x order) stands in."""
+    split = "train" if type_ in TRAIN_SPLITS else "val"
+    size = 10
+    f = os.path.join(path, f"CLEVR_{split}_scenes.json")
+    shapes = ["sphere", "cylinder", "cube"]
+    rel_feature = ["right", "behind", "front", "left"]
+    rel_pairs = [{"12", "21"}, {"13", "31"}, {"24", "42"}, {"34", "43"}]
+    node, spatial, adj = [], [], []
+    if os.path.exists(f):
+        with open(f) as fh:
+            data = json.load(fh)
+        for scene in data["scenes"]:
+            objs = scene["objects"]
+            if len(objs) != size:
+                continue
+            spatial.append([o["3d_coords"] for o in objs])
+            oh = np.zeros((size, len(shapes)))
+            for j, o in enumerate(objs):
+                oh[j, shapes.index(o["shape"])] = 1
+            node.append(oh)
+            a = np.zeros((size, size), dtype=np.int64)
+            merged = np.full((size, size), "", dtype=object)
+            for direction, rels in scene["relationships"].items():
+                code = rel_feature.index(direction) + 1
+                for k, members in enumerate(rels):
+                    for m in members:
+                        merged[m][k] += str(code)
+                        a[m][k] = code
+            for i in range(size):
+                for k in range(size):
+                    for pi, pair in enumerate(rel_pairs):
+                        if merged[i][k] in pair:
+                            a[i][k] = pi + 1
+            adj.append(a)
+    else:
+        rng = np.random.default_rng(seed + (0 if split == "train" else 10_000))
+        for _ in range(num_graphs_fallback):
+            pts = rng.uniform(-3, 3, (size, 3))
+            oh = np.zeros((size, len(shapes)))
+            oh[np.arange(size), rng.integers(0, len(shapes), size)] = 1
+            a = np.where(pts[:, None, 0] > pts[None, :, 0], 1, 2)
+            np.fill_diagonal(a, 0)
+            node.append(oh)
+            spatial.append(pts)
+            adj.append(a)
+    node = np.asarray(node, dtype=np.float64).reshape(-1, size, len(shapes))
+    spatial = np.asarray(spatial, dtype=np.float64)
+    adj = np.asarray(adj, dtype=np.float64)
+    rel = np.linalg.norm(spatial[:, :, None] - spatial[:, None, :], axis=-1)
+    adj, node, spatial, rel = _shuffle_all(np.random.default_rng(seed), adj, node, spatial, rel)
+    return node, spatial, adj, rel
+
+
 def _load_raw(cfg: Config, split: str, num_graphs: Optional[int]):
+    if cfg.dataset == "scene":
+        node, spatial, adj, rel = load_data_scene(
+            split, cfg.dataset_path, seed=cfg.train.seed,
+            num_graphs_fallback=num_graphs or 200)
+        return adj, node, spatial, rel, None, None, None, None
     if cfg.dataset not in SYNTHETIC_SUBDIRS:
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (synthetic1/2/3 are)"
+            f"dataset {cfg.dataset!r} is not ported yet (synthetic1/2/3 and scene are)"
         )
     node, spatial, adj_s, rel, factor, adj_truth = load_data_syn(
         split, os.path.join(cfg.dataset_path, SYNTHETIC_SUBDIRS[cfg.dataset]),
@@ -126,8 +194,8 @@ def train_coord_bounds(cfg: Config) -> Tuple[float, float]:
 def load_dataset(cfg: Config, split: str = "train", num_graphs: Optional[int] = None,
                  device: DeviceLike = None) -> GraphBatch:
     """The configured dataset as a float32 GraphBatch on ``device`` (CUDA
-    unless named).  Spanning-tree samples pair with their own graph unless
-    ``cfg.reproduce_pairing_skew``; ``cfg.normalize_coords`` maps
+    unless named).  Spanning-tree samples (none for scene) pair with their
+    own graph unless ``cfg.reproduce_pairing_skew``; ``cfg.normalize_coords`` maps
     coordinates and rel distances by the train split's bounds."""
     dev = resolve_device(device)
     adj, node, spatial, rel, adj_s, factor, feat_s, rel_s = _load_raw(cfg, split, num_graphs)

@@ -5,16 +5,18 @@ z_g, joint z_sg) and a three-headed decoder.  The port of
 Encoder: the g-branch stacks GraphConv (kernel K3) + frozen BN + a skip
 concat of the raw features; the s-branch stacks SAME conv1d + BN + relu
 over the coordinates; the sg-branch stacks SpatialGraphConv (kernel K1 at
-level 3) + BN + lrelu over the B·S spanning trees.  Decoder: per-branch
-projections to per-node states, sg states averaged over the tree axis, then
-the node-feature head (conv1d), the coordinate head (conv1d) and the
-adjacency head (pairwise tile-concat + E2E stack + diag mask).
+level 3) + BN + lrelu over the B·S spanning trees, or for the geoGCN /
+posGCN baselines GeoGraphConv / StructGraphConv + BN + lrelu over the truth
+graph with S = 1.  Decoder: per-branch projections to per-node states, sg
+states averaged over the tree axis, then the node-feature head (conv1d),
+the coordinate head (conv1d) and the adjacency head (pairwise tile-concat
++ E2E stack + diag mask; from ``cfg.adj_factored_engaged`` on, its first
+layer runs separable, ``E2E._separable``).
 
 Submodule and parameter names follow the flax tree (``g_convs.0.kernel``
 for ``g_convs_0/kernel``), so ``params.state_dict_from_flax`` carries JAX
 weights across.  Not ported yet, and raising NotImplementedError: the
-geoGCN/posGCN encoders, the fourth-order conv (protein, mnist), remat, the
-blocked motif lowering and the separable first adjacency layer (N >= 96).
+fourth-order conv (protein, mnist), remat and the blocked motif lowering.
 """
 
 from __future__ import annotations
@@ -26,25 +28,23 @@ from torch import nn
 
 from ..config import Config
 from ..data.graphbatch import GraphBatch
-from ..nn import E2E, Conv1D, Dense, GraphConv, SpatialGraphConv, lrelu, make_norm
+from ..nn import (
+    E2E, Conv1D, Dense, GeoGraphConv, GraphConv, SpatialGraphConv, StructGraphConv, lrelu,
+    make_norm,
+)
 from .outputs import (
-    DecodedGraph, Latents, LatentStats, ModelOutput, apply_coord_activation,
-    edge_distance_channel,
+    DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
+    diag_masked,
 )
 
 
-def _check_ported(cfg: Config) -> None:
+def check_ported(cfg: Config) -> None:
+    """Raise NotImplementedError on what neither model family ports yet."""
     missing = []
-    if cfg.model_type in ("geoGCN", "posGCN"):
-        missing.append(f"the {cfg.model_type} encoder")
-    if cfg.model_type == "base":
-        missing.append("the joint (base) model")
     if cfg.uses_3d_conv:
         missing.append("the fourth-order spatial conv")
     if cfg.remat:
         missing.append("rematerialization")
-    if cfg.adj_factored_engaged:
-        missing.append("the separable adjacency-head lowering (E2E._separable)")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -52,7 +52,7 @@ def _check_ported(cfg: Config) -> None:
 class DisentangledSNDVAE(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator):
         super().__init__()
-        _check_ported(cfg)
+        check_ported(cfg)
         self.cfg = cfg
         enc, dec = cfg.encoder, cfg.decoder
         N, nf, g = cfg.num_nodes, cfg.num_features, generator
@@ -83,12 +83,22 @@ class DisentangledSNDVAE(nn.Module):
         self.s_lin_std = Dense(enc.s_hidden_size, enc.s_latent_size, g)
 
         # --- encoder: joint branch ---------------------------------------
+        # geoGCN / posGCN take the first width of each layer's tuple;
+        # GeoGraphConv outputs one block of it per relation channel
         convs, bns, c = [], [], nf
         for hidden in enc.sg_conv_hidden:
-            convs.append(SpatialGraphConv(c, cfg.rel_dim, tuple(hidden), g,
-                                          block_rows=cfg.motif_block_rows))
-            bns.append(norm(hidden[-1]))
-            c = hidden[-1]
+            hidden = tuple(hidden) if isinstance(hidden, (tuple, list)) else (hidden,)
+            if cfg.model_type == "geoGCN":
+                convs.append(GeoGraphConv(c, hidden[0], g))
+                c = cfg.rel_dim * hidden[0]
+            elif cfg.model_type == "posGCN":
+                convs.append(StructGraphConv(c, hidden[0], g))
+                c = hidden[0]
+            else:
+                convs.append(SpatialGraphConv(c, cfg.rel_dim, hidden, g,
+                                              block_rows=cfg.motif_block_rows))
+                c = hidden[-1]
+            bns.append(norm(c))
         self.sg_convs, self.sg_bns = nn.ModuleList(convs), nn.ModuleList(bns)
         self.encoder_sg_bn = norm(c)
         self.sg_lin1 = Dense(N * c, enc.sg_hidden_size, g)
@@ -142,9 +152,12 @@ class DisentangledSNDVAE(nn.Module):
     # ------------------------------------------------------------------ #
     def forward(self, batch: GraphBatch, deterministic_z: bool = False,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[Latents] = None) -> ModelOutput:
+                eps: Optional[Latents] = None, dropout_keep: float = 1.0) -> ModelOutput:
         """Encode, pick latents (posterior means with ``deterministic_z``,
-        else μ + ε·σ with ε given or drawn from ``generator``), decode."""
+        else μ + ε·σ with ε given or drawn from ``generator``), decode.
+        ``dropout_keep`` is taken for a train step common to both families
+        and unused: the reference disentangled model has no dropout."""
+        del dropout_keep
         stats = self.encode(batch)
         if deterministic_z:
             latents = Latents(z_sg=stats.mean_sg, z_s=stats.mean_s, z_g=stats.mean_g)
@@ -172,6 +185,17 @@ class DisentangledSNDVAE(nn.Module):
             h = torch.relu(bn(conv(h)))
         h_ = self.s_lin1(self.encoder_s_bn(h).reshape(B, -1))
         z_mean_s, z_std_s = self.s_lin_mean(h_), self.s_lin_std(h_)
+
+        if self.cfg.model_type in ("geoGCN", "posGCN"):
+            # the baselines' joint branch: the truth graph, S = 1
+            sg = feats
+            for conv, bn in zip(self.sg_convs, self.sg_bns):
+                geo = batch.rel if self.cfg.model_type == "geoGCN" else coords
+                sg = lrelu(bn(conv(adj, sg, geo)))
+            sg_ = self.sg_lin1(self.encoder_sg_bn(sg).reshape(B, -1))
+            return LatentStats(
+                mean_sg=self.sg_lin_mean(sg_)[:, None], logstd_sg=self.sg_lin_std(sg_)[:, None],
+                mean_s=z_mean_s, logstd_s=z_std_s, mean_g=z_mean_g, logstd_g=z_std_g)
 
         # joint branch over the B·S spanning trees
         if batch.adj_samples is None:
@@ -268,21 +292,8 @@ class DisentangledSNDVAE(nn.Module):
 
     def _adj_head(self, z_sg_g: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         """Pairwise tile-concat + E2E stack + diag mask (model.py:196-208)."""
-        cfg = self.cfg
-        B, N, C = z_sg_g.shape[0], cfg.num_nodes, z_sg_g.shape[-1]
-        parts = [z_sg_g[:, :, None, :].expand(B, N, N, C),
-                 z_sg_g[:, None, :, :].expand(B, N, N, C)]
-        if cfg.decoder.edge_from_coords:
-            parts.append(edge_distance_channel(cfg, coords, z_sg_g.dtype))
-        t = torch.cat(parts, dim=-1)
-        for e2e, bn in zip(self.e_deconvs, self.d_bn_e):
-            t = e2e(torch.relu(bn(t)))
-        t = self.decoder_adj_bn(t)
-        logits = self.d_e_lin2(torch.relu(t))
-        off_diag = 1.0 - torch.eye(N, dtype=logits.dtype, device=logits.device)
-        prob1 = off_diag * logits[..., 1]
-        prob0 = off_diag * logits[..., 0] + (1.0 - off_diag)
-        return torch.stack([prob0, prob1], dim=-1)
+        t = adjacency_e2e(self.cfg, self.e_deconvs, self.d_bn_e, z_sg_g, coords)
+        return diag_masked(self.d_e_lin2(torch.relu(self.decoder_adj_bn(t))))
 
     def generate(self, generator: torch.Generator, num: int,
                  num_samples: Optional[int] = None) -> DecodedGraph:

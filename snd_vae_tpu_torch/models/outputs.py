@@ -1,5 +1,7 @@
 """Typed containers for model outputs — the port of
-``snd_vae_tpu/models/outputs.py:14-81``."""
+``snd_vae_tpu/models/outputs.py:14-81`` — and the decoders' shared parts:
+the coordinate activation, the distance edge channel and the adjacency
+head's E2E stack."""
 
 from __future__ import annotations
 
@@ -65,3 +67,43 @@ def edge_distance_channel(cfg, coords: torch.Tensor, dtype: torch.dtype) -> torc
     diff = coords[:, :, None, :] - coords[:, None, :, :]
     dist = torch.sqrt((diff * diff).sum(-1, keepdim=True) + 1e-8)
     return dist.to(dtype)
+
+
+def adjacency_e2e(cfg, convs, bns, h: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """The adjacency head's E2E stack over the pairwise tile-concat map
+    [h_i, h_j (, distance)] of per-node states ``h`` [B,N,C]: BN, relu, E2E
+    per layer (``snd_vae_tpu/models/disentangled.py:316-355`` and
+    ``models/joint.py:211-241``).  With ``cfg.adj_factored_engaged`` the
+    first layer runs separable: the map stays channel-separable through the
+    per-channel BN and relu, so it is never built (``E2E._separable``)."""
+    C = h.shape[-1]
+    if cfg.adj_factored_engaged and len(convs):
+        bn0 = bns[0]
+        p = torch.relu(bn0(h, block=(0, C)))
+        q = torch.relu(bn0(h, block=(C, 2 * C)))
+        d = None
+        if cfg.decoder.edge_from_coords:
+            dch = edge_distance_channel(cfg, coords, h.dtype)
+            d = torch.relu(bn0(dch, block=(2 * C, 2 * C + dch.shape[-1])))
+        t = convs[0](factors=(p, q, d))
+        layers = zip(convs[1:], bns[1:])
+    else:
+        B, N = h.shape[:2]
+        parts = [h[:, :, None, :].expand(B, N, N, C), h[:, None, :, :].expand(B, N, N, C)]
+        if cfg.decoder.edge_from_coords:
+            parts.append(edge_distance_channel(cfg, coords, h.dtype))
+        t = torch.cat(parts, dim=-1)
+        layers = zip(convs, bns)
+    for e2e, bn in layers:
+        t = e2e(torch.relu(bn(t)))
+    return t
+
+
+def diag_masked(logits: torch.Tensor) -> torch.Tensor:
+    """2-class edge logits with the diagonal forced to class 0: logit 1 for
+    class 0 and 0 for class 1 on i = j."""
+    N = logits.shape[1]
+    off_diag = 1.0 - torch.eye(N, dtype=logits.dtype, device=logits.device)
+    prob1 = off_diag * logits[..., 1]
+    prob0 = off_diag * logits[..., 0] + (1.0 - off_diag)
+    return torch.stack([prob0, prob1], dim=-1)

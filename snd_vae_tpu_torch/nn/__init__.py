@@ -3,12 +3,24 @@ from .basic import (
     Conv1D,
     Dense,
     FrozenBatchNorm,
+    dropout,
     lrelu,
     make_norm,
     same_pad,
 )
+from .decoders import Graphite, inner_product_decoder
 from .edge_conv import E2E
-from .graph_conv import GraphConv
+from .geometric import (
+    GeoGraphConv,
+    StructGraphConv,
+    gather_nodes,
+    knn_dist,
+    orientations,
+    positional_embedding,
+    quaternions,
+    rbf_expand,
+)
+from .graph_conv import GraphConv, GraphConvFull, normalized_graph_conv
 from .spatial_conv import (
     SpatialGraphConv,
     spatial_graph_conv,
@@ -17,6 +29,8 @@ from .spatial_conv import (
 
 __all__ = [
     "lrelu", "Dense", "Conv1D", "FrozenBatchNorm", "BatchStatNorm", "make_norm",
-    "same_pad", "GraphConv", "SpatialGraphConv", "spatial_graph_conv",
-    "spatial_graph_conv_dense_oracle", "E2E",
+    "same_pad", "dropout", "GraphConv", "GraphConvFull", "normalized_graph_conv",
+    "SpatialGraphConv", "spatial_graph_conv", "spatial_graph_conv_dense_oracle", "E2E",
+    "GeoGraphConv", "StructGraphConv", "knn_dist", "rbf_expand", "positional_embedding",
+    "gather_nodes", "quaternions", "orientations", "inner_product_decoder", "Graphite",
 ]

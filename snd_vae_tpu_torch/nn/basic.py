@@ -1,5 +1,5 @@
-"""Basic NN ops: activation, dense, 1-D conv, normalization — the port of
-``snd_vae_tpu/nn/basic.py:32-171``.
+"""Basic NN ops: activation, dense, 1-D conv, normalization, dropout — the
+port of ``snd_vae_tpu/nn/basic.py:32-183``.
 
 Public layouts follow the JAX package: features on the last axis, 1-D convs
 on NWC maps.  Parameters keep the flax names (``kernel``, ``bias``,
@@ -17,6 +17,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import init as inits
+
+
+def acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype products of ``dt`` operands accumulate in: f32 for bf16 and
+    f16, else ``dt`` (the JAX package's ``preferred_element_type``)."""
+    return torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
 
 
 def lrelu(x: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
@@ -123,3 +129,20 @@ def make_norm(features: int, parity: bool = True, epsilon: float = 1e-3) -> nn.M
     if parity:
         return FrozenBatchNorm(features, epsilon)
     return BatchStatNorm(features, epsilon)
+
+
+def dropout(x: torch.Tensor, keep_prob: float, generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout with a keep-probability (``snd_vae_tpu/nn/basic.py:
+    174-183``, tf.nn.dropout's semantics): x / keep_prob where the mask
+    keeps, 0 elsewhere.  The boolean mask is ``mask`` when given, else
+    uniform < keep_prob drawn from ``generator``; identity at keep_prob >= 1."""
+    if keep_prob >= 1.0:
+        return x
+    if mask is None:
+        if generator is None:
+            raise ValueError("dropout needs a torch.Generator or a mask")
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
+        mask = u < keep_prob
+    mask = mask.to(x.device)
+    return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

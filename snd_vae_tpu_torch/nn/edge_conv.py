@@ -1,25 +1,43 @@
-"""``E2E`` edge-to-edge conv — the port of ``snd_vae_tpu/nn/edge_conv.py:70-187``
+"""``E2E`` edge-to-edge conv — the port of ``snd_vae_tpu/nn/edge_conv.py:70-251``
 (reference layers.py:431-450): a 1xk_h SAME conv plus the same weights
 transposed to k_hx1, one shared bias added to each, summed.
 
-Two lowerings, numerically the same function, chosen by the JAX auto rule
-(``edge_conv.py:139-156``): the conv lowering (``F.conv2d``) below
-``matmul_threshold`` width, and the Toeplitz lowering (one contraction
+Three lowerings, numerically the same function.  On a dense map the JAX auto
+rule (``edge_conv.py:139-156``) picks the conv lowering (``F.conv2d``) below
+``matmul_threshold`` width and the Toeplitz lowering (one contraction
 against the banded expansion of the kernel, ``_toeplitz_weights``) from it
-on, unless that expansion would exceed ``matmul_max_bytes``.  Maps are NHWC
-[B,H,W,C] at the public boundary, NCHW only around ``F.conv2d``.
+on, unless that expansion would exceed ``matmul_max_bytes``.  Given
+``factors=(P, Q, D)`` of a tile-concat map t[b,i,j] = [P[b,i], Q[b,j],
+D[b,i,j]], the separable lowering (``E2E._separable``) computes the same
+layer without building the map.  Maps are NHWC [B,H,W,C] at the public
+boundary, NCHW only around ``F.conv2d``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from . import init as inits
-from .basic import same_pad
+from .basic import acc_dtype, same_pad
+
+
+def _row_col_convs(xc: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]):
+    """The SAME row conv of an NCHW map with ``w`` [O, C, 1, k] and the
+    column conv with its transpose, each with ``bias``."""
+    H, W, k = xc.shape[2], xc.shape[3], w.shape[-1]
+    row = F.conv2d(F.pad(xc, same_pad(W, k, 1)), w, bias)
+    col = F.conv2d(F.pad(xc, (0, 0) + same_pad(H, k, 1)), w.transpose(2, 3), bias)
+    return row, col
+
+
+def _conv1d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 conv of an NWC map [B, W, C] with ``w`` [O, C, k]."""
+    xc = F.pad(x.transpose(1, 2), same_pad(x.shape[1], w.shape[-1], 1))
+    return F.conv1d(xc, w).transpose(1, 2)
 
 
 def _toeplitz_weights(w: torch.Tensor, width: int) -> torch.Tensor:
@@ -63,7 +81,12 @@ class E2E(nn.Module):
         mt_bytes = x.shape[2] ** 2 * x.shape[-1] * self.w1.shape[0] * x.element_size()
         return x.shape[2] >= self.matmul_threshold and mt_bytes <= self.matmul_max_bytes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Optional[torch.Tensor] = None, *,
+                factors: Optional[Tuple] = None) -> torch.Tensor:
+        if (x is None) == (factors is None):
+            raise ValueError("E2E takes a dense map x or factors=(P, Q, D), one of them")
+        if factors is not None:
+            return self._separable(*factors)
         if self.uses_matmul(x):
             if x.shape[1] != x.shape[2]:
                 raise ValueError(
@@ -75,9 +98,46 @@ class E2E(nn.Module):
             conv1 = torch.einsum("bitc,tjco->bijo", x, mt) + self.biases1
             conv2 = torch.einsum("btjc,tico->bijo", x, mt) + self.biases1
             return conv1 + conv2
-        xc = x.permute(0, 3, 1, 2)                                    # NCHW
-        H, W = xc.shape[2:]
-        row = F.conv2d(F.pad(xc, same_pad(W, self.k_h, 1)), self.w1, self.biases1)
-        col = F.conv2d(F.pad(xc, (0, 0) + same_pad(H, self.k_h, 1)),
-                       self.w1.transpose(2, 3), self.biases1)
+        row, col = _row_col_convs(x.permute(0, 3, 1, 2), self.w1, self.biases1)
         return (row + col).permute(0, 2, 3, 1)
+
+    def _separable(self, P: torch.Tensor, Q: torch.Tensor,
+                   D: Optional[torch.Tensor]) -> torch.Tensor:
+        """E2E over the implicit map t[b,i,j] = [P[b,i], Q[b,j], D[b,i,j]]
+        (P [B,N,cP], Q [B,N,cQ], D [B,N,N,d] or None), as
+        ``snd_vae_tpu/nn/edge_conv.py:189-251`` computes it:
+
+            row conv = P[b,i] @ SP[j] + conv1d(Q)[b,j]
+            col conv = conv1d(P)[b,i] + Q[b,j] @ SQ[i]
+
+        with S[j] = Σ_{t in window(j)} w[t] the per-position window sums of
+        the kernel, and D's channels through their own 2-D row and column
+        convs.  O(B·N²·C·O) where the dense map costs O(B·N³·C·O)."""
+        W = P.shape[1]
+        if Q.shape[1] != W:
+            raise ValueError(
+                f"separable E2E factor node axes disagree: P {tuple(P.shape)} "
+                f"vs Q {tuple(Q.shape)}"
+            )
+        k_h, pl = self.k_h, (self.k_h - 1) // 2
+        cP, cQ = P.shape[-1], Q.shape[-1]
+        dt = P.dtype
+        acc = acc_dtype(dt)
+        w1 = self.w1                                                  # [O, C, 1, k_h]
+        # window sums through a cumulative sum over the taps, in at least f32
+        w = w1[:, :, 0, :].permute(2, 1, 0).to(acc_dtype(w1.dtype))  # [k_h, C, O]
+        ar = torch.arange(W, device=w.device)
+        lo = (pl - ar).clamp(min=0)                                   # first valid tap
+        hi = (W - 1 - ar + pl).clamp(max=k_h - 1)                     # last valid tap
+        cs = torch.cat([torch.zeros_like(w[:1]), torch.cumsum(w, dim=0)])
+        S = (cs[hi + 1] - cs[lo]).to(dt)                              # [W, C, O]
+        SP, SQ = S[:, :cP], S[:, cP:cP + cQ]
+        y = torch.einsum("bic,jco->bijo", P.to(acc), SP.to(acc))
+        y = y + torch.einsum("bjc,ico->bijo", Q.to(acc), SQ.to(acc))
+        convQ = _conv1d_same(Q, w1[:, cP:cP + cQ, 0, :].to(dt)).to(acc)
+        convP = _conv1d_same(P, w1[:, :cP, 0, :].to(dt)).to(acc)
+        y = y + convQ[:, None, :, :] + convP[:, :, None, :]
+        if D is not None:
+            row, col = _row_col_convs(D.permute(0, 3, 1, 2), w1[:, cP + cQ:].to(dt), None)
+            y = y + row.permute(0, 2, 3, 1).to(acc) + col.permute(0, 2, 3, 1).to(acc)
+        return (y + 2.0 * self.biases1.to(acc)).to(dt)

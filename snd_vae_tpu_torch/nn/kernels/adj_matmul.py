@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..basic import acc_dtype
 from . import build
 from ._launch import CUDA_DTYPES, check_inputs, raise_on_error, stream_handle
 
@@ -173,15 +174,11 @@ def adj_matmul_plan(batch: int, n: int, m: int, h: int, f: Optional[int] = None,
         tma_x=aligned and m > 0 and not fuse_w and h % (16 // esz) == 0)
 
 
-def _acc_dtype(dt: torch.dtype) -> torch.dtype:
-    return torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
-
-
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated in at least f32 and rounded to x's dtype (JAX's
     ``xw.astype(x.dtype)``): a plain product, as the JAX package leaves it
     to XLA."""
-    acc = _acc_dtype(x.dtype)
+    acc = acc_dtype(x.dtype)
     return torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
 
 
@@ -192,7 +189,7 @@ def adj_matmul_plain(adj: torch.Tensor, x: torch.Tensor, leak: Optional[float] =
     accumulated in at least f32, cast to x's dtype, then max(y, leak*y)."""
     if w is not None:
         x = project(x, w)
-    acc = _acc_dtype(x.dtype)
+    acc = acc_dtype(x.dtype)
     out = torch.matmul(adj.to(acc), x.to(acc)).to(x.dtype)
     if leak is not None:
         out = torch.maximum(out, leak * out)

@@ -11,8 +11,15 @@ keys:
   * a Conv1D ``kernel`` [k, in, out] becomes torch's [out, in, k];
   * an E2E ``w1`` [1, k_h, C, O] becomes the row conv's [O, C, 1, k_h] (the
     column conv uses its transpose [O, C, k_h, 1] inside the module);
-  * everything else (Dense and GraphConv ``kernel`` [in, out], the motif
-    ``Matrix*``, biases, BN ``gamma``/``beta``) keeps its layout.
+  * everything else keeps its layout: Dense and GraphConv ``kernel`` [in,
+    out], the motif ``Matrix*``, biases, BN ``gamma``/``beta``, geoGCN's
+    ``GeoGraphConv.w`` [in, out] and posGCN's ``StructGraphConv``
+    ``edge_embedding_matrix`` [39, 128], ``bias1`` [128] and ``w`` [in, out].
+
+The joint model's tree (``sg_convs_<i>``, ``sg_bns_<i>``, ``sg_lin1``,
+``sg_lin_mean``/``_std``, ``d_sg_lin1``, ``s_deconvs_<i>``, ``d_bn_s_<i>``,
+``d_s_lin2``, ``n_deconvs_<i>``, ``d_bn_n_<i>``, ``d_n_lin2``,
+``e_deconvs_<i>``, ``d_bn_e_<i>``, ``d_e_lin2``) maps by the same rules.
 """
 
 from __future__ import annotations

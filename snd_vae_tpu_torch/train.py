@@ -5,8 +5,10 @@ of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
     lr/(1-b1^t)·m/(√v/√(1-b2^t) + eps) is optax.adam's m̂/(√v̂ + eps));
     "tf1-adam" is ``TF1Adam``, TF1's formulation with eps outside the bias
     correction.
-  * ``train_step(state, batch, global_iter, eps=None)``: forward, ELBO (in
-    f32), the edge accuracy, backward, optimizer step.  The master
+  * ``train_step(state, batch, global_iter, eps=None)``: forward (either
+    model family; dropout at ``cfg.train.dropout_keep_prob`` from the
+    state's generator, which only the joint model applies), ELBO (in f32),
+    the edge accuracy, backward, optimizer step.  The master
     parameters and the optimizer state are f32; with
     ``cfg.compute_dtype = "bfloat16"`` the forward runs on bf16 casts of
     every float parameter and batch tensor (``torch.func.functional_call``),
@@ -47,7 +49,7 @@ from .data.graphbatch import GraphBatch
 from .data.spanning_tree import sample_spanning_trees
 from .device import DeviceLike, dtype_of, full_f32, resolve_device
 from .losses import elbo_loss
-from .models import DisentangledSNDVAE, Latents, build_model
+from .models import Latents, Model, build_model
 from .utils.logging import LossesLogger
 
 
@@ -59,7 +61,7 @@ class TrainState:
     model's device) and the count of steps taken."""
 
     cfg: Config
-    model: DisentangledSNDVAE
+    model: Model
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     step: int = 0
@@ -134,7 +136,8 @@ def _forward(state: TrainState, batch: GraphBatch, eps: Optional[Latents]):
     masters as they are; a narrower dtype runs the model on casts of every
     float parameter and of the batch's float tensors."""
     model, cd = state.model, dtype_of(state.cfg.compute_dtype)
-    kw = dict(generator=state.generator, eps=eps)
+    kw = dict(generator=state.generator, eps=eps,
+              dropout_keep=state.cfg.train.dropout_keep_prob)
     if cd == torch.float32:
         return model(batch, **kw)
     params = {n: p.to(cd) if p.is_floating_point() else p
@@ -146,7 +149,8 @@ def train_step(state: TrainState, batch: GraphBatch, global_iter,
                eps: Optional[Latents] = None) -> Dict[str, torch.Tensor]:
     """One update of ``state`` on ``batch``; returns the aux values (the
     ELBO's terms and ``adj_acc``) as device tensors.  ε is drawn from
-    ``state.generator`` in the order s, sg, g unless given.  After the call
+    ``state.generator`` (the disentangled model's in the order s, sg, g;
+    the joint model's z_sg only) unless given.  After the call
     each parameter's ``.grad`` holds this step's gradient.  The three
     phases run under ``record_function`` ranges (``train_step.forward``,
     ``.backward``, ``.optimizer``) for the profiler."""

@@ -40,7 +40,9 @@ def test_port_files_import_no_jax():
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import snd_vae_tpu_torch, snd_vae_tpu_torch.models, snd_vae_tpu_torch.serve, "
             "snd_vae_tpu_torch.cli, snd_vae_tpu_torch.params, snd_vae_tpu_torch.data, "
-            "snd_vae_tpu_torch.train, snd_vae_tpu_torch.losses, snd_vae_tpu_torch.checkpoint, sys; "
+            "snd_vae_tpu_torch.train, snd_vae_tpu_torch.losses, snd_vae_tpu_torch.checkpoint, "
+            "snd_vae_tpu_torch.models.joint, snd_vae_tpu_torch.nn.geometric, "
+            "snd_vae_tpu_torch.nn.decoders, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'snd_vae_tpu')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -143,9 +143,9 @@ def test_disentangled_family_shares_one_model(model_type):
     assert all(torch.equal(got[k], ref[k]) for k in ref)
 
 
-@pytest.mark.parametrize("over", [dict(model_type="base"), dict(model_type="geoGCN"),
+@pytest.mark.parametrize("over", [dict(dataset="mnist"), dict(model_type="base", dataset="protein"),
                                   dict(dataset="protein"), dict(remat=True),
-                                  dict(num_nodes=96), dict(motif_block_rows=5)])
+                                  dict(model_type="base", remat=True), dict(motif_block_rows=5)])
 def test_unported_configs_raise(over):
     with pytest.raises(NotImplementedError):
         build_model(tcfg.synthetic2_preset(**over), device="cpu")

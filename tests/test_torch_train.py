@@ -17,7 +17,7 @@ import optax
 import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
-from torch_parity import configs, random_params
+from torch_parity import configs, init_like, random_params
 from torch_parity import exact_f64, one_thread  # noqa: F401  (fixtures)
 
 import snd_vae_tpu.utils.native
@@ -96,21 +96,6 @@ def test_unknown_optimizer_raises():
 # --------------------------------------------------------------------------
 # The step against the JAX package
 # --------------------------------------------------------------------------
-
-def _init_like(shapes, rng):
-    """Seeded weights at the initializers' scale: kernels ~0.05·N(0,1),
-    BN gamma 1, biases and beta 0."""
-    flat = {}
-    for path, leaf in flatten_dict(shapes, sep="/").items():
-        leaf_name = path.rsplit("/", 1)[-1]
-        if leaf_name == "gamma":
-            flat[path] = np.ones(leaf.shape)
-        elif leaf_name in ("bias", "beta") or leaf_name.startswith("bias"):
-            flat[path] = np.zeros(leaf.shape)
-        else:
-            flat[path] = 0.05 * rng.standard_normal(leaf.shape)
-    return flat
-
 
 def _setup(case, num_graphs, np_dtype, init, optimizer="tf1-adam", compute_dtype="float32"):
     """The train split of ``case`` as numpy arrays, the same flax params for
@@ -203,7 +188,7 @@ def test_lockstep_synthetic2_f32():
     tf1-adam, the same weights and noise stream as the JAX trajectory;
     every step's cost within 2e-3 relative."""
     epochs = 3
-    jc, _, params, arrays, state = _setup("synthetic2", 20, np.float32, _init_like)
+    jc, _, params, arrays, state = _setup("synthetic2", 20, np.float32, init_like)
     B, nb = jc.train.batch_size, 2
     noise = _noise(jc, epochs * nb)
     want = run_jax_trajectory(jc, params, jax_batch(**arrays), epochs, noise)
