@@ -50,7 +50,24 @@ Phases, one output line each:
  10. separable — the disentangled synthetic2 widths at num_nodes 128: the
                separable adjacency head against the dense one on the card,
                the card against the CPU, both heads' device ms;
- 11. the launches per path and the kernels line (JSON); 12. the result
+ 11. protein — the disentangled model at the protein preset (B = 50 x S =
+               10 trees, N = 50, the fourth-order conv) on the seeded
+               fallback: serve 2 batches f32 and bf16 (adj_matmul twice per
+               batch, no motif kernel), the card against the CPU on 2
+               graphs, each motif conv's device ms (sg_conv.<i> ranges)
+               beside the chain's bound, peak memory; Trainer.run on 100
+               graphs (2 steps an epoch), a counted and a timed epoch, f32
+               and bf16, the card's step against the CPU's;
+ 12. protein_blocked — layer 2 of the protein conv unblocked against
+               block_rows=10, and the third-order layer 2 at synthetic2
+               against block_rows=5: outputs equal, gradients as close to
+               float64 as the unblocked ones, peak memory (the blocked one
+               lower) and device ms of each;
+ 13. protein_joint, mnist — the joint model on protein (no kernel) and the
+               disentangled model at the mnist preset (adj_matmul twice):
+               one batch against the CPU, 3 train steps, the card's step
+               against the CPU's;
+ 14. the launches per path and the kernels line (JSON); 15. the result
                line (JSON), last.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -61,6 +78,7 @@ it fails before printing anything.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -79,7 +97,9 @@ HBM_BYTES_PER_S = 3.35e12                                      # H100 SXM, data 
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
 SERVE_BATCHES = 5
 SAMPLE_GRAPHS = 100
-SCENE_TRAIN_STEPS = 3
+SHORT_TRAIN_STEPS = 3     # scene, protein_joint and mnist
+PROTEIN_SERVE_BATCHES = 2
+PROTEIN_TRAIN_GRAPHS = 100
 SEPARABLE_NODES = 128
 TRAIN_EPOCHS = 2          # the counted run; then 1 warm-up and 2 timed epochs
 PROFILE_STEPS = 5
@@ -326,12 +346,20 @@ def check_level3_new_inputs(ml, mc, gen):
 
 
 # K3 cases: A shape, x shape, W's width H (None: no W), leak, dtype, served,
-# density of A.  GraphConv's two served layers with W (x [.,25,1] @ [1,10]
-# and the skip concat [.,25,11] @ [11,20]), the second in bf16; the
-# synthetic2 model at N = 1024 (B = 2); the large-graph contraction at
-# N = 2048 (f32 without epilogue, kept to compare with earlier versions)
-# and 8192 (density 0.01, as benchmarks/large_graph_bench.py); ragged
-# shapes for every edge of the tiles.
+# density of A, and the path a row belongs to when it is not synthetic2's.
+# GraphConv's two served layers with W (x [.,25,1] @ [1,10] and the skip
+# concat [.,25,11] @ [11,20]), the second in bf16; the same layers at
+# protein's B = 50 and mnist's B = 2 graphs of N = 50 (density 0.3, as
+# their truth graphs), f32 and bf16; the synthetic2 model at N = 1024
+# (B = 2); the large-graph contraction at N = 2048 (f32 without epilogue,
+# kept to compare with earlier versions) and 8192 (density 0.01, as
+# benchmarks/large_graph_bench.py); ragged shapes for every edge of the
+# tiles.
+K3_3D_CASES = tuple(
+    ((b, 50, 50), (b, 50, f), h, 0.2, dt, False, 0.3, path)
+    for path, b in (("protein", 50), ("mnist", 2))
+    for f, h in ((1, 10), (11, 20))
+    for dt in (torch.float32, torch.bfloat16))
 K3_CASES = (
     ((10, 25, 25), (10, 25, 1), 10, 0.2, torch.float32, True, 0.15),
     ((10, 25, 25), (10, 25, 11), 20, 0.2, torch.float32, True, 0.15),
@@ -346,7 +374,7 @@ K3_CASES = (
     ((3, 45, 70), (3, 70, 33), None, 0.2, torch.bfloat16, False, 0.3),
     ((2047, 2047), (2047, 100), None, 0.2, torch.float32, False, 0.05),
     ((2047, 2047), (2047, 100), None, 0.2, torch.bfloat16, False, 0.05),
-)
+) + K3_3D_CASES
 
 
 def check_adj_matmul(am, gen):
@@ -356,7 +384,7 @@ def check_adj_matmul(am, gen):
     2e-2 of the largest magnitude.  W rows also time the pair they replace
     (torch.matmul for x @ W, then K3 without W)."""
     rows = []
-    for a_shape, x_shape, hw, leak, dt, served, density in K3_CASES:
+    for a_shape, x_shape, hw, leak, dt, served, density, *path in K3_CASES:
         a, x = adj_inputs(a_shape, x_shape, dt, gen, density)
         w = (None if hw is None else
              (0.3 * torch.randn(x_shape[-1], hw, generator=gen, device="cuda")).to(dt))
@@ -387,10 +415,12 @@ def check_adj_matmul(am, gen):
                 lambda: am.blocked_adj_matmul(a, torch.matmul(x, w), leak))
         plan = am.adj_matmul_plan(b, n, m, hh, f, dt)
         shape = [list(a_shape), list(x_shape)] + ([] if w is None else [list(w.shape)])
+        if path:
+            extra["path"] = path[0]
         rows.append(dict(kernel="adj_matmul", shape=shape, dtype=str(dt)[6:], served=served,
                          batch_shape=served, leak=leak, density=density,
                          plan={"variant": plan.variant, "split": plan.split,
-                               "blocks": plan.blocks, "fuse_w": plan.fuse_w,
+                               "blocks": plan.blocks, "smem": plan.smem, "fuse_w": plan.fuse_w,
                                "tma_a": plan.tma_a, "tma_x": plan.tma_x},
                          max_abs_err=err, ms=device_ms(kern), plain_ms=device_ms(plain),
                          bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib), **extra))
@@ -406,11 +436,47 @@ def serve_rate(fn, graphs: int, iters: int) -> float:
     return graphs * iters / (time.perf_counter() - t0)
 
 
+def range_device_ms(prof, prefix: str, n: int) -> dict:
+    """Device ms per call of the kernels launched under each profiler range
+    whose name starts with ``prefix``, by range name."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        r = e
+        while r is not None and not r.name.startswith(prefix):
+            r = r.cpu_parent
+        if r is not None:
+            out[r.name] = out.get(r.name, 0.0) + sum(k.duration for k in e.kernels)
+    return {k: v / 1e3 / n for k, v in sorted(out.items())}
+
+
+def label_convs(model) -> list:
+    """A profiler range ``sg_conv.<i>`` around each motif conv's forward;
+    returns the hook handles."""
+    from torch.profiler import record_function
+
+    handles, ranges = [], {}
+    for i, conv in enumerate(model.sg_convs):
+        def enter(_m, _args, i=i):
+            ranges[i] = record_function(f"sg_conv.{i}")
+            ranges[i].__enter__()
+
+        def leave(_m, _args, _out, i=i):
+            ranges.pop(i).__exit__(None, None, None)
+
+        handles += [conv.register_forward_pre_hook(enter), conv.register_forward_hook(leave)]
+    return handles
+
+
 def profile_batches(fn, batches) -> dict:
     """One profiled pass over the batches: wall time, device busy time (the
     sum of kernel times; one stream, so kernels do not overlap), kernels
-    launched, the kernels that take the most device time, and the host ops
-    (with their input shapes) whose own launches take the most, all per
+    launched, the kernels that take the most device time, the host ops
+    (with their input shapes) whose own launches take the most, and the
+    device ms under each ``sg_conv.<i>`` range (``label_convs``), all per
     batch.  The profiler's own host cost inflates the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -423,7 +489,10 @@ def profile_batches(fn, batches) -> dict:
             fn(b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # the ranges' own device-side spans (user annotations) are not kernels
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("sg_conv.")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n = len(batches)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -439,18 +508,21 @@ def profile_batches(fn, batches) -> dict:
                         for e in top],
         "top_ops": [[e.key, str(e.input_shapes)[:120], e.self_device_time_total / 1e3 / n,
                      e.count / n] for e in top_ops],
+        "conv_device_ms_per_batch": range_device_ms(prof, "sg_conv.", n),
     }
 
 
 def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
                 n_batches=SERVE_BATCHES, sample_graphs=SAMPLE_GRAPHS, num_graphs=None,
-                timed=True):
+                timed=True, cpu_graphs=None):
     """Serve ``cfg`` from the seed weights: reconstruct ``n_batches`` of the
     test split and sample ``sample_graphs`` graphs from the prior in each
     dtype, counting the launches (``per_batch`` per reconstructed batch;
-    decoding launches none); the outputs' shapes and finiteness; in f32 one
-    batch against the same weights on the CPU (plain versions) at rtol 1e-4
-    / atol 1e-5; with ``timed``, graphs/s and profiles."""
+    decoding launches none) and reading the peak of allocated memory over
+    that run; the outputs' shapes and finiteness; in f32 one batch (its
+    first ``cpu_graphs`` graphs, when given) against the same weights on the
+    CPU (plain versions) at rtol 1e-4 / atol 1e-5; with ``timed``, graphs/s
+    and profiles, the motif convs under ``sg_conv.<i>`` ranges."""
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
     from snd_vae_tpu_torch.serve import reconstruct, sample
@@ -475,10 +547,12 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
         torch.cuda.synchronize()
 
         # the path, counted: the reconstructed batches and the samples
+        torch.cuda.reset_peak_memory_stats()
         zero_counts(ml, mc, am)
         outs = [reconstruct(model, b) for b in batches]
         drawn = sample(model, sample_graphs, gen) if sample_graphs else None
         launches = read_counts(ml, mc, am)
+        peak = torch.cuda.max_memory_allocated()
         check(launches == per(n_batches, **per_batch),
               f"{cfg.model_type}/{cfg.dataset} {dtype_name}: launches {launches}, expected "
               f"{per_batch} per batch over {n_batches}")
@@ -497,14 +571,16 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
                 check(bool(torch.isfinite(t).all()), "sample outputs finite")
             check(bool(((drawn.adj >= 0) & (drawn.adj < K)).all()), "sampled adj classes")
 
-        res = {"launches": launches}
+        res = {"launches": launches, "peak_allocated_bytes": peak}
         if dtype_name == "float32":
             ref_out = outs[0]
             # the same weights on the CPU, where the wrappers run the plain versions
             cpu = build_model(cfg, device="cpu")
             cpu.load_state_dict(model.state_dict())
-            ref = reconstruct(cpu, batches[0].to("cpu"))
-            res["cpu_max_abs_err"] = held_to_cpu(outs[0], ref, scene)
+            held = batches[0] if cpu_graphs is None else batches[0].slice_batch(0, cpu_graphs)
+            got = outs[0] if cpu_graphs is None else reconstruct(model, held)
+            res["cpu_graphs"] = held.batch_size
+            res["cpu_max_abs_err"] = held_to_cpu(got, reconstruct(cpu, held.to("cpu")), scene)
         else:
             res["max_abs_diff_vs_f32"] = {
                 "adj_prob": (outs[0].decoded.adj_prob.float()
@@ -516,8 +592,11 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
                 lambda: [reconstruct(model, b) for b in batches], B * n_batches, 20)
             res["sample_graphs_per_s"] = serve_rate(
                 lambda: sample(model, sample_graphs, gen), sample_graphs, 20)
+            handles = label_convs(model)
             res["reconstruct_profile"] = profile_batches(lambda b: reconstruct(model, b),
                                                          batches)
+            for h in handles:
+                h.remove()
             # beside the launch check: all kernels of one reconstructed batch
             res["kernels_per_batch"] = res["reconstruct_profile"]["kernels_per_batch"]
             res["sample_profile"] = profile_batches(
@@ -659,7 +738,7 @@ def adj_matmul_backward_bound(cfg, B, dtype) -> dict:
 
 def card_vs_cpu_step(cfg, batch):
     """One Adam step from the seed weights on the card and on a CPU copy,
-    same batch and ε: the loss at rtol 1e-5, every gradient at rtol 1e-4 /
+    same batch (any number of graphs) and ε: the loss at rtol 1e-5, every gradient at rtol 1e-4 /
     atol 1e-6.  Adam's first step moves a weight by lr·g/(|g| + eps), which
     turns a gradient difference dg at |g| ≲ eps into up to lr·dg/eps =
     8e4·dg, so the updated weights are held (rtol 1e-4 / atol 1e-6) against
@@ -669,7 +748,7 @@ def card_vs_cpu_step(cfg, batch):
     from snd_vae_tpu_torch import train as tt
     from snd_vae_tpu_torch.models import Latents, build_model
 
-    B, enc = cfg.train.batch_size, cfg.encoder
+    B, enc = batch.batch_size, cfg.encoder
     S = 1 if cfg.model_type == "base" else cfg.sampling_num     # the joint model: z_sg only
     gen = torch.Generator().manual_seed(0)
     eps = Latents(z_sg=torch.randn(B, S, enc.sg_latent_size, generator=gen),
@@ -856,31 +935,16 @@ def run_scene(ml, mc, am):
     one reconstructed batch against the CPU (2 motif_level3); 3 train steps
     on one batch, counted (2 motif_level3 each), the loss finite and
     falling."""
-    import tempfile
-
-    from snd_vae_tpu_torch import train as tt
     from snd_vae_tpu_torch.config import scene_preset
     from snd_vae_tpu_torch.data.loaders import load_dataset
 
     cfg = scene_preset(dataset_path=str(ROOT / "dataset"))
     res = {"serve": serve_phase(ml, mc, am, cfg, {"ml3": 2}, dtypes=("float32",), n_batches=1,
                                 sample_graphs=SAMPLE_GRAPHS, timed=False)}
-    data = load_dataset(cfg, "train", device="cuda")
+    data = load_dataset(cfg, "train", num_graphs=2, device="cuda")
     check(data.adj_samples is None and not torch.equal(data.adj, data.adj.transpose(1, 2)),
           "scene: a directed adjacency and no spanning trees")
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
-        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
-        batch = trainer.batched._map(lambda t: t[0])
-        gi = torch.zeros((), device="cuda")
-        zero_counts(ml, mc, am)
-        auxes = [tt.train_step(trainer.state, batch, gi) for _ in range(SCENE_TRAIN_STEPS)]
-        launches = read_counts(ml, mc, am)
-    losses = [a["loss"].item() for a in auxes]
-    check(launches == per(SCENE_TRAIN_STEPS, ml3=2), f"scene train: launches {launches}")
-    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
-          f"scene train: losses {losses}")
-    res["train"] = {"launches": launches, "losses": losses,
-                    "adj_loss": [a["adj_loss"].item() for a in auxes]}
+    res["train"] = run_short_train(ml, mc, am, cfg, {"ml3": 2}, vs_cpu=False)
     return res
 
 
@@ -917,6 +981,243 @@ def run_separable(ml, mc, am):
         res["head_ms"] = {name: device_ms(lambda m=m: m._adj_head(h, coords), reps=20)
                           for name, m in models.items()}
     return res
+
+
+def conv3d_bound(cfg, batch, dtype) -> dict:
+    """The least time of levels 4 and 3 of the fourth-order conv (inputs to
+    nt, per layer) on one batch of the sg-branch: bytes of the chain's
+    inputs (mask, φ(rel), φ(dis), beta_jk, the [T,N,h] node terms) and nt
+    read or written once; operations 8 per m4_sum element (its four adds,
+    two products by deg and the mask, lrelu, the k-sum) plus level 3's
+    2·h0·h1 + 12·h1 per (i,j).  ``dense`` counts every (i,j,k) and (i,j);
+    ``data`` only the motif paths the batch's trees have (A[i,j]·A[j,k] != 0;
+    Σ_j in-degree·out-degree) and its edges."""
+    N, R = cfg.num_nodes, cfg.rel_dim
+    adj = (batch.adj if cfg.model_type == "base"
+           else batch.adj_samples.reshape(-1, N, N))
+    T = adj.shape[0]
+    nz = (adj != 0).double()
+    counts = {"dense": (T * N ** 3, T * N * N),
+              "data": ((nz.sum(1) * nz.sum(2)).sum().item(), nz.sum().item())}
+    esz = 2 if dtype == torch.bfloat16 else 4
+    out = {}
+    for layer, (h0, h1, *_) in enumerate(cfg.encoder.sg_conv_hidden):
+        nbytes = esz * (T * N * N * (1 + 2 * R + h0) + T * N * (1 + 2 * h0 + 3 * h1) + T * N * h1)
+        row = {"bytes": nbytes}
+        for name, (paths, pairs) in counts.items():
+            ops = 8 * paths * h0 + pairs * (2 * h0 * h1 + 12 * h1)
+            ms, by = bound(nbytes, ops, dtype)
+            row[name] = {"operations": ops, "bound_ms": ms, "bound_by": by}
+        out[f"sg_conv.{layer}"] = row
+    return out
+
+
+def run_train_epochs(ml, mc, am, cfg, graphs, per_step) -> dict:
+    """Trainer.run from the seed weights on ``graphs`` of the generated
+    train split, f32 and bf16 (f32 masters): one counted epoch (``per_step``
+    launches each step), then one timed epoch with the peak of allocated
+    memory, the mean loss falling from the first to the second; a profile
+    of the steps; in f32 one step on the card against the CPU's on a batch
+    of 2 graphs."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "train", num_graphs=graphs, device="cuda")
+    nb = data.batch_size // B
+    out = {"batch": [B, 1 if cfg.model_type == "base" else cfg.sampling_num, cfg.num_nodes],
+           "graphs": data.batch_size, "steps_per_epoch": nb}
+    for dtype_name in ("float32", "bfloat16"):
+        res = {}
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+            trainer = tt.Trainer(cfg.with_(compute_dtype=dtype_name), data, device="cuda",
+                                 workdir=workdir)
+            zero_counts(ml, mc, am)
+            trainer.run(1, verbose=False)
+            launches = read_counts(ml, mc, am)
+            check(launches == per(nb, **per_step),
+                  f"{cfg.dataset}/{cfg.model_type} train {dtype_name}: launches {launches} over "
+                  f"{nb} steps, expected {per_step} per step")
+            with open(trainer.logger.jsonl_path) as f:
+                first = json.loads(f.readline())["loss"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            second = float(sum(trainer.run_epoch(1)["loss"]) / nb)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(math.isfinite(first) and math.isfinite(second) and second < first,
+                  f"{cfg.dataset} {dtype_name}: epoch losses {first} -> {second}")
+            res.update(launches=launches, epoch_mean_loss=[first, second],
+                       steps_per_s=nb / dt, graphs_per_s=nb * B / dt,
+                       peak_allocated_bytes=torch.cuda.max_memory_allocated())
+            gi = torch.zeros((), device="cuda")
+            batches = [trainer.batched._map(lambda t, i=i: t[i])
+                       for i in range(min(nb, PROFILE_STEPS))]
+            res["profile"] = profile_steps(lambda b: tt.train_step(trainer.state, b, gi), batches)
+        out[dtype_name] = res
+    out["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, 2))
+    return out
+
+
+def run_protein(ml, mc, am):
+    """The disentangled model at the protein preset (B = 50 graphs x S = 10
+    trees, N = 50, the fourth-order sg conv) on the loader's seeded
+    fallback: serve 2 test batches in f32 and bf16 (0 motif_level3, 2
+    adj_matmul per batch; the card against the CPU on 2 graphs), the chain's
+    bound per layer; train on 100 graphs (2 steps an epoch, 2 adj_matmul
+    each)."""
+    from snd_vae_tpu_torch.config import protein_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import build_model
+
+    cfg = protein_preset(dataset_path=str(ROOT / "dataset"))
+    B = cfg.train.batch_size
+    res = {"serve": serve_phase(ml, mc, am, cfg, {"k3": 2}, n_batches=PROTEIN_SERVE_BATCHES,
+                                num_graphs=PROTEIN_SERVE_BATCHES * B, cpu_graphs=2)}
+    batch = load_dataset(cfg, "test", num_graphs=B, device="cuda")
+    res["conv_bound"] = {d: conv3d_bound(cfg, batch, getattr(torch, d))
+                         for d in ("float32", "bfloat16")}
+    # the dense adjacency head at N = 50 (adj_factored_min_nodes is 96), f32
+    model = build_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(B, cfg.num_nodes, 2 * cfg.decoder.node_h_size, generator=gen, device="cuda")
+    coords = torch.rand(B, cfg.num_nodes, cfg.spatial_dim, generator=gen, device="cuda")
+    with torch.inference_mode():
+        res["adj_head_ms"] = device_ms(lambda: model._adj_head(h, coords), reps=20)
+    res["train"] = run_train_epochs(ml, mc, am, cfg, PROTEIN_TRAIN_GRAPHS, {"k3": 2})
+    return res
+
+
+def run_short_train(ml, mc, am, cfg, per_step, vs_cpu=True) -> dict:
+    """``SHORT_TRAIN_STEPS`` f32 train steps on one batch of the generated
+    train split, counted (``per_step`` each), finite losses falling, the
+    peak of allocated memory; with ``vs_cpu`` one step on the card against
+    the CPU's on 2 graphs."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    data = load_dataset(cfg, "train", num_graphs=2 * cfg.train.batch_size, device="cuda")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+        batch = trainer.batched._map(lambda t: t[0])
+        gi = torch.zeros((), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(ml, mc, am)
+        auxes = [tt.train_step(trainer.state, batch, gi) for _ in range(SHORT_TRAIN_STEPS)]
+        launches = read_counts(ml, mc, am)
+    losses = [a["loss"].item() for a in auxes]
+    check(launches == per(SHORT_TRAIN_STEPS, **per_step),
+          f"{cfg.dataset}/{cfg.model_type} train: launches {launches}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"{cfg.dataset}/{cfg.model_type} train: losses {losses}")
+    out = {"launches": launches, "losses": losses,
+           "adj_loss": [a["adj_loss"].item() for a in auxes],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if vs_cpu:
+        out["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, 2))
+    return out
+
+
+def run_3d_short(ml, mc, am, cfg, per_batch) -> dict:
+    """One reconstructed f32 batch on the card against the CPU (its first 2
+    graphs), then ``run_short_train``; ``per_batch`` launches per batch and
+    per step."""
+    return {"serve": serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32",), n_batches=1,
+                                 sample_graphs=SAMPLE_GRAPHS, num_graphs=cfg.train.batch_size,
+                                 timed=False, cpu_graphs=2),
+            "train": run_short_train(ml, mc, am, cfg, per_batch)}
+
+
+def blocked_pair(ml, mc, am, conv, block_rows, inputs, grad_out, ref_device) -> dict:
+    """``conv`` forward and backward on ``inputs`` unblocked and with
+    ``block_rows``, in f32: the outputs equal at rtol 1e-5 / atol 1e-6 (each
+    row is computed by the same operations either way); the gradients of x
+    and every parameter, sums over all rows that the blocked run adds up
+    block by block, each held to a float64 run of the blocked form on
+    ``ref_device`` (the CPU where the conv runs a kernel, which takes f32
+    and bf16 only; the CPU tests hold the blocked form equal to the
+    unblocked one in float64): the blocked error at most twice the
+    unblocked one's, plus 1e-7 of the largest gradient.  Each run's
+    launches, peak of allocated memory above what was allocated before, and
+    device ms."""
+    x = inputs[1]
+
+    def run(module, block, dtype=torch.float32, device="cuda"):
+        module.block_rows = block
+        on = lambda t: t.to(device, dtype)
+        xx = on(x.detach()).requires_grad_(True)
+        out = module(on(inputs[0]), xx, on(inputs[2]))
+        return [out.detach()] + list(torch.autograd.grad(
+            out, [xx] + list(module.parameters()), on(grad_out)))
+
+    res, got = {}, {}
+    for block in (None, block_rows):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(ml, mc, am)
+        got[block] = run(conv, block)
+        launches = read_counts(ml, mc, am)
+        res[f"block_{block}"] = {
+            "launches": launches,
+            "peak_above_inputs_bytes": torch.cuda.max_memory_allocated() - base,
+            "forward_backward_ms": device_ms(lambda b=block: run(conv, b), reps=5)}
+    ref = run(copy.deepcopy(conv).to(ref_device, torch.float64), block_rows, torch.float64,
+              ref_device)
+    names = ["out", "x"] + [n for n, _ in conv.named_parameters()]
+    errs = {}
+    for name, b, u, r in zip(names, got[block_rows], got[None], ref):
+        if name == "out":
+            torch.testing.assert_close(b, u, rtol=1e-5, atol=1e-6, msg=lambda m: f"out: {m}")
+        r = r.to(b.device)
+        e_b, e_u = ((t.double() - r).abs().max().item() for t in (b, u))
+        check(e_b <= 2 * e_u + 1e-7 * r.abs().max().item(),
+              f"{name}: blocked error {e_b} vs float64, unblocked {e_u}")
+        errs[name] = {"blocked_vs_unblocked": (b - u).abs().max().item(),
+                      "blocked_vs_f64": e_b, "unblocked_vs_f64": e_u}
+    res["max_abs_err"] = errs
+    check(res[f"block_{block_rows}"]["peak_above_inputs_bytes"]
+          < res["block_None"]["peak_above_inputs_bytes"], "blocked peak below unblocked")
+    return res
+
+
+def run_blocked(ml, mc, am):
+    """Layer 2 of the protein sg conv at its preset shape (500 trees of the
+    fallback's test split, N = 50, x of width 10, hidden (20,20,20,20))
+    unblocked against block_rows=10; the third-order conv's layer 2 at
+    synthetic2 (100 trees, N = 25, x of width 20, hidden (50,50,50))
+    against block_rows=5, whose forward is one motif_level3 either way."""
+    from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.nn import SpatialGraphConv, SpatialGraphConv3D
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, cfg, make, block_rows, per_run, ref_device in (
+            ("protein_conv3d_layer2", protein_preset(dataset_path=str(ROOT / "dataset")),
+             SpatialGraphConv3D, 10, per(1), "cuda"),
+            ("synthetic2_conv_layer2", synthetic2_preset(dataset_path=str(ROOT / "dataset")),
+             SpatialGraphConv, 5, per(1, ml3=1), "cpu")):
+        data = load_dataset(cfg, "test", num_graphs=cfg.train.batch_size, device="cuda")
+        N, S = cfg.num_nodes, cfg.sampling_num
+        T = data.batch_size * S
+        f, hidden = cfg.encoder.sg_conv_hidden[0][-1], cfg.encoder.sg_conv_hidden[1]
+        adj = data.adj_samples.reshape(T, N, N)
+        rel = data.rel[:, None].expand(-1, S, -1, -1, -1).reshape(T, N, N, -1)
+        x = torch.randn(T, N, f, generator=gen, device="cuda")
+        conv = make(f, cfg.rel_dim, tuple(hidden), torch.Generator().manual_seed(1)).cuda()
+        g = torch.randn(T, N, hidden[-1], generator=gen, device="cuda")
+        res = blocked_pair(ml, mc, am, conv, block_rows, (adj, x, rel), g, ref_device)
+        for key in ("block_None", f"block_{block_rows}"):
+            check(res[key]["launches"] == per_run, f"{name} {key}: launches {res[key]['launches']}")
+        out[name] = dict(res, trees=T, num_nodes=N, in_width=f, hidden=list(hidden),
+                         block_rows=block_rows)
+    return out
 
 
 def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
@@ -1028,8 +1329,23 @@ def main() -> int:
     separable = run_separable(ml, mc, am)
     emit("separable", separable)
 
-    # 11. launches per path (the f32 runs, each counted from 0), the kernels
-    # line; 12. the result line (the card's line just before)
+    # 11.-13. the fourth-order conv: protein (disentangled), the blocked
+    # lowerings, the joint model on protein, mnist
+    from snd_vae_tpu_torch.config import mnist_preset, protein_preset
+
+    protein = run_protein(ml, mc, am)
+    emit("protein", protein)
+    blocked = run_blocked(ml, mc, am)
+    emit("protein_blocked", blocked)
+    protein_joint = run_3d_short(
+        ml, mc, am, protein_preset(model_type="base", dataset_path=str(ROOT / "dataset")), {})
+    emit("protein_joint", protein_joint)
+    mnist = run_3d_short(ml, mc, am, mnist_preset(dataset_path=str(ROOT / "dataset")),
+                         {"k3": 2})
+    emit("mnist", mnist)
+
+    # 14. launches per path (the f32 runs, each counted from 0), the kernels
+    # line; 15. the result line (the card's line just before)
     by_path = {"serve": serving["float32"]["launches"],
                "train": training["float32"]["launches"],
                "joint_serve": joint_serving["float32"]["launches"],
@@ -1038,7 +1354,14 @@ def main() -> int:
                "scene_train": scene["train"]["launches"],
                "geoGCN_serve": baselines["geoGCN"]["float32"]["launches"],
                "posGCN_serve": baselines["posGCN"]["float32"]["launches"],
-               "separable_serve": separable["serve"]["float32"]["launches"]}
+               "separable_serve": separable["serve"]["float32"]["launches"],
+               "protein_serve": protein["serve"]["float32"]["launches"],
+               "protein_train": protein["train"]["float32"]["launches"],
+               "protein_blocked": blocked["synthetic2_conv_layer2"]["block_5"]["launches"],
+               "protein_joint_serve": protein_joint["serve"]["float32"]["launches"],
+               "protein_joint_train": protein_joint["train"]["launches"],
+               "mnist_serve": mnist["serve"]["float32"]["launches"],
+               "mnist_train": mnist["train"]["launches"]}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})

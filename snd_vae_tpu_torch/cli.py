@@ -5,12 +5,16 @@
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type sample --num-generate 100
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --model-type base --type train
   python -m snd_vae_tpu_torch.cli --dataset scene --type train     # the joint model
+  python -m snd_vae_tpu_torch.cli --dataset protein --type train   # the fourth-order conv
+  python -m snd_vae_tpu_torch.cli --dataset mnist --type test_reconstruct
 
-takes synthetic1/2/3 and scene with any model type the dataset's inputs
-allow (scene has no spanning trees: its preset is the joint model "base";
-geoGCN and posGCN read the truth graph), runs on the CUDA card unless
-``--device cpu`` is given and prints one JSON dict.  ``train`` trains on the train split (``train.Trainer``), logging
-under ``<workdir>/logs`` and checkpointing under
+takes every preset (synthetic1/2/3, protein, mnist, scene) with any model
+type the dataset's inputs allow (scene has no spanning trees: its preset is
+the joint model "base"; geoGCN and posGCN read the truth graph; protein and
+mnist run the fourth-order motif conv, and mnist, like scene, has no
+factors), runs on the CUDA card unless ``--device cpu`` is given and
+prints one JSON dict.  ``train`` trains on the train split
+(``train.Trainer``), logging under ``<workdir>/logs`` and checkpointing under
 ``<workdir>/checkpoints/<dataset>_<model_type>``; it resumes from the
 latest checkpoint there.  The serving types restore that checkpoint (the
 latest, or ``train.restore_epoch``), as ``snd_vae_tpu/cli.py:145-160``

@@ -1,18 +1,23 @@
-"""Dataset loading for the synthetic datasets and scene — the port of
-``snd_vae_tpu/data/loaders.py:58-99``, ``:206-275`` and ``:282-384``.
+"""Dataset loading — the port of ``snd_vae_tpu/data/loaders.py``: the
+synthetic datasets (``:58-99``), protein (``:102-141``), mnist's mesh point
+clouds (``:144-203``), scene (``:206-275``) and the config-driven entry
+point (``:282-384``).
 
 Reads the reference's on-disk layouts when present (the synthetic ``.npy``
-files, CLEVR's ``CLEVR_<split>_scenes.json``) and generates the data from
+files, protein's ``edge_<split>.npy`` / ``node_<split>.npy``, mnist's mesh
+pickle, CLEVR's ``CLEVR_<split>_scenes.json``) and generates the data from
 the seed otherwise, exactly as the JAX loader does with its numpy
 spanning-tree sampler: for the same cfg and seed, every array is bit-equal.
-Scene has no spanning trees and a directed adjacency of relation codes.
-protein and mnist come in a later slice and raise NotImplementedError.
+Scene has no spanning trees and a directed adjacency of relation codes;
+mnist's adjacency is the convex hull's edges (interior points isolated)
+and it has no factors.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
@@ -88,6 +93,82 @@ def load_data_syn(
     return _shuffle_all(rng, node, spatial, adj_samples, rel, factor, adj_truth)
 
 
+def load_data_protein(type_: str, path: str, sampling_num: int = 10, seed: int = 1,
+                      num_graphs_fallback: int = 64,
+                      num_nodes_fallback: int = 50) -> Tuple[np.ndarray, ...]:
+    """Protein contact graphs with 3-D coordinates (input_data.py:153-222):
+    returns (node, spatial, adj_samples, rel, factor, adj_truth) with
+    all-ones node features, rel the pairwise distances and factor 1..G.
+    Without ``edge_<split>.npy``, seeded 3-D Waxman graphs stand in, their
+    coordinates scaled to protein's range (/ BOX · 20)."""
+    split = "train" if type_ in TRAIN_SPLITS else "test"
+    edge_f = os.path.join(path, f"edge_{split}.npy")
+    if os.path.exists(edge_f):
+        adj_truth = np.asarray(np.load(edge_f, allow_pickle=True), dtype=np.float64)
+        spatial = np.asarray(np.load(os.path.join(path, f"node_{split}.npy"), allow_pickle=True))
+    else:
+        rng = np.random.default_rng(seed + (0 if split == "train" else 10_000))
+        adjs, coords = [], []
+        for _ in range(num_graphs_fallback):
+            a, c, _ = syn.waxman_graph(num_nodes_fallback, rng, spread=0.8, density=0.3,
+                                       feat_level=1.0, spatial_dim=3)
+            adjs.append(a)
+            coords.append(c / syn.BOX * 20.0)
+        adj_truth, spatial = np.stack(adjs), np.stack(coords)
+    G, N = spatial.shape[0], spatial.shape[1]
+    node = np.ones((G, N), dtype=np.float64)
+    rel = np.linalg.norm(spatial[:, :, None] - spatial[:, None, :], axis=-1)
+    factor = np.arange(1, G + 1, dtype=np.float64)[:, None]
+    adj_samples = sample_spanning_trees(adj_truth, sampling_num, seed=seed)
+    rng = np.random.default_rng(seed)
+    return _shuffle_all(rng, node, spatial, adj_samples, rel, factor, adj_truth)
+
+
+def _convex_hull_adj(points: np.ndarray) -> np.ndarray:
+    """Adjacency of the convex hull's triangle edges (input_data.py:235-246,
+    through scipy.spatial as the JAX loader does); points inside the hull
+    have no edges."""
+    from scipy.spatial import ConvexHull
+
+    n = points.shape[0]
+    adj = np.zeros((n, n), dtype=np.float64)
+    for a, b, c in ConvexHull(points).simplices:
+        adj[a, b] = adj[b, a] = 1
+        adj[b, c] = adj[c, b] = 1
+        adj[a, c] = adj[c, a] = 1
+    return adj
+
+
+def load_data_mnist(type_: str, path: str, seed: int = 1, num_points: int = 50,
+                    num_graphs_fallback: int = 64) -> Tuple[np.ndarray, ...]:
+    """3-D mesh point clouds (input_data.py:224-300): ``num_points`` per
+    mesh, the convex hull's adjacency, coordinates shifted by +10; returns
+    (node, spatial, adj, rel), no spanning trees and no factors.  Without
+    the mesh pickle, seeded noisy 3-D curves stand in."""
+    split = "train" if type_ in TRAIN_SPLITS else "test"
+    f = os.path.join(path, f"mnist-combined-{split}-tasp_meshes.pickle")
+    clouds = []
+    if os.path.exists(f):
+        with open(f, "rb") as fh:
+            data = pickle.load(fh)
+        clouds = [np.asarray(mesh.sample_points(npoints=num_points)) for mesh in data.data]
+    else:
+        rng = np.random.default_rng(seed + (0 if split == "train" else 10_000))
+        for _ in range(num_graphs_fallback):
+            t = np.sort(rng.random(num_points)) * 2 * np.pi
+            clouds.append(np.stack(
+                [np.cos(t) + rng.normal(0, 0.15, num_points),
+                 np.sin(2 * t) * 0.5 + rng.normal(0, 0.15, num_points),
+                 t / (2 * np.pi) + rng.normal(0, 0.15, num_points)], axis=-1))
+    spatial = np.stack(clouds)
+    adj = _clean_adj(np.stack([_convex_hull_adj(c) for c in clouds]))
+    G, N = spatial.shape[:2]
+    node = np.ones((G, N), dtype=np.float64)
+    rel = np.linalg.norm(spatial[:, :, None] - spatial[:, None, :], axis=-1)
+    adj, node, spatial, rel = _shuffle_all(np.random.default_rng(seed), adj, node, spatial, rel)
+    return node, spatial + 10.0, adj, rel
+
+
 def tile_skew_pairing(node: np.ndarray, rel: np.ndarray,
                       num_samples: int) -> Tuple[np.ndarray, np.ndarray]:
     """The reference's sample/graph pairing skew as per-sample arrays
@@ -159,20 +240,29 @@ def load_data_scene(type_: str, path: str, seed: int = 1,
 
 
 def _load_raw(cfg: Config, split: str, num_graphs: Optional[int]):
+    """(adj, node, spatial, rel, adj_samples, factor, feat_samples,
+    rel_samples) of ``cfg``'s dataset as numpy arrays (JAX
+    ``_load_raw_dataset``, ``loaders.py:339-385``)."""
+    n_fallback, seed = num_graphs or 200, cfg.train.seed
     if cfg.dataset == "scene":
-        node, spatial, adj, rel = load_data_scene(
-            split, cfg.dataset_path, seed=cfg.train.seed,
-            num_graphs_fallback=num_graphs or 200)
+        node, spatial, adj, rel = load_data_scene(split, cfg.dataset_path, seed=seed,
+                                                  num_graphs_fallback=n_fallback)
         return adj, node, spatial, rel, None, None, None, None
-    if cfg.dataset not in SYNTHETIC_SUBDIRS:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (synthetic1/2/3 and scene are)"
-        )
-    node, spatial, adj_s, rel, factor, adj_truth = load_data_syn(
-        split, os.path.join(cfg.dataset_path, SYNTHETIC_SUBDIRS[cfg.dataset]),
-        cfg.sampling_num, seed=cfg.train.seed,
-        num_graphs_fallback=num_graphs or 200, num_nodes_fallback=cfg.num_nodes,
-    )
+    factor = None
+    if cfg.dataset == "mnist":
+        node, spatial, adj_truth, rel = load_data_mnist(
+            split, os.path.join(cfg.dataset_path, "3D_mesh"), seed=seed,
+            num_points=cfg.num_nodes, num_graphs_fallback=n_fallback)
+        adj_s = sample_spanning_trees(adj_truth, cfg.sampling_num, seed=seed)
+    elif cfg.dataset == "protein":
+        node, spatial, adj_s, rel, factor, adj_truth = load_data_protein(
+            split, os.path.join(cfg.dataset_path, "protein"), cfg.sampling_num, seed=seed,
+            num_graphs_fallback=n_fallback, num_nodes_fallback=cfg.num_nodes)
+    else:
+        node, spatial, adj_s, rel, factor, adj_truth = load_data_syn(
+            split, os.path.join(cfg.dataset_path, SYNTHETIC_SUBDIRS[cfg.dataset]),
+            cfg.sampling_num, seed=seed, num_graphs_fallback=n_fallback,
+            num_nodes_fallback=cfg.num_nodes)
     feat_s = rel_s = None
     if cfg.reproduce_pairing_skew:
         feat_s, rel_s = tile_skew_pairing(

@@ -11,12 +11,13 @@ graph with S = 1.  Decoder: per-branch projections to per-node states, sg
 states averaged over the tree axis, then the node-feature head (conv1d),
 the coordinate head (conv1d) and the adjacency head (pairwise tile-concat
 + E2E stack + diag mask; from ``cfg.adj_factored_engaged`` on, its first
-layer runs separable, ``E2E._separable``).
+layer runs separable, ``E2E._separable``).  On the 3-D datasets (protein,
+mnist: ``cfg.uses_3d_conv``) the sg-branch stacks the fourth-order
+SpatialGraphConv3D instead, as JAX ``models/disentangled.py:97-100`` does.
 
 Submodule and parameter names follow the flax tree (``g_convs.0.kernel``
 for ``g_convs_0/kernel``), so ``params.state_dict_from_flax`` carries JAX
-weights across.  Not ported yet, and raising NotImplementedError: the
-fourth-order conv (protein, mnist), remat and the blocked motif lowering.
+weights across.  Not ported yet, and raising NotImplementedError: remat.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from torch import nn
 from ..config import Config
 from ..data.graphbatch import GraphBatch
 from ..nn import (
-    E2E, Conv1D, Dense, GeoGraphConv, GraphConv, SpatialGraphConv, StructGraphConv, lrelu,
-    make_norm,
+    E2E, Conv1D, Dense, GeoGraphConv, GraphConv, SpatialGraphConv, SpatialGraphConv3D,
+    StructGraphConv, lrelu, make_norm,
 )
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
@@ -40,13 +41,17 @@ from .outputs import (
 
 def check_ported(cfg: Config) -> None:
     """Raise NotImplementedError on what neither model family ports yet."""
-    missing = []
-    if cfg.uses_3d_conv:
-        missing.append("the fourth-order spatial conv")
     if cfg.remat:
-        missing.append("rematerialization")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+        raise NotImplementedError(
+            "not ported yet: rematerialization (ROADMAP.md queue 1, item 4)")
+
+
+def motif_conv(cfg: Config, in_features: int, hidden, generator: torch.Generator) -> nn.Module:
+    """The sg-branch's motif conv of ``cfg``: fourth order on the 3-D
+    datasets, else third order; ``cfg.motif_block_rows`` passed on."""
+    conv = SpatialGraphConv3D if cfg.uses_3d_conv else SpatialGraphConv
+    return conv(in_features, cfg.rel_dim, tuple(hidden), generator,
+                block_rows=cfg.motif_block_rows)
 
 
 class DisentangledSNDVAE(nn.Module):
@@ -95,8 +100,7 @@ class DisentangledSNDVAE(nn.Module):
                 convs.append(StructGraphConv(c, hidden[0], g))
                 c = hidden[0]
             else:
-                convs.append(SpatialGraphConv(c, cfg.rel_dim, hidden, g,
-                                              block_rows=cfg.motif_block_rows))
+                convs.append(motif_conv(cfg, c, hidden, g))
                 c = hidden[-1]
             bns.append(norm(c))
         self.sg_convs, self.sg_bns = nn.ModuleList(convs), nn.ModuleList(bns)

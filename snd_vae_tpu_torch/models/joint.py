@@ -3,8 +3,10 @@
 which despite its name is the baseline model).
 
 Encoder: SpatialGraphConv (kernel K1 at level 3, its backward K2 through
-``_MotifLevel3``) + BN + lrelu + dropout over each graph's own adjacency
-and rel, no spanning trees; the latent keeps a one-sample axis, [B,1,L].
+``_MotifLevel3``; on protein and mnist the fourth-order SpatialGraphConv3D,
+as JAX ``models/joint.py:57-61``) + BN + lrelu + dropout over each graph's
+own adjacency and rel, no spanning trees; the latent keeps a one-sample
+axis, [B,1,L].
 Decoder from the per-node state d_sg_lin1(z): the coordinate head (conv1d +
 BN + lrelu + dropout; linear output for synthetic3 and scene), the
 node-feature head (the same; scene's is a categorical softmax-argmax over
@@ -32,8 +34,8 @@ from torch import nn
 
 from ..config import Config
 from ..data.graphbatch import GraphBatch
-from ..nn import E2E, Conv1D, Dense, SpatialGraphConv, dropout, lrelu, make_norm
-from .disentangled import check_ported
+from ..nn import E2E, Conv1D, Dense, dropout, lrelu, make_norm
+from .disentangled import check_ported, motif_conv
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
     diag_masked,
@@ -53,8 +55,7 @@ class JointSNDVAE(nn.Module):
 
         convs, bns, c = [], [], cfg.num_features
         for hidden in enc.sg_conv_hidden:
-            convs.append(SpatialGraphConv(c, cfg.rel_dim, tuple(hidden), g,
-                                          block_rows=cfg.motif_block_rows))
+            convs.append(motif_conv(cfg, c, hidden, g))
             c = hidden[-1]
             bns.append(norm(c))
         self.sg_convs, self.sg_bns = nn.ModuleList(convs), nn.ModuleList(bns)

@@ -23,14 +23,18 @@ from .geometric import (
 from .graph_conv import GraphConv, GraphConvFull, normalized_graph_conv
 from .spatial_conv import (
     SpatialGraphConv,
+    SpatialGraphConv3D,
     spatial_graph_conv,
+    spatial_graph_conv_3d,
+    spatial_graph_conv_3d_dense_oracle,
     spatial_graph_conv_dense_oracle,
 )
 
 __all__ = [
     "lrelu", "Dense", "Conv1D", "FrozenBatchNorm", "BatchStatNorm", "make_norm",
     "same_pad", "dropout", "GraphConv", "GraphConvFull", "normalized_graph_conv",
-    "SpatialGraphConv", "spatial_graph_conv", "spatial_graph_conv_dense_oracle", "E2E",
+    "SpatialGraphConv", "spatial_graph_conv", "spatial_graph_conv_dense_oracle",
+    "SpatialGraphConv3D", "spatial_graph_conv_3d", "spatial_graph_conv_3d_dense_oracle", "E2E",
     "GeoGraphConv", "StructGraphConv", "knn_dist", "rbf_expand", "positional_embedding",
     "gather_nodes", "quaternions", "orientations", "inner_product_decoder", "Graphite",
 ]

@@ -14,12 +14,15 @@ kernel ``fused_motif_combine``), the lrelu and the nt einsum.
 ``fused_motif_level3`` launches ``csrc/motif_level3.cu`` on CUDA tensors and
 counts the launch in ``fused_motif_level3.launches``; on CPU tensors, and
 only there, it returns ``motif_level3_plain``.  ``motif_level3`` is the
-differentiable entry point.
+differentiable entry point; its backward recomputes the plain level 3,
+with ``block_rows`` one i-row block at a time (the port of JAX's
+``_blocked_nt``, ``snd_vae_tpu/nn/spatial_conv.py:263-320``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,15 +44,23 @@ LEAK = 0.2
 def motif_level3_plain(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
     """Plain PyTorch version of the formula in the module docstring; bf16 and
     f16 inputs are computed in f32 and the result cast back."""
+    return _level3_rows(adj, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)
+
+
+def _level3_rows(adj, adj_rows, phi_rows, a_rows, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
+    """nt for the i rows given: ``adj_rows``, ``phi_rows``, ``a_rows`` are
+    rows [s, e) of adj, φ(rel) and a_i on their second axis; rf reads the
+    whole A.  The j and k sums are row-local, so rows [s, e) of the full
+    result are this, operation for operation."""
     dt = adj.dtype
     if dt in (torch.bfloat16, torch.float16):
-        adj, phi_r, a_i, v_j, deg, m1d, m1f, bias = (
-            t.float() for t in (adj, phi_r, a_i, v_j, deg, m1d, m1f, bias))
-    rf = torch.einsum("bjk,bikr->bijr", adj, phi_r)
-    m3 = (deg[:, None, :, None] * (a_i[:, :, None] + bias + phi_r @ m1d)
+        adj, adj_rows, phi_rows, a_rows, v_j, deg, m1d, m1f, bias = (
+            t.float() for t in (adj, adj_rows, phi_rows, a_rows, v_j, deg, m1d, m1f, bias))
+    rf = torch.einsum("bjk,bikr->bijr", adj, phi_rows)
+    m3 = (deg[:, None, :, None] * (a_rows[:, :, None] + bias + phi_rows @ m1d)
           + v_j[:, None] + rf @ m1f)
-    m3 = adj[..., None] * m3
-    nt = torch.einsum("bij,bijh->bih", adj, torch.maximum(m3, LEAK * m3))
+    m3 = adj_rows[..., None] * m3
+    nt = torch.einsum("bij,bijh->bih", adj_rows, torch.maximum(m3, LEAK * m3))
     return nt.to(dt)
 
 
@@ -97,26 +108,40 @@ fused_motif_level3.launches = 0
 
 class _MotifLevel3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, *inputs):
+    def forward(ctx, block_rows, *inputs):
+        ctx.block_rows = block_rows
         ctx.save_for_backward(*inputs)
         return fused_motif_level3(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
         inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
         wanted = [t for t in inputs if t.requires_grad]
         if not wanted:
-            return (None,) * len(inputs)
-        with torch.enable_grad():
-            out = motif_level3_plain(*inputs)
-        got = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(got) if t.requires_grad else None for t in inputs)
+            return (None,) * (1 + len(inputs))
+        adj, phi_r, a_i, *shared = inputs
+        n = adj.shape[1]
+        step = ctx.block_rows or n
+        got = None
+        for s in range(0, n, step):
+            # one i-row block of the plain level 3, recomputed and dropped
+            with torch.enable_grad():
+                out = _level3_rows(adj, adj[:, s:s + step], phi_r[:, s:s + step],
+                                  a_i[:, s:s + step], *shared)
+            part = torch.autograd.grad(out, wanted, grad[:, s:s + step])
+            got = part if got is None else [g + p for g, p in zip(got, part)]
+        got = iter(got)
+        return (None,) + tuple(next(got) if t.requires_grad else None for t in inputs)
 
 
-def motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
+def motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
+                 block_rows: Optional[int] = None) -> torch.Tensor:
     """The differentiable level 3: forward ``fused_motif_level3``, backward
-    autograd through ``motif_level3_plain``.  The forward saves only its
-    inputs, so the backward recomputes rf and m3 ([B,N,N,R] and [B,N,N,h])
-    rather than keeping m3 from the forward: the kernel never writes it."""
-    return _MotifLevel3.apply(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)
+    autograd through the plain version.  The forward saves only its inputs,
+    so the backward recomputes rf and m3 ([B,N,N,R] and [B,N,N,h]) rather
+    than keeping m3 from the forward: the kernel never writes it.  With
+    ``block_rows`` (a divisor of N) it recomputes them one i-row block at a
+    time, [B,block_rows,N,·], summing the blocks' gradients; the forward is
+    one launch either way."""
+    return _MotifLevel3.apply(block_rows, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)

@@ -1,30 +1,56 @@
-"""Third-order spatial-motif graph convolution — the port of
-``snd_vae_tpu/nn/spatial_conv.py:116-260`` (reference layers.py:143-198).
+"""Spatial-motif graph convolutions — the port of
+``snd_vae_tpu/nn/spatial_conv.py`` (reference layers.py:143-359).
 
-The reference materializes [B,N,N,N,·] motif triples.  The JAX package
-factors the masked motif sum into per-node terms, per-pair terms and masked
-matmuls (module docstring there); this port keeps that factored form and
-computes level 3 in the rank-R arithmetic of the JAX default path
-(``spatial_conv.py:220-238``), with the j-only terms folded into
-``v_combined``, as one kernel from φ(rel) to the masked j-sum:
+The reference materializes [B,N,N,N,·] motif triples (third order) and
+[B,N,N,N,N,·] quadruples (fourth order).  The JAX package factors the masked
+motif sums into per-node terms, per-pair terms and masked matmuls (module
+docstring there); this port keeps that factored, rank-R form.
+
+Third order (``spatial_conv.py:116-260``): level 3 runs in the rank-R
+arithmetic of the JAX default path (``:220-238``), with the j-only terms
+folded into ``v_combined``, as one kernel from φ(rel) to the masked j-sum:
 
     nt = motif_level3(adj, φ(rel), a_i, v_combined, deg, M1d, M1f, bias1)
 
-(``kernels.motif_level3``), so no [B,N,N,h0] tensor is built.  Levels 2 and
-1 are the rank-R reassociated sums of ``spatial_conv.py:240-260``.  Public
-layouts as in JAX: adj [B,N,N], x [B,N,F], rel [B,N,N,R] -> [B,N,h2].
+(``kernels.motif_level3``), so the forward builds no [B,N,N,h0] tensor.
+``block_rows`` (JAX ``_blocked_nt``, ``:263-320``) keeps that forward and
+makes its backward recompute level 3 one i-row block at a time.  Levels 2
+and 1 are the rank-R reassociated sums of ``:240-260``.
+
+Fourth order (``spatial_conv.py:358-637``, the protein and mnist
+datasets): levels 4 and 3 are PyTorch ops, as XLA ops are in JAX — the JAX
+package has no Pallas kernel there.  The [B,N,N,N,h0] ``m4_sum`` is built
+in one buffer that the broadcast adds, the motif mask and lrelu update in
+place, so autograd keeps one such tensor per layer (lrelu's output); its
+masked k-sum is a batched matmul over that buffer as it lies.
+``block_rows`` (``_blocked_nt_3d``, ``:565-637``) computes levels 4 and 3
+one i-row block at a time under ``torch.utils.checkpoint``.
+
+Public layouts as in JAX: adj [B,N,N], x [B,N,F], rel [B,N,N,R] ->
+[B,N,h_last].  Products accumulate in the inputs' dtype (JAX's
+``_acc_dtype``: f32 for bf16 inputs, the input dtype otherwise; cuBLAS
+accumulates bf16 products in f32).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as Fn
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import init as inits
 from .basic import lrelu
 from .kernels.motif_level3 import motif_level3
+
+LEAK = 0.2
+
+
+def _check_block_rows(block_rows: int, n: int) -> None:
+    if n % block_rows != 0:
+        raise ValueError(f"motif block_rows={block_rows} must divide num_nodes={n}")
 
 
 class SpatialGraphConv(nn.Module):
@@ -36,12 +62,9 @@ class SpatialGraphConv(nn.Module):
                  stddev: float = 0.02, bias_start: float = 0.0,
                  block_rows: Optional[int] = None):
         super().__init__()
-        if block_rows is not None:
-            raise NotImplementedError(
-                "the blocked streamed lowering (motif_block_rows) is not ported yet"
-            )
         F, R = in_features, rel_features
         h0, h1, h2 = hidden
+        self.block_rows = block_rows
         self.Matrix1 = nn.Parameter(inits.normal((3 * F + 3 * R, h0), stddev, generator))
         self.bias1 = nn.Parameter(torch.full((h0,), float(bias_start)))
         self.Matrix2 = nn.Parameter(inits.normal((2 * F + R + h0, h1), stddev, generator))
@@ -52,17 +75,16 @@ class SpatialGraphConv(nn.Module):
     def forward(self, adj: torch.Tensor, x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
         params = {k: getattr(self, k) for k in
                   ("Matrix1", "bias1", "Matrix2", "bias2", "Matrix3", "bias3")}
-        return spatial_graph_conv(adj, x, rel, params)
+        return spatial_graph_conv(adj, x, rel, params, block_rows=self.block_rows)
 
 
 def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
                        block_rows: Optional[int] = None) -> torch.Tensor:
     """Functional factored third-order conv; level 3 through the
-    ``motif_level3`` kernel (see the module docstring)."""
+    ``motif_level3`` kernel (see the module docstring).  ``block_rows``
+    must divide N; it changes only the backward's live set."""
     if block_rows is not None:
-        raise NotImplementedError(
-            "the blocked streamed lowering (block_rows) is not ported yet"
-        )
+        _check_block_rows(block_rows, adj.shape[1])
     F, R = x.shape[-1], rel.shape[-1]
     m1, b1 = params["Matrix1"], params["bias1"]
     m2, b2 = params["Matrix2"], params["bias2"]
@@ -86,7 +108,7 @@ def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
     nt = motif_level3(adj.contiguous(), phi_r.contiguous(), a_i.contiguous(),
                       v_combined.contiguous(), deg.contiguous(),
                       m1[3 * F:3 * F + R].contiguous(), m1[3 * F + 2 * R:].contiguous(),
-                      b1.contiguous())
+                      b1.contiguous(), block_rows=block_rows)
 
     # --- level 2: masked pair sum, reassociated --------------------------
     p_i = phi_x @ m2[0:F]
@@ -127,6 +149,211 @@ def spatial_graph_conv_dense_oracle(adj, x, rel, params) -> torch.Tensor:
     m2_in = torch.cat([xi2, xj2, rel, m3_sum], dim=-1)
     m2t = torch.einsum("bijf,fh->bijh", lrelu(m2_in), m2) + b2
     m2_sum = torch.einsum("bijh,bij->bih", m2t, adj)
+
+    m1_in = torch.cat([x, m2_sum], dim=-1)
+    return torch.einsum("bif,fh->bih", lrelu(m1_in), m3) + b3
+
+
+# ---------------------------------------------------------------------------
+# Fourth order (3D datasets: protein, mnist) — reference layers.py:200-359
+# ---------------------------------------------------------------------------
+
+class SpatialGraphConv3D(nn.Module):
+    """Fourth-order spatial-motif conv.  Params as the reference's
+    (layers.py:210-225): Matrix0 [4F+3R+2Rd, h0], Matrix1 [3F+2R+h0+Rd, h1],
+    Matrix2 [2F+R+h1, h2], Matrix3 [F+h2, h3], with Rd = ``rel_features``
+    and R = Rd, or Rd + 1 for ``fully_connected`` (the reference's `_full`
+    variant, layers.py:279-359: all-ones masks, rel := concat(rel, adj))."""
+
+    def __init__(self, in_features: int, rel_features: int,
+                 hidden: Tuple[int, int, int, int], generator: torch.Generator,
+                 stddev: float = 0.02, bias_start: float = 0.0,
+                 fully_connected: bool = False, block_rows: Optional[int] = None):
+        super().__init__()
+        F, Rd = in_features, rel_features
+        R = Rd + (1 if fully_connected else 0)
+        h0, h1, h2, h3 = hidden
+        self.fully_connected, self.block_rows = fully_connected, block_rows
+        shapes = (("Matrix0", (4 * F + 3 * R + 2 * Rd, h0)), ("bias0", (h0,)),
+                  ("Matrix1", (3 * F + 2 * R + h0 + Rd, h1)), ("bias1", (h1,)),
+                  ("Matrix2", (2 * F + R + h1, h2)), ("bias2", (h2,)),
+                  ("Matrix3", (F + h2, h3)), ("bias3", (h3,)))
+        for name, shape in shapes:
+            value = (inits.normal(shape, stddev, generator) if name.startswith("Matrix")
+                     else torch.full(shape, float(bias_start)))
+            setattr(self, name, nn.Parameter(value))
+
+    def forward(self, adj: torch.Tensor, x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+        dis = rel
+        if self.fully_connected:
+            rel = torch.cat([rel, adj[..., None]], dim=-1)
+        params = {k: getattr(self, k) for k in
+                  ("Matrix0", "bias0", "Matrix1", "bias1", "Matrix2", "bias2",
+                   "Matrix3", "bias3")}
+        return spatial_graph_conv_3d(adj, x, rel, dis, params,
+                                     fully_connected=self.fully_connected,
+                                     block_rows=self.block_rows)
+
+
+def _slices(m: torch.Tensor, widths: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """Consecutive row slices of ``m`` of the given widths, then the rest."""
+    out, o = [], 0
+    for w in widths:
+        out.append(m[o:o + w])
+        o += w
+    return (*out, m[o:])
+
+
+def spatial_graph_conv_3d(adj, x, rel, dis, params: Dict[str, torch.Tensor],
+                          fully_connected: bool = False,
+                          block_rows: Optional[int] = None) -> torch.Tensor:
+    """Functional factored fourth-order conv (JAX ``spatial_conv.py:401-562``).
+
+    ``rel`` feeds the chain relations (r_ij, r_jk, r_kp), ``dis`` the skip
+    distances (d_ik, d_ip): the same tensor for the standard variant.
+    ``block_rows`` (a divisor of N) computes levels 4 and 3 one i-row block
+    at a time (``_blocked_nt_3d``); i-blocking reassociates no sum."""
+    F, R, Rd = x.shape[-1], rel.shape[-1], dis.shape[-1]
+    m0, b0 = params["Matrix0"], params["bias0"]
+    m1, b1 = params["Matrix1"], params["bias1"]
+    m2, b2 = params["Matrix2"], params["bias2"]
+    m3, b3 = params["Matrix3"], params["bias3"]
+
+    mask = torch.ones_like(adj) if fully_connected else adj
+    deg = mask.sum(-1)                                   # [B,N]
+    phi_x, phi_r, phi_d = lrelu(x), lrelu(rel), lrelu(dis)
+
+    # neighbour sums of the raw inputs, reused at every level (rank-R:
+    # masked node-sums contract against the R-channel inputs before the
+    # R→h weight matmuls)
+    mx = torch.einsum("bkp,bpf->bkf", mask, phi_x)       # Σ_p M[k,p]·φ(x_p)      [B,N,F]
+    nr4 = torch.einsum("bkp,bkpr->bkr", mask, phi_r)     # Σ_p M[k,p]·φ(rel)[k,p] [B,N,R]
+
+    # weight slices in the reference's column order (layers.py:210-225)
+    m0_a, m0_b, m0_c, m0_p, m0_u, m0_v, m0_w, m0_y, m0_z, _ = _slices(
+        m0, (F, F, F, F, R, R, R, Rd, Rd))
+    m1_ci, m1_cj, m1_ck, m1_gij, m1_gjk, m1_gik, w_m4 = _slices(
+        m1, (F, F, F, R, R, Rd))
+
+    # level-4 and level-3 pieces that do not depend on i
+    a_i = phi_x @ m0_a
+    a_j = phi_x @ m0_b
+    beta_jk = deg[:, None, :, None] * (a_j[:, :, None] + phi_r @ m0_v)   # [B,N,N,h0]
+    gamma_k = deg[..., None] * (phi_x @ m0_c + b0) + mx @ m0_p + nr4 @ m0_w  # [B,N,h0]
+    c_i = phi_x @ m1_ci
+    c_j = phi_x @ m1_cj
+    neigh_j = mx @ m1_ck + nr4 @ m1_gjk                  # Σ_k M[j,k]·(c_k + g_jk)
+
+    def rows(mask_i, pr, pd, ai, ci):
+        """nt[i] = Σ_j M[i,j]·φ(m3_sum[i,j]) for the i rows given."""
+        # level 4: m4[i,j,k] = M[i,j]·M[j,k]·(deg[k]·(a_i+a_j+u_ij+a_k+v_jk+y_ik+b0)
+        #                                      + P[k] + Vw[k] + Wz[i,k])
+        nd4 = torch.einsum("bkp,bipr->bikr", mask, pd)   # Σ_p M[k,p]·φ(dis)[i,p]
+        alpha_ik = deg[:, None, :, None] * (ai[:, :, None] + pd @ m0_y) + nd4 @ m0_z
+        m4 = deg[:, None, None, :, None] * (pr @ m0_u)[:, :, :, None, :]   # [B,b,N,N,h0]
+        m4 += alpha_ik[:, :, None]
+        m4 += beta_jk[:, None]
+        m4 += gamma_k[:, None, None]
+        m4 *= (mask_i[:, :, :, None] * mask[:, None])[..., None]           # M[i,j]·M[j,k]
+        # level 3: the masked k-sum of φ(m4) before the h0→h1 matmul
+        # (linearity in the weights), as a matmul over m4 as it lies
+        Fn.leaky_relu_(m4, LEAK)
+        tm = torch.matmul(mask[:, None, :, None, :], m4).squeeze(-2)       # [B,b,N,h0]
+        m3_sum = (
+            deg[:, None, :, None] * (ci[:, :, None] + c_j[:, None, :] + pr @ m1_gij + b1)
+            + neigh_j[:, None, :]
+            + nd4 @ m1_gik
+            + tm @ w_m4
+        )
+        m3_sum = mask_i[..., None] * m3_sum                                 # [B,b,N,h1]
+        return torch.einsum("bij,bijh->bih", mask_i, lrelu(m3_sum))
+
+    row_inputs = (mask, phi_r, phi_d, a_i, c_i)
+    if block_rows is None:
+        nt = rows(*row_inputs)                                              # [B,N,h1]
+    else:
+        nt = _blocked_rows(rows, row_inputs, block_rows)
+
+    # --- level 2: fully reassociated as in the third-order op ------------
+    m2_p, m2_q, m2_s, m2_t = _slices(m2, (F, F, R))
+    m2_sum = (
+        deg[..., None] * (phi_x @ m2_p + b2)
+        + mx @ m2_q
+        + nr4 @ m2_s
+        + nt @ m2_t
+    )
+
+    # --- level 1 ---------------------------------------------------------
+    return phi_x @ m3[0:F] + lrelu(m2_sum) @ m3[F:] + b3
+
+
+def _blocked_rows(fn: Callable[..., torch.Tensor], row_inputs: Sequence[torch.Tensor],
+                  block_rows: int) -> torch.Tensor:
+    """``fn`` of the i-row blocks of ``row_inputs`` (each [B,N,...]),
+    concatenated on the row axis: the port of ``_blocked_nt_3d``'s
+    checkpointed scan (JAX ``spatial_conv.py:565-637``).  Under autograd each
+    block runs in ``torch.utils.checkpoint``: the forward keeps only the
+    block outputs, and the backward recomputes one block's internals at a
+    time.  Tensors ``fn`` closes over (``beta_jk`` [B,N,N,h0] the largest)
+    stay resident across blocks, as in JAX."""
+    n = row_inputs[0].shape[1]
+    _check_block_rows(block_rows, n)
+    outs = []
+    for s in range(0, n, block_rows):
+        block = [t[:, s:s + block_rows] for t in row_inputs]
+        outs.append(checkpoint(fn, *block, use_reentrant=False) if torch.is_grad_enabled()
+                    else fn(*block))
+    return torch.cat(outs, dim=1)
+
+
+def spatial_graph_conv_3d_dense_oracle(adj, x, rel, dis, params,
+                                       fully_connected: bool = False) -> torch.Tensor:
+    """Literal reference formula (layers.py:200-277 / 279-359), the port of
+    JAX ``spatial_conv.py:640-687``: O(B·N⁴·h) memory, for the tests at
+    N ≤ 6 only."""
+    B, N, F = x.shape
+    R, Rd = rel.shape[-1], dis.shape[-1]
+    m0, b0 = params["Matrix0"], params["bias0"]
+    m1, b1 = params["Matrix1"], params["bias1"]
+    m2, b2 = params["Matrix2"], params["bias2"]
+    m3, b3 = params["Matrix3"], params["bias3"]
+    mask = torch.ones_like(adj) if fully_connected else adj
+
+    s4 = (B, N, N, N, N)
+    m4_in = torch.cat([
+        x[:, :, None, None, None, :].expand(*s4, F),      # x_i
+        x[:, None, :, None, None, :].expand(*s4, F),      # x_j
+        x[:, None, None, :, None, :].expand(*s4, F),      # x_k
+        x[:, None, None, None, :, :].expand(*s4, F),      # x_p
+        rel[:, :, :, None, None, :].expand(*s4, R),       # r_ij
+        rel[:, None, :, :, None, :].expand(*s4, R),       # r_jk
+        rel[:, None, None, :, :, :].expand(*s4, R),       # r_kp
+        dis[:, :, None, :, None, :].expand(*s4, Rd),      # d_ik
+        dis[:, :, None, None, :, :].expand(*s4, Rd),      # d_ip
+    ], dim=-1)
+    m4 = torch.einsum("bijkpf,fh->bijkph", lrelu(m4_in), m0) + b0
+    mask4 = (mask[:, :, :, None, None] * mask[:, None, :, :, None]
+             * mask[:, None, None, :, :])
+    m4_sum = torch.einsum("bijkph,bijkp->bijkh", m4, mask4)
+
+    s3 = (B, N, N, N)
+    m3_in = torch.cat([
+        x[:, :, None, None, :].expand(*s3, F),
+        x[:, None, :, None, :].expand(*s3, F),
+        x[:, None, None, :, :].expand(*s3, F),
+        rel[:, :, :, None, :].expand(*s3, R),
+        rel[:, None, :, :, :].expand(*s3, R),
+        dis[:, :, None, :, :].expand(*s3, Rd),
+        m4_sum,
+    ], dim=-1)
+    m3t = torch.einsum("bijkf,fh->bijkh", lrelu(m3_in), m1) + b1
+    mask3 = mask[:, :, :, None] * mask[:, None, :, :]
+    m3_sum = torch.einsum("bijkh,bijk->bijh", m3t, mask3)
+
+    m2_in = torch.cat([x[:, :, None, :].expand(B, N, N, F),
+                       x[:, None, :, :].expand(B, N, N, F), rel, m3_sum], dim=-1)
+    m2t = torch.einsum("bijf,fh->bijh", lrelu(m2_in), m2) + b2
+    m2_sum = torch.einsum("bijh,bij->bih", m2t, mask)
 
     m1_in = torch.cat([x, m2_sum], dim=-1)
     return torch.einsum("bif,fh->bih", lrelu(m1_in), m3) + b3

@@ -228,10 +228,10 @@ class Trainer:
         if cfg.train.eval_every > 0:
             raise NotImplementedError(
                 "held-out evaluation (train.eval_every > 0) is not ported yet "
-                "(ROADMAP.md queue 1, item 9)")
+                "(ROADMAP.md queue 1, item 3)")
         if cfg.mesh.data * cfg.mesh.model > 1:
             raise NotImplementedError(
-                "training over a device mesh is not ported yet (ROADMAP.md queue 1, item 10)")
+                "training over a device mesh is not ported yet (ROADMAP.md queue 1, item 6)")
         full_f32()
         dev = resolve_device(device)
         self.cfg, self.device, self.workdir = cfg, dev, workdir

@@ -1,5 +1,5 @@
-"""The port's synthetic data pipeline is bit-equal to the JAX package's for
-the same cfg and seed.
+"""The port's data pipeline (the synthetic datasets, protein, mnist) is
+bit-equal to the JAX package's for the same cfg and seed.
 
 The JAX loader takes the ctypes spanning-tree sampler whenever
 ``native/libsndkern.so`` is built (``snd_vae_tpu/data/spanning_tree.py:87``);
@@ -12,8 +12,10 @@ import torch
 
 import snd_vae_tpu.utils.native
 from snd_vae_tpu import config as jcfg
+from snd_vae_tpu.data import loaders as jax_loaders
 from snd_vae_tpu.data.loaders import load_dataset as jax_load_dataset
 from snd_vae_tpu_torch import config as tcfg
+from snd_vae_tpu_torch.data import loaders
 from snd_vae_tpu_torch.data.graphbatch import GraphBatch
 from snd_vae_tpu_torch.data.loaders import load_dataset
 
@@ -32,12 +34,23 @@ def numpy_sampler(monkeypatch):
     ("synthetic1", "test", {"sampling_num": 3}),
     ("synthetic3", "train", {"reproduce_pairing_skew": True, "sampling_num": 4}),
     ("synthetic2", "test", {"normalize_coords": True}),
+    ("protein", "test", {}),
+    ("protein", "train", {"normalize_coords": True, "sampling_num": 3}),
+    ("mnist", "test", {}),
+    ("mnist", "train", {"reproduce_pairing_skew": True, "sampling_num": 2}),
+    ("mnist", "test", {"normalize_coords": True, "num_nodes": 30}),
 ])
 def test_load_dataset_bit_equal(numpy_sampler, tmp_path, dataset, split, over):
-    """Both generate from the seed: the dataset path holds no files."""
+    """Both generate from the seed: the dataset path holds no files
+    (protein: seeded 3-D Waxman graphs; mnist: noisy 3-D curves and their
+    convex hulls)."""
     over = dict(over, dataset_path=str(tmp_path))
-    want = jax_load_dataset(jcfg.preset(dataset, **over), split, num_graphs=12)
-    got = load_dataset(tcfg.preset(dataset, **over), split, num_graphs=12, device="cpu")
+    _assert_bit_equal(jcfg.preset(dataset, **over), tcfg.preset(dataset, **over), split)
+
+
+def _assert_bit_equal(jc, tc, split, num_graphs=12):
+    want = jax_load_dataset(jc, split, num_graphs=num_graphs)
+    got = load_dataset(tc, split, num_graphs=num_graphs, device="cpu")
     for f in FIELDS:
         w, g = getattr(want, f), getattr(got, f)
         assert (w is None) == (g is None), f
@@ -65,6 +78,40 @@ def test_spanning_trees_are_trees():
     assert np.array_equal(trees, np.swapaxes(trees, -1, -2))
 
 
-def test_unported_dataset_raises():
-    with pytest.raises(NotImplementedError):
-        load_dataset(tcfg.preset("protein"), "test", num_graphs=2, device="cpu")
+def test_unported_dataset_raises(numpy_sampler, tmp_path):
+    """protein is ported: its on-disk layout (``edge_<split>.npy`` and
+    ``node_<split>.npy`` under ``<dataset_path>/protein``), a few graphs of
+    10 nodes written to tmp_path, loads bit-equal to JAX's, each split from
+    its own files."""
+    rng = np.random.default_rng(0)
+    (tmp_path / "protein").mkdir()
+    for split, G in (("train", 6), ("test", 4)):
+        adj = np.triu((rng.random((G, 10, 10)) < 0.4).astype(np.float64), 1)
+        np.save(tmp_path / "protein" / f"edge_{split}.npy", adj + np.swapaxes(adj, 1, 2))
+        np.save(tmp_path / "protein" / f"node_{split}.npy", rng.uniform(0, 20, (G, 10, 3)))
+    over = dict(dataset_path=str(tmp_path), num_nodes=10, sampling_num=3)
+    for split, G in (("train", 6), ("test", 4)):
+        _assert_bit_equal(jcfg.preset("protein", **over), tcfg.preset("protein", **over), split)
+        got = load_dataset(tcfg.preset("protein", **over), split, device="cpu")
+        assert got.batch_size == G and got.factors.shape == (G, 1)
+
+
+def test_convex_hull_adj_matches_jax():
+    """mnist's hull adjacency on seeded 3-D clouds, with points well inside
+    the hull: equal to JAX's, symmetric, and the interior points isolated."""
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        shell = rng.standard_normal((40, 3))
+        shell /= np.linalg.norm(shell, axis=1, keepdims=True)
+        pts = np.concatenate([shell, 0.1 * rng.standard_normal((10, 3))])
+        got = loaders._convex_hull_adj(pts)
+        np.testing.assert_array_equal(got, jax_loaders._convex_hull_adj(pts))
+        assert np.array_equal(got, got.T) and not got[40:].any() and got[:40].any(1).all()
+
+
+@pytest.mark.parametrize("dataset", ["protein", "mnist"])
+def test_train_coord_bounds_match_jax(numpy_sampler, tmp_path, dataset):
+    """normalize_coords' affine map: the train split's scalar bounds."""
+    over = dict(dataset_path=str(tmp_path), normalize_coords=True)
+    want = jax_loaders.train_coord_bounds(jcfg.preset(dataset, **over))
+    assert loaders.train_coord_bounds(tcfg.preset(dataset, **over)) == want

@@ -205,6 +205,9 @@ def test_spatial_graph_conv(rng, key, F, R, weighted):
                                rtol=1e-9, atol=1e-12)
 
 
-def test_spatial_graph_conv_blocked_not_ported():
-    with pytest.raises(NotImplementedError):
-        tops.SpatialGraphConv(1, 1, (2, 2, 2), GEN, block_rows=5)
+def test_spatial_graph_conv_blocked_not_ported(rng):
+    """block_rows is ported (tests/test_torch_conv3d.py holds it against
+    JAX); one that does not divide N raises ValueError, as JAX's does."""
+    adj, x, rel = map(torch.from_numpy, _random_graph(rng, 1, 7, 1, 1))
+    with pytest.raises(ValueError, match="must divide"):
+        tops.SpatialGraphConv(1, 1, (2, 2, 2), GEN, block_rows=5).double()(adj, x, rel)

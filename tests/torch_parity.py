@@ -43,26 +43,29 @@ SMALL = dict(
 )
 
 
-def configs(case, dataset="synthetic2", decoder=None, **overrides):
+def configs(case, dataset="synthetic2", decoder=None, encoder=None, **overrides):
     """The same Config in both packages (their fields are identical):
     "synthetic2" (the preset of ``dataset`` at full width) or "small" (the
     SMALL widths over that preset; scene keeps its 10 nodes and K-way edge
-    head).  ``decoder`` overrides DecoderConfig fields."""
+    head).  ``decoder`` / ``encoder`` override DecoderConfig /
+    EncoderConfig fields, ``overrides`` Config fields (SMALL's too)."""
     out = []
     for mod in (jcfg, tcfg):
         base = mod.preset(dataset)
         if case == "synthetic2":
             kw = {}
             dec = dict(decoder or {})
+            if encoder:
+                kw["encoder"] = dataclasses.replace(base.encoder, **encoder)
         else:
-            kw = dict(SMALL, encoder=mod.EncoderConfig(**SMALL["encoder"]))
+            kw = dict(SMALL, encoder=mod.EncoderConfig(**dict(SMALL["encoder"], **(encoder or {}))))
             dec = dict(SMALL["decoder"], **(decoder or {}))
             if dataset == "scene":
                 kw["num_nodes"] = base.num_nodes
                 dec["num_edge_feature"] = base.decoder.num_edge_feature
         if dec:
             kw["decoder"] = dataclasses.replace(base.decoder, **dec)
-        out.append(base.with_(**kw, **overrides))
+        out.append(base.with_(**dict(kw, **overrides)))
     # every field equal but the dataset path, whose port default lies in its checkout
     same = [dict(dataclasses.asdict(c), dataset_path=None) for c in out]
     assert same[0] == same[1]
@@ -147,13 +150,13 @@ def torch_dtype(np_dtype):
 
 
 def setup_models(case, np_dtype, dataset="synthetic2", num_graphs=2, split="test",
-                 init=random_params, decoder=None, **overrides):
-    """The configs of ``configs(case, dataset, decoder, **overrides)``, the
+                 init=random_params, decoder=None, encoder=None, **overrides):
+    """The configs of ``configs(case, dataset, decoder, encoder, **overrides)``, the
     port loader's ``split`` as numpy arrays in ``np_dtype``, the JAX model
     with flax params from ``init(shapes, rng)`` (shapes from its own f32
     init, traced only) and the port model carrying the same params.
     Returns (jax cfg, torch cfg, jax model, params tree, port model, arrays)."""
-    jc, tc = configs(case, dataset, decoder, **overrides)
+    jc, tc = configs(case, dataset, decoder, encoder, **overrides)
     data = load_dataset(tc, split, num_graphs=num_graphs, device="cpu")
     arrays = {k: v.numpy().astype(np_dtype) for k, v in vars(data).items() if v is not None}
     jm = jax_build_model(jc)
