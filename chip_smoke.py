@@ -67,7 +67,25 @@ Phases, one output line each:
                disentangled model at the mnist preset (adj_matmul twice):
                one batch against the CPU, 3 train steps, the card's step
                against the CPU's;
- 14. the launches per path and the kernels line (JSON); 15. the result
+ 14. eval    — synthetic2, disentangled, f32: Trainer.run for 2 epochs
+               with eval_every=1 on the test split (2 + 2 launches per step
+               and per eval batch), the best checkpoint and best.json, one
+               evaluate_heldout counted and timed, its metrics against a CPU
+               Trainer's on the same weights (edge AUC/AP within 1e-4, MSEs
+               at rtol 1e-4);
+ 15. remat   — one f32 step without remat, with --remat, recompute-big and
+               dots-no-batch for synthetic2 (disentangled and joint) and
+               protein: the loss at rtol 1e-6, every gradient held to a
+               float64 step on the CPU (at most twice the unremat error,
+               plus 1e-7 of the largest gradient), the launches (4 of
+               motif_level3 with remat: the recompute launches again); at
+               protein's full batch each variant and --remat
+               --motif-block-rows 10: ms per step and peak memory;
+ 16. cli_eval — the CLI in-process: train with --eval-every, then
+               test_reconstruct, test_generation, test_disentangle (each
+               mode), the joint model's test_disentangle and sweep, every
+               metric and grid finite;
+ 17. the launches per path and the kernels line (JSON); 18. the result
                line (JSON), last.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -1220,6 +1238,234 @@ def run_blocked(ml, mc, am):
     return out
 
 
+def run_eval(ml, mc, am):
+    """Held-out evaluation at synthetic2, disentangled, f32: Trainer.run for
+    2 epochs with eval_every=1 on the test split (200 graphs), counted (2 +
+    2 launches per step and per eval batch; epoch 0 is not scored); the
+    best checkpoint and best.json; one evaluate_heldout alone, counted and
+    timed; its metrics against a CPU Trainer's on the same weights (edge
+    AUC/AP within 1e-4, the MSEs at rtol 1e-4, the same keys)."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    cfg = cfg.with_(train=dataclasses.replace(cfg.train, eval_every=1))
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "train", device="cpu")
+    held = load_dataset(cfg, "test", device="cpu")
+    steps, eval_batches = TRAIN_EPOCHS * data.batch_size // B, held.batch_size // B
+    res = {"graphs": data.batch_size, "heldout_graphs": held.batch_size, "epochs": TRAIN_EPOCHS}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir, eval_batch=held)
+        zero_counts(ml, mc, am)
+        trainer.run(TRAIN_EPOCHS, verbose=False)
+        launches = read_counts(ml, mc, am)
+        check(launches == per(steps + eval_batches, ml3=2, k3=2),
+              f"eval: launches {launches} over {steps} steps and {eval_batches} eval batches")
+        best_dir = Path(trainer.best_checkpointer.directory)
+        best = json.loads((best_dir / "best.json").read_text())
+        check(trainer.best_checkpointer.steps() == [best["epoch"]] == [1],
+              f"best checkpoint {trainer.best_checkpointer.steps()}, best.json {best}")
+        val_log = Path(trainer.eval_logger.path).read_text().splitlines()
+        zero_counts(ml, mc, am)
+        t0 = time.perf_counter()
+        card = trainer.evaluate_heldout()
+        res["evaluate_heldout_s"] = time.perf_counter() - t0
+        per_eval = read_counts(ml, mc, am)
+        check(per_eval == per(eval_batches, ml3=2, k3=2),
+              f"evaluate_heldout: launches {per_eval} over {eval_batches} batches")
+        cpu_trainer = tt.Trainer(cfg, data, device="cpu", workdir=workdir + "/cpu",
+                                 eval_batch=held)
+        cpu_trainer.state.model.load_state_dict(trainer.state.model.state_dict())
+        cpu = cpu_trainer.evaluate_heldout()
+    check(sorted(card) == sorted(cpu), f"eval keys {sorted(card)} vs {sorted(cpu)}")
+    for k in ("edge_auc", "edge_ap"):
+        check(abs(card[k] - cpu[k]) <= 1e-4, f"{k}: card {card[k]} vs CPU {cpu[k]}")
+    for k in ("node_mse", "spatial_mse"):
+        check(math.isclose(card[k], cpu[k], rel_tol=1e-4), f"{k}: card {card[k]} vs CPU {cpu[k]}")
+    check(all(math.isfinite(v) for v in card.values()), f"eval metrics {card}")
+    res.update(launches=launches, launches_per_eval_batch={k: v / eval_batches
+                                                           for k, v in per_eval.items()},
+               per_eval_launches=per_eval, best=best, val_log_rows=len(val_log) - 1,
+               card=card, card_vs_cpu_abs_diff={k: abs(card[k] - cpu[k]) for k in card})
+    return res
+
+
+REMAT_VARIANTS = {"none": {}, "remat": dict(remat=True),
+                  "recompute-big": dict(remat=True, remat_policy="recompute-big"),
+                  "dots-no-batch": dict(remat=True, remat_policy="dots-no-batch")}
+
+
+def remat_step(ml, mc, am, cfg, batch, eps, device, dtype=torch.float32):
+    """One train step (Adam, global_iter 0) from the seed weights of ``cfg``
+    on ``device`` with ε given, the model, the batch and ε in ``dtype``;
+    returns the loss, the gradients and the launches."""
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.models import Latents, build_model
+
+    model = build_model(cfg, device).to(dtype).train()
+    batch = batch.to(dtype=dtype)
+    state = tt.TrainState(cfg=cfg, model=model, optimizer=tt.make_optimizer(cfg, model.parameters()),
+                          generator=torch.Generator(device=device).manual_seed(0))
+    on = lambda t: None if t is None else t.to(device, dtype)
+    zero_counts(ml, mc, am)
+    aux = tt.train_step(state, batch.to(device), torch.zeros((), device=device),
+                        eps=Latents(z_sg=on(eps.z_sg), z_s=on(eps.z_s), z_g=on(eps.z_g)))
+    launches = read_counts(ml, mc, am) if device == "cuda" else None
+    return (aux["loss"].item(), {n: p.grad.detach() for n, p in model.named_parameters()
+                                 if p.grad is not None}, launches)
+
+
+def run_remat(ml, mc, am):
+    """One f32 train step without remat, with --remat and with each policy,
+    for synthetic2 (disentangled, 10 graphs x 10 trees; the joint model)
+    and protein (disentangled; 2 graphs x 10 trees here, as a float64 step
+    of the full batch does not fit the CPU's time): the loss at rtol 1e-6
+    of the step without remat; every gradient held to a float64 step on the
+    CPU (each remat variant's error at most twice the unremat one's, plus
+    1e-7 of the largest gradient); the launches (each motif conv's kernel
+    once more in the recompute).  Then at protein's full batch (50 x 10
+    trees) each variant and --remat --motif-block-rows 10: ms per step
+    (3 steps after a warm-up) and the peak of allocated memory; synthetic2's
+    steps/s without and with --remat, in turns."""
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import Latents, build_model
+
+    s2 = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    prot = protein_preset(dataset_path=str(ROOT / "dataset"))
+    out = {}
+    for name, cfg, graphs, plain, remat in (
+            ("synthetic2", s2, s2.train.batch_size, per(1, ml3=2, k3=2), per(1, ml3=4, k3=2)),
+            ("synthetic2_joint", s2.with_(model_type="base"), s2.train.batch_size,
+             per(1, ml3=2), per(1, ml3=4)),
+            ("protein", prot, 2, per(1, k3=2), per(1, k3=2))):
+        batch = load_dataset(cfg, "train", num_graphs=graphs, device="cpu")
+        enc, gen = cfg.encoder, torch.Generator().manual_seed(0)
+        S = 1 if cfg.model_type == "base" else cfg.sampling_num
+        eps = Latents(z_sg=torch.randn(graphs, S, enc.sg_latent_size, generator=gen),
+                      z_s=torch.randn(graphs, enc.s_latent_size, generator=gen),
+                      z_g=torch.randn(graphs, enc.g_latent_size, generator=gen))
+        _, ref, _ = remat_step(ml, mc, am, cfg, batch, eps, "cpu", torch.float64)
+        res, base = {}, None
+        for variant, over in REMAT_VARIANTS.items():
+            loss, grads, launches = remat_step(ml, mc, am, cfg.with_(**over), batch, eps, "cuda")
+            want = plain if variant == "none" else remat
+            check(launches == want, f"remat {name} {variant}: launches {launches}, expected {want}")
+            errs = {n: (g.double().cpu() - ref[n]).abs().max().item() for n, g in grads.items()}
+            if base is None:
+                base = (loss, errs)
+            else:
+                torch.testing.assert_close(torch.tensor(loss), torch.tensor(base[0]), rtol=1e-6,
+                                           atol=0)
+                for n, e in errs.items():
+                    check(e <= 2 * base[1][n] + 1e-7 * ref[n].abs().max().item(),
+                          f"remat {name} {variant}: {n} error {e} vs float64, unremat "
+                          f"{base[1][n]}")
+            worst = max(errs, key=errs.get)
+            res[variant] = {"loss": loss, "launches": launches,
+                            "max_grad_err_vs_f64": errs[worst], "worst_param": worst,
+                            "loss_rel_diff_vs_none": abs(loss - base[0]) / abs(base[0])}
+        out[name] = dict(res, graphs=graphs)
+
+    # synthetic2 steps/s without and with --remat, in turns (none, remat,
+    # remat, none): Trainer.run_epoch over the 200-graph train split after
+    # a warm-up epoch
+    import tempfile
+
+    data = load_dataset(s2, "train", device="cuda")
+    nb = data.batch_size // s2.train.batch_size
+    rates = {"none": [], "remat": []}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        for variant in ("none", "remat", "remat", "none"):
+            trainer = tt.Trainer(s2.with_(**REMAT_VARIANTS[variant]), data, device="cuda",
+                                 workdir=workdir)
+            trainer.run_epoch(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run_epoch(1)
+            torch.cuda.synchronize()
+            rates[variant].append(nb / (time.perf_counter() - t0))
+    out["synthetic2_steps_per_s"] = {k: {"runs": v, "mean": statistics.mean(v)}
+                                     for k, v in rates.items()}
+
+    # protein at its full batch: time and memory of each variant
+    data = load_dataset(prot, "train", num_graphs=prot.train.batch_size, device="cuda")
+    gi = torch.zeros((), device="cuda")
+    timed = {}
+    for variant, over in dict(REMAT_VARIANTS, **{"remat+block_rows_10": dict(
+            remat=True, motif_block_rows=10)}).items():
+        c = prot.with_(**over)
+        model = build_model(c, "cuda").train()
+        state = tt.TrainState(cfg=c, model=model, optimizer=tt.make_optimizer(c, model.parameters()),
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        tt.train_step(state, data, gi)          # warm-up: Adam's state, cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [tt.train_step(state, data, gi)["loss"] for _ in range(3)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        check(all(math.isfinite(v.item()) for v in losses), f"protein {variant} losses")
+        timed[variant] = {"ms_per_step": ms, "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del model, state
+    out["protein_full_batch"] = dict(timed, batch=[prot.train.batch_size, prot.sampling_num,
+                                                   prot.num_nodes])
+    return out
+
+
+def run_cli_eval():
+    """The CLI in-process on the card, in a temporary workdir: synthetic2
+    --type train --epochs 2 --eval-every 1, then test_reconstruct,
+    test_generation, test_disentangle in each mode and sweep --epochs 1 (its
+    own workdir); the joint model's test_reconstruct and test_disentangle.
+    Every metric finite, every traversal grid finite; each command's
+    seconds."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from snd_vae_tpu_torch import cli
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        common = ["--workdir", workdir, "--dataset-path", str(ROOT / "dataset")]
+        runs = [("train", ["--type", "train", "--epochs", "2", "--eval-every", "1"]),
+                ("test_reconstruct", ["--type", "test_reconstruct"]),
+                ("test_generation", ["--type", "test_generation"])]
+        runs += [(f"test_disentangle_{m}", ["--type", "test_disentangle", "--traverse-mode", m])
+                 for m in ("generation", "single", "latent")]
+        runs += [("base_test_reconstruct", ["--type", "test_reconstruct", "--model-type", "base"]),
+                 ("base_test_disentangle", ["--type", "test_disentangle", "--model-type", "base"]),
+                 ("sweep", ["--type", "sweep", "--epochs", "1", "--workdir", workdir + "/sweep"])]
+        for name, argv in runs:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                got = cli.main(argv + common if name != "sweep" else
+                               argv + ["--dataset-path", str(ROOT / "dataset")])
+            secs = time.perf_counter() - t0
+            if isinstance(got, str):
+                grid = {k: np.load(f"{got}/{k}.npy") for k in ("adj", "node_feat", "coords")}
+                check(all(np.isfinite(v).all() for v in grid.values()), f"{name}: grid")
+                out[name] = {"seconds": secs, "grid_rows": len(grid["adj"])}
+                continue
+            metrics = {k: v for k, v in got.items() if isinstance(v, float)}
+            if name == "sweep":
+                metrics = {f"{part}.{k}": v for part in ("generation", "reconstruct")
+                           for k, v in got[part]["disentangled"].items()}
+            check(bool(metrics) and all(math.isfinite(v) for v in metrics.values()),
+                  f"{name}: metrics {got}")
+            out[name] = {"seconds": secs, "metrics": metrics}
+    return out
+
+
 def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
     """One kernel's line: its times summed over the shapes one served batch
     of the disentangled model (or one train step's forward: the same
@@ -1344,8 +1590,15 @@ def main() -> int:
                          {"k3": 2})
     emit("mnist", mnist)
 
-    # 14. launches per path (the f32 runs, each counted from 0), the kernels
-    # line; 15. the result line (the card's line just before)
+    # 14.-16. held-out evaluation, rematerialization, the evaluation CLI
+    evaluation = run_eval(ml, mc, am)
+    emit("eval", evaluation)
+    remat = run_remat(ml, mc, am)
+    emit("remat", remat)
+    emit("cli_eval", run_cli_eval())
+
+    # 17. launches per path (the f32 runs, each counted from 0), the kernels
+    # line; 18. the result line (the card's line just before)
     by_path = {"serve": serving["float32"]["launches"],
                "train": training["float32"]["launches"],
                "joint_serve": joint_serving["float32"]["launches"],
@@ -1361,7 +1614,12 @@ def main() -> int:
                "protein_joint_serve": protein_joint["serve"]["float32"]["launches"],
                "protein_joint_train": protein_joint["train"]["launches"],
                "mnist_serve": mnist["serve"]["float32"]["launches"],
-               "mnist_train": mnist["train"]["launches"]}
+               "mnist_train": mnist["train"]["launches"],
+               "eval_train": evaluation["launches"],
+               "eval_heldout": evaluation["per_eval_launches"],
+               "remat_train": remat["synthetic2"]["remat"]["launches"],
+               "remat_joint_train": remat["synthetic2_joint"]["remat"]["launches"],
+               "remat_protein_train": remat["protein"]["remat"]["launches"]}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})

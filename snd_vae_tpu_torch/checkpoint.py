@@ -7,7 +7,9 @@ directory, holding the model's f32 state_dict, the optimizer's state_dict,
 the step count and the state of the trainer's generator (the ε stream), so
 that a restored run continues bit for bit.  A save goes to a temporary file
 first and is moved into place with ``os.replace``: a crash mid-save leaves
-the previous checkpoints as they were.
+the previous checkpoints as they were.  With ``max_to_keep`` a save then
+deletes the oldest other files beyond that many, as Orbax's option of that
+name does (the held-out best checkpoint keeps one).
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ def checkpoint_dir(cfg, workdir: str) -> str:
 
 
 class Checkpointer:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None):
         self.directory = os.path.abspath(os.path.expanduser(directory))
+        self.max_to_keep = max_to_keep
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{int(step)}.pt")
@@ -48,6 +51,11 @@ class Checkpointer:
         tmp = self.path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.path(step))
+        if self.max_to_keep is not None:
+            # the file just written stays, whatever its epoch
+            others = [s for s in self.steps() if s != int(step)]
+            for old in others[:max(len(others) - self.max_to_keep + 1, 0)]:
+                os.remove(self.path(old))
 
     def steps(self):
         if not os.path.isdir(self.directory):

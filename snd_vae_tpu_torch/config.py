@@ -326,3 +326,23 @@ def preset(dataset: str, **overrides) -> Config:
         return PRESETS[dataset](**overrides)
     except KeyError:
         raise ValueError(f"no preset for dataset {dataset!r}; known: {list(PRESETS)}")
+
+
+def apply_quality_overrides(cfg: Config) -> Config:
+    """The per-dataset quality operating point of ``--quality`` (the JAX
+    ``config.apply_quality_overrides``): scene only switches to bf16; every
+    other dataset takes the weighted-BCE edge loss, the decoded-distance
+    edge channel (``edge_from_coords``) and bf16, with beta 3 on synthetic1
+    and 0.1 elsewhere; protein and mnist also normalize their coordinates
+    into the unit box."""
+    if cfg.dataset == "scene":
+        return cfg.with_(compute_dtype="bfloat16")
+    beta = 3.0 if cfg.dataset == "synthetic1" else 0.1
+    cfg = cfg.with_(
+        loss=replace(cfg.loss, beta=beta, use_weighted_bce=True),
+        decoder=replace(cfg.decoder, edge_from_coords=True),
+        compute_dtype="bfloat16",
+    )
+    if cfg.dataset in ("protein", "mnist"):
+        cfg = cfg.with_(normalize_coords=True)
+    return cfg

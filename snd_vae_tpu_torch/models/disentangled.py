@@ -17,12 +17,14 @@ SpatialGraphConv3D instead, as JAX ``models/disentangled.py:97-100`` does.
 
 Submodule and parameter names follow the flax tree (``g_convs.0.kernel``
 for ``g_convs_0/kernel``), so ``params.state_dict_from_flax`` carries JAX
-weights across.  Not ported yet, and raising NotImplementedError: remat.
+weights across.  With ``cfg.remat`` each motif conv and the adjacency head
+run under ``torch.utils.checkpoint`` (``rematerialized``; the policy of
+``cfg.remat_policy`` from ``nn/ckpt.py``), so the backward recomputes them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -33,17 +35,17 @@ from ..nn import (
     E2E, Conv1D, Dense, GeoGraphConv, GraphConv, SpatialGraphConv, SpatialGraphConv3D,
     StructGraphConv, lrelu, make_norm,
 )
+from ..nn.ckpt import policy_from_config, rematerialized
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
     diag_masked,
 )
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise NotImplementedError on what neither model family ports yet."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "not ported yet: rematerialization (ROADMAP.md queue 1, item 4)")
+def adj_head_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters of ``model``'s adjacency head (``model.ADJ_HEAD``)."""
+    return {n: p for n, p in model.named_parameters()
+            if n.split(".", 1)[0] in model.ADJ_HEAD}
 
 
 def motif_conv(cfg: Config, in_features: int, hidden, generator: torch.Generator) -> nn.Module:
@@ -55,10 +57,13 @@ def motif_conv(cfg: Config, in_features: int, hidden, generator: torch.Generator
 
 
 class DisentangledSNDVAE(nn.Module):
+    # the adjacency head's modules, rematerialized together
+    ADJ_HEAD = ("d_bn_e", "e_deconvs", "decoder_adj_bn", "d_e_lin2")
+
     def __init__(self, cfg: Config, generator: torch.Generator):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
+        self.remat_context = policy_from_config(cfg.remat, cfg.remat_policy)
         enc, dec = cfg.encoder, cfg.decoder
         N, nf, g = cfg.num_nodes, cfg.num_features, generator
         norm = lambda c: make_norm(c, cfg.parity)
@@ -216,7 +221,7 @@ class DisentangledSNDVAE(nn.Module):
         else:
             sg = feats[:, None].expand((B, S) + feats.shape[1:]).reshape(B * S, N, -1)
         for conv, bn in zip(self.sg_convs, self.sg_bns):
-            sg = lrelu(bn(conv(adj_s, sg, rel_s)))
+            sg = lrelu(bn(rematerialized(self, conv, conv, adj_s, sg, rel_s)))
         sg_ = self.sg_lin1(self.encoder_sg_bn(sg).reshape(B * S, -1))
         z_mean_sg, z_std_sg = self.sg_lin_mean(sg_), self.sg_lin_std(sg_)
 
@@ -290,7 +295,8 @@ class DisentangledSNDVAE(nn.Module):
             cfg, self.d_s_lin2(sp.reshape(B * N, -1)), reference_linear=False
         ).reshape(B, N, -1)
 
-        adj_prob = self._adj_head(z_sg_g, coords)
+        adj_prob = rematerialized(self, self, self._adj_head, z_sg_g, coords,
+                                  params=adj_head_params(self))
         adj = torch.softmax(adj_prob, dim=-1).argmax(dim=-1)
         return DecodedGraph(adj=adj, adj_prob=adj_prob, coords=coords, node_feat=node_feat)
 

@@ -18,7 +18,9 @@ Dropout runs with ``dropout_keep`` < 1 at the JAX sites: encoder layer i,
 coordinate layer i and node layer 100 + i (``joint.py:107-189``), as the
 keys ``("encode", i)`` and ``("decode", i)`` of ``dropout_masks``; a mask
 not given there is drawn from the generator, in the order encoder sites,
-ε, coordinate sites, node sites.
+ε, coordinate sites, node sites.  No site lies inside a region that
+``cfg.remat`` checkpoints (the motif convs, the adjacency head), so the
+backward's recompute draws nothing.
 
 Submodule names follow the flax tree (``sg_convs.0.Matrix1``,
 ``d_sg_lin1``, ``s_deconvs.0``, ``d_bn_e.0``, ``d_e_lin2``), so
@@ -35,7 +37,8 @@ from torch import nn
 from ..config import Config
 from ..data.graphbatch import GraphBatch
 from ..nn import E2E, Conv1D, Dense, dropout, lrelu, make_norm
-from .disentangled import check_ported, motif_conv
+from ..nn.ckpt import policy_from_config, rematerialized
+from .disentangled import adj_head_params, motif_conv
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
     diag_masked,
@@ -45,10 +48,13 @@ MaskKey = Tuple[str, int]
 
 
 class JointSNDVAE(nn.Module):
+    # the adjacency head's modules, rematerialized together
+    ADJ_HEAD = ("d_bn_e", "e_deconvs", "d_e_lin2")
+
     def __init__(self, cfg: Config, generator: torch.Generator):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
+        self.remat_context = policy_from_config(cfg.remat, cfg.remat_policy)
         enc, dec = cfg.encoder, cfg.decoder
         N, g = cfg.num_nodes, generator
         norm = lambda c: make_norm(c, cfg.parity)
@@ -128,7 +134,7 @@ class JointSNDVAE(nn.Module):
         B = batch.batch_size
         sg = batch.features
         for i, (conv, bn) in enumerate(zip(self.sg_convs, self.sg_bns)):
-            sg = lrelu(bn(conv(batch.adj, sg, batch.rel)))
+            sg = lrelu(bn(rematerialized(self, conv, conv, batch.adj, sg, batch.rel)))
             if drop is not None:
                 sg = drop(sg, ("encode", i))
         sg_ = self.sg_lin1(sg.reshape(B, -1))
@@ -178,7 +184,8 @@ class JointSNDVAE(nn.Module):
         else:
             node_feat = torch.sigmoid(node_logits).reshape(B, N, -1)
 
-        adj_prob = self._adj_head(joint_h, coords)
+        adj_prob = rematerialized(self, self, self._adj_head, joint_h, coords,
+                                  params=adj_head_params(self))
         adj = torch.softmax(adj_prob, dim=-1).argmax(dim=-1)
         return DecodedGraph(adj=adj, adj_prob=adj_prob, coords=coords, node_feat=node_feat,
                             node_feat_prob=node_feat_prob)

@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from ..nn.ckpt import big
+
 
 @dataclass
 class LatentStats:
@@ -75,7 +77,9 @@ def adjacency_e2e(cfg, convs, bns, h: torch.Tensor, coords: torch.Tensor) -> tor
     per layer (``snd_vae_tpu/models/disentangled.py:316-355`` and
     ``models/joint.py:211-241``).  With ``cfg.adj_factored_engaged`` the
     first layer runs separable: the map stays channel-separable through the
-    per-channel BN and relu, so it is never built (``E2E._separable``)."""
+    per-channel BN and relu, so it is never built (``E2E._separable``).
+    The map and each later layer's output run in ``nn.ckpt.big`` regions
+    (``dec.pair``, ``dec.e2e``), as JAX tags them."""
     C = h.shape[-1]
     if cfg.adj_factored_engaged and len(convs):
         bn0 = bns[0]
@@ -92,10 +96,13 @@ def adjacency_e2e(cfg, convs, bns, h: torch.Tensor, coords: torch.Tensor) -> tor
         parts = [h[:, :, None, :].expand(B, N, N, C), h[:, None, :, :].expand(B, N, N, C)]
         if cfg.decoder.edge_from_coords:
             parts.append(edge_distance_channel(cfg, coords, h.dtype))
-        t = torch.cat(parts, dim=-1)
+        with big("dec.pair"):
+            t = torch.cat(parts, dim=-1)
         layers = zip(convs, bns)
     for e2e, bn in layers:
-        t = e2e(torch.relu(bn(t)))
+        t = torch.relu(bn(t))
+        with big("dec.e2e"):
+            t = e2e(t)
     return t
 
 

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from . import build
+from ..ckpt import big
 from ._launch import CUDA_DTYPES, check_inputs, raise_on_error, stream_handle
 
 _SIGNATURES = {
@@ -51,15 +52,21 @@ def _level3_rows(adj, adj_rows, phi_rows, a_rows, v_j, deg, m1d, m1f, bias) -> t
     """nt for the i rows given: ``adj_rows``, ``phi_rows``, ``a_rows`` are
     rows [s, e) of adj, φ(rel) and a_i on their second axis; rf reads the
     whole A.  The j and k sums are row-local, so rows [s, e) of the full
-    result are this, operation for operation."""
+    result are this, operation for operation.  The [B,b,N,·] tensors run in
+    ``nn.ckpt.big`` regions (JAX's ``sgc.*`` tags)."""
     dt = adj.dtype
     if dt in (torch.bfloat16, torch.float16):
         adj, adj_rows, phi_rows, a_rows, v_j, deg, m1d, m1f, bias = (
             t.float() for t in (adj, adj_rows, phi_rows, a_rows, v_j, deg, m1d, m1f, bias))
-    rf = torch.einsum("bjk,bikr->bijr", adj, phi_rows)
-    m3 = (deg[:, None, :, None] * (a_rows[:, :, None] + bias + phi_rows @ m1d)
-          + v_j[:, None] + rf @ m1f)
-    m3 = adj_rows[..., None] * m3
+    with big("sgc.rf"):
+        rf = torch.einsum("bjk,bikr->bijr", adj, phi_rows)
+    with big("sgc.d_ij"):
+        d_ij = phi_rows @ m1d
+    with big("sgc.wf"):
+        wf = rf @ m1f
+    with big("sgc.m3_sum"):
+        m3 = deg[:, None, :, None] * (a_rows[:, :, None] + bias + d_ij) + v_j[:, None] + wf
+        m3 = adj_rows[..., None] * m3
     nt = torch.einsum("bij,bijh->bih", adj_rows, torch.maximum(m3, LEAK * m3))
     return nt.to(dt)
 

@@ -24,7 +24,10 @@ in one buffer that the broadcast adds, the motif mask and lrelu update in
 place, so autograd keeps one such tensor per layer (lrelu's output); its
 masked k-sum is a batched matmul over that buffer as it lies.
 ``block_rows`` (``_blocked_nt_3d``, ``:565-637``) computes levels 4 and 3
-one i-row block at a time under ``torch.utils.checkpoint``.
+one i-row block at a time under ``torch.utils.checkpoint``.  The level-4/3
+tensors run in ``nn.ckpt.big`` regions (``sgc3.nd4``, ``sgc3.m4_sum``,
+``sgc3.tm``, ``sgc3.m3_sum``, JAX's ``checkpoint_name`` tags) for the
+``recompute-big`` remat policy.
 
 Public layouts as in JAX: adj [B,N,N], x [B,N,F], rel [B,N,N,R] ->
 [B,N,h_last].  Products accumulate in the inputs' dtype (JAX's
@@ -43,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import init as inits
 from .basic import lrelu
+from .ckpt import big
 from .kernels.motif_level3 import motif_level3
 
 LEAK = 0.2
@@ -248,24 +252,28 @@ def spatial_graph_conv_3d(adj, x, rel, dis, params: Dict[str, torch.Tensor],
         """nt[i] = Σ_j M[i,j]·φ(m3_sum[i,j]) for the i rows given."""
         # level 4: m4[i,j,k] = M[i,j]·M[j,k]·(deg[k]·(a_i+a_j+u_ij+a_k+v_jk+y_ik+b0)
         #                                      + P[k] + Vw[k] + Wz[i,k])
-        nd4 = torch.einsum("bkp,bipr->bikr", mask, pd)   # Σ_p M[k,p]·φ(dis)[i,p]
+        with big("sgc3.nd4"):
+            nd4 = torch.einsum("bkp,bipr->bikr", mask, pd)   # Σ_p M[k,p]·φ(dis)[i,p]
         alpha_ik = deg[:, None, :, None] * (ai[:, :, None] + pd @ m0_y) + nd4 @ m0_z
-        m4 = deg[:, None, None, :, None] * (pr @ m0_u)[:, :, :, None, :]   # [B,b,N,N,h0]
-        m4 += alpha_ik[:, :, None]
-        m4 += beta_jk[:, None]
-        m4 += gamma_k[:, None, None]
-        m4 *= (mask_i[:, :, :, None] * mask[:, None])[..., None]           # M[i,j]·M[j,k]
-        # level 3: the masked k-sum of φ(m4) before the h0→h1 matmul
-        # (linearity in the weights), as a matmul over m4 as it lies
-        Fn.leaky_relu_(m4, LEAK)
-        tm = torch.matmul(mask[:, None, :, None, :], m4).squeeze(-2)       # [B,b,N,h0]
-        m3_sum = (
-            deg[:, None, :, None] * (ci[:, :, None] + c_j[:, None, :] + pr @ m1_gij + b1)
-            + neigh_j[:, None, :]
-            + nd4 @ m1_gik
-            + tm @ w_m4
-        )
-        m3_sum = mask_i[..., None] * m3_sum                                 # [B,b,N,h1]
+        with big("sgc3.m4_sum"):
+            m4 = deg[:, None, None, :, None] * (pr @ m0_u)[:, :, :, None, :]   # [B,b,N,N,h0]
+            m4 += alpha_ik[:, :, None]
+            m4 += beta_jk[:, None]
+            m4 += gamma_k[:, None, None]
+            m4 *= (mask_i[:, :, :, None] * mask[:, None])[..., None]       # M[i,j]·M[j,k]
+            # level 3: the masked k-sum of φ(m4) before the h0→h1 matmul
+            # (linearity in the weights), as a matmul over m4 as it lies
+            Fn.leaky_relu_(m4, LEAK)
+        with big("sgc3.tm"):
+            tm = torch.matmul(mask[:, None, :, None, :], m4).squeeze(-2)   # [B,b,N,h0]
+        with big("sgc3.m3_sum"):
+            m3_sum = (
+                deg[:, None, :, None] * (ci[:, :, None] + c_j[:, None, :] + pr @ m1_gij + b1)
+                + neigh_j[:, None, :]
+                + nd4 @ m1_gik
+                + tm @ w_m4
+            )
+            m3_sum = mask_i[..., None] * m3_sum                             # [B,b,N,h1]
         return torch.einsum("bij,bijh->bih", mask_i, lrelu(m3_sum))
 
     row_inputs = (mask, phi_r, phi_d, a_i, c_i)

@@ -22,14 +22,21 @@ of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
     SIGTERM/SIGINT trap that checkpoints and stops, the spanning-tree
     resampling and the per-epoch reshuffle of corrected mode.
 
+  * With ``eval_every = k`` > 0 and an ``eval_batch``, every k-th epoch
+    ``evaluate_heldout`` scores the held-out split (posterior-mean
+    reconstruction, ``evaluate.reconstruct_evaluation``), the scores go to
+    ``val_loss_<dataset>_<model_type>.txt`` and the best checkpoint by
+    ``best_metric`` to ``<checkpoint_dir>_best`` with its score in
+    ``best.json``, read back on resume (``snd_vae_tpu/train.py:351-518``).
+
 The JAX trainer's ``scan_unroll``, ``epoch_chunk`` and ``max_dispatch_s``
-shape how XLA dispatches an epoch and have no counterpart here.  The
-held-out evaluation (``eval_every``) and the device mesh are not ported yet
-and raise.
+shape how XLA dispatches an epoch and have no counterpart here.  The device
+mesh is not ported yet and raises.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import threading
@@ -48,8 +55,10 @@ from .config import Config
 from .data.graphbatch import GraphBatch
 from .data.spanning_tree import sample_spanning_trees
 from .device import DeviceLike, dtype_of, full_f32, resolve_device
+from .evaluate import edge_presence_scores, reconstruct_evaluation
 from .losses import elbo_loss
 from .models import Latents, Model, build_model
+from .serve import reconstruct
 from .utils.logging import LossesLogger
 
 
@@ -221,14 +230,12 @@ class Trainer:
     ``device`` (CUDA unless named), its optimizer and the ε generator,
     seeded from ``cfg.train.seed`` too; logs to
     ``<workdir>/<log_dir>/train_loss_<dataset>_<model_type>.txt`` and
-    ``.jsonl`` and checkpoints to ``checkpoint.checkpoint_dir(cfg, workdir)``."""
+    ``.jsonl`` and checkpoints to ``checkpoint.checkpoint_dir(cfg, workdir)``.
+    ``eval_batch`` is the held-out split that ``cfg.train.eval_every``
+    scores."""
 
     def __init__(self, cfg: Config, train_batch: GraphBatch, device: DeviceLike = None,
-                 workdir: str = "."):
-        if cfg.train.eval_every > 0:
-            raise NotImplementedError(
-                "held-out evaluation (train.eval_every > 0) is not ported yet "
-                "(ROADMAP.md queue 1, item 3)")
+                 workdir: str = ".", eval_batch: Optional[GraphBatch] = None):
         if cfg.mesh.data * cfg.mesh.model > 1:
             raise NotImplementedError(
                 "training over a device mesh is not ported yet (ROADMAP.md queue 1, item 6)")
@@ -246,6 +253,23 @@ class Trainer:
         self.checkpointer = Checkpointer(checkpoint_dir(cfg, workdir))
         # epoch of the spanning-tree draw in effect (0 = the load-time draw)
         self._tree_boundary = 0
+        # held-out evaluation and the best checkpoint (cfg.train.eval_every)
+        self.eval_batch = None if eval_batch is None else eval_batch.to(dev)
+        # the truth the scores compare against, on the host once
+        self._eval_truth = None if eval_batch is None else {
+            name: getattr(eval_batch, name).cpu().numpy()
+            for name in ("adj", "features", "coords")}
+        self.best_checkpointer: Optional[Checkpointer] = None
+        self._best_value: Optional[float] = None
+        if cfg.train.eval_every > 0 and eval_batch is not None:
+            self.best_checkpointer = Checkpointer(checkpoint_dir(cfg, workdir) + "_best",
+                                                  max_to_keep=1)
+            self.best_path = os.path.join(self.best_checkpointer.directory, "best.json")
+            if os.path.exists(self.best_path):
+                with open(self.best_path) as f:
+                    self._best_value = float(json.load(f)["value"])
+            self.eval_logger = LossesLogger(os.path.join(
+                workdir, cfg.train.log_dir, f"val_loss_{cfg.dataset}_{cfg.model_type}.txt"))
 
     def _maybe_resample_trees(self, epoch: int) -> None:
         """Corrected mode (``cfg.train.resample_trees_every = k``): at the
@@ -266,6 +290,62 @@ class Trainer:
         self.data = replace(self.data, adj_samples=torch.as_tensor(
             new, dtype=self.data.adj_samples.dtype, device=self.device))
         self.batched = rebatch(self.data, self.cfg.train.batch_size)
+
+    def evaluate_heldout(self) -> Dict[str, float]:
+        """``reconstruct_evaluation`` of the posterior-mean reconstruction of
+        the held-out batch, decoded by the f32 master weights in slices of
+        ``batch_size`` (as the JAX ``make_eval_step`` decodes with its f32
+        parameters); one host sync fetches every slice's decode."""
+        B = self.cfg.train.batch_size
+        outs = [reconstruct(self.state.model, self.eval_batch.slice_batch(i * B, B)).decoded
+                for i in range(max(self.eval_batch.batch_size // B, 1))]
+        fields = {name: torch.cat([getattr(o, name) for o in outs])
+                  for name in ("adj", "adj_prob", "coords", "node_feat")}
+        # one transfer: every field as float64 (exact for f32, bf16 and the
+        # integer edge classes) in one flat tensor
+        flat = torch.cat([t.reshape(-1).double() for t in fields.values()]).cpu().numpy()
+        host, o = {}, 0
+        for name, t in fields.items():
+            host[name] = flat[o:o + t.numel()].reshape(tuple(t.shape))
+            o += t.numel()
+        n = len(host["adj"])
+        truth = self._eval_truth
+        return reconstruct_evaluation(
+            host["adj"], host["node_feat"], host["coords"],
+            truth["adj"][:n], truth["features"][:n], truth["coords"][:n], self.cfg.dataset,
+            adj_scores=edge_presence_scores(host["adj_prob"]),
+            node_categorical=outs[0].node_feat_prob is not None)
+
+    def _maybe_eval(self, epoch: int, verbose: bool) -> None:
+        """At the ``eval_every`` cadence: score the held-out batch, log the
+        scores and keep the best checkpoint by ``cfg.train.best_metric`` (a
+        leading "-" minimizes), with its score in ``best.json`` so that a
+        resumed run compares against the best of all its runs.  A metric
+        the scores lack is skipped, as in JAX."""
+        k = self.cfg.train.eval_every
+        if k <= 0 or self.eval_batch is None or epoch <= 0 or epoch % k != 0:
+            return
+        metrics = self.evaluate_heldout()
+        self.eval_logger.log(epoch, {f"val_{n}": [v] for n, v in metrics.items()})
+        name = self.cfg.train.best_metric
+        sign = -1.0 if name.startswith("-") else 1.0
+        key = name.lstrip("-")
+        if key not in metrics:
+            if verbose:
+                print(f"eval: best_metric {key!r} not in {sorted(metrics)}; "
+                      "skipping best tracking")
+            return
+        score = sign * metrics[key]
+        if verbose:
+            print(f"Epoch: {epoch + 1:04d} val_{key}= {metrics[key]:.5f}"
+                  + (f" (best {sign * self._best_value:.5f})"
+                     if self._best_value is not None else ""))
+        if self._best_value is None or score > self._best_value:
+            self._best_value = score
+            self.best_checkpointer.save(epoch, self.state)
+            with open(self.best_path, "w") as f:
+                json.dump({"epoch": epoch, "metric": key, "value": score,
+                           "raw": metrics[key]}, f)
 
     def maybe_restore(self) -> int:
         """Resume from the latest checkpoint if there is one; returns the
@@ -307,6 +387,7 @@ class Trainer:
                     print(f"epoch time= {time.time() - t0:.5f}")
                 if epoch % cfg.train.checkpoint_every == 0:
                     self.checkpointer.save(epoch, self.state)
+                self._maybe_eval(epoch, verbose)
                 last_means = self.logger.log(epoch, storer)
                 if stopper.stop:
                     self.checkpointer.save(epoch, self.state)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``snd_vae_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, optax or the JAX package, and its
+``chip_smoke.py``) imports JAX, flax, optax, sklearn or the JAX package, and its
 entry points refuse to run on a missing card instead of falling back."""
 
 import ast
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "snd_vae_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "snd_vae_tpu", "sklearn")
 
 
 def _port_files():
@@ -42,9 +42,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "snd_vae_tpu_torch.cli, snd_vae_tpu_torch.params, snd_vae_tpu_torch.data, "
             "snd_vae_tpu_torch.train, snd_vae_tpu_torch.losses, snd_vae_tpu_torch.checkpoint, "
             "snd_vae_tpu_torch.models.joint, snd_vae_tpu_torch.nn.geometric, "
-            "snd_vae_tpu_torch.nn.decoders, sys; "
+            "snd_vae_tpu_torch.nn.decoders, snd_vae_tpu_torch.evaluate, "
+            "snd_vae_tpu_torch.models.traversal, snd_vae_tpu_torch.nn.ckpt, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'snd_vae_tpu')]; assert not bad, bad")
+            "('jax', 'flax', 'optax', 'snd_vae_tpu', 'sklearn')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)
@@ -65,9 +66,10 @@ def test_entry_points_refuse_a_missing_card():
         load_dataset(cfg, "test", num_graphs=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, load_dataset(cfg, "train", num_graphs=10, device="cpu"))
-    proc = subprocess.run([sys.executable, "-m", "snd_vae_tpu_torch.cli", "--type", "sample"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    for run_type in ("sample", "test_generation"):
+        proc = subprocess.run([sys.executable, "-m", "snd_vae_tpu_torch.cli", "--type", run_type],
+                              cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0 and "CUDA" in proc.stderr, run_type
 
 
 def test_chip_smoke_refuses_a_missing_card(tmp_path):

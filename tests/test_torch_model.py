@@ -144,11 +144,22 @@ def test_disentangled_family_shares_one_model(model_type):
 
 
 @pytest.mark.parametrize("over", [dict(remat=True), dict(model_type="base", remat=True)])
-def test_unported_configs_raise(over):
-    """remat is not ported; protein, mnist and motif_block_rows are
-    (tests/test_torch_protein.py, tests/test_torch_protein_train.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-        build_model(tcfg.synthetic2_preset(**over), device="cpu")
+def test_remat_configs_build_and_match(over):
+    """remat, which raised before it was ported, builds both families at
+    full synthetic2 width with the seed's weights, and reconstructs as the
+    model without it does (remat changes only the backward;
+    tests/test_torch_remat.py holds its gradients)."""
+    cfg = tcfg.synthetic2_preset(**over)
+    plain = build_model(cfg.with_(remat=False), device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert model.cfg.remat and list(model.state_dict()) == list(plain.state_dict())
+    assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 plain.state_dict().values()))
+    batch = load_dataset(cfg, "test", 2, device="cpu")
+    with torch.no_grad():
+        got, want = model(batch, deterministic_z=True), plain(batch, deterministic_z=True)
+    assert torch.equal(got.decoded.adj_prob, want.decoded.adj_prob)
+    assert torch.equal(got.decoded.coords, want.decoded.coords)
 
 
 @pytest.mark.parametrize("run_type", ["sample", "test_reconstruct"])

@@ -360,17 +360,38 @@ def test_reshuffle_permutes_and_is_off_in_parity_mode(tmp_path):
         assert torch.equal(flat(getattr(out, name)), flat(getattr(tr.batched, name))[perm])
 
 
-@pytest.mark.parametrize("over", [dict(train=dict(eval_every=5)),
-                                  dict(mesh=dict(data=2))])
+@pytest.mark.parametrize("over", [dict(mesh=dict(data=2))])
 def test_unported_trainer_options_raise(tmp_path, over):
     _, tc = configs("small")
-    if "train" in over:
-        tc = _with_train(tc, **over["train"])
-    else:
-        tc = tc.with_(mesh=tcfg.MeshConfig(**over["mesh"]))
+    tc = tc.with_(mesh=tcfg.MeshConfig(**over["mesh"]))
     data = load_dataset(tc, "train", num_graphs=10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.Trainer(tc, data, device="cpu", workdir=str(tmp_path))
+
+
+def test_trainer_with_eval_every_scores_the_heldout_split(tmp_path):
+    """eval_every, which raised before it was ported: 20 held-out graphs
+    scored at epochs 5 and 10 of a 12-epoch run (the JAX cadence, epoch 0
+    skipped), the val log and the best checkpoint written; without an
+    eval_batch nothing is scored (tests/test_torch_eval_train.py holds the
+    rest)."""
+    _, tc = configs("small")
+    tc = _with_train(tc, eval_every=5, learning_rate=3e-3)
+    data = load_dataset(tc, "train", num_graphs=20, device="cpu")
+    held = load_dataset(tc, "test", num_graphs=20, device="cpu")
+    tr = ttrain.Trainer(tc, data, device="cpu", workdir=str(tmp_path), eval_batch=held)
+    tr.run(12, verbose=False)
+    rows = (tmp_path / "logs" / "val_loss_synthetic2_disentangled.txt").read_text().splitlines()
+    assert sorted({r.split(",")[0] for r in rows[1:]}) == ["10", "5"]
+    assert {r.split(",")[1] for r in rows[1:]} >= {"val_edge_auc", "val_edge_f1",
+                                                   "val_spatial_mse"}
+    best = json.loads((tmp_path / "checkpoints" / "synthetic2_disentangled_best"
+                       / "best.json").read_text())
+    assert best["epoch"] in (5, 10) and best["metric"] == "edge_auc"
+    tr = ttrain.Trainer(tc, data, device="cpu", workdir=str(tmp_path / "none"))
+    assert tr.best_checkpointer is None
+    tr.run(6, verbose=False)
+    assert not (tmp_path / "none" / "logs" / "val_loss_synthetic2_disentangled.txt").exists()
 
 
 def test_entry_points_run_in_full_f32(tmp_path, monkeypatch):
