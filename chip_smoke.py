@@ -85,8 +85,32 @@ Phases, one output line each:
                test_reconstruct, test_generation, test_disentangle (each
                mode), the joint model's test_disentangle and sweep, every
                metric and grid finite;
- 17. the launches per path and the kernels line (JSON); 18. the result
+ 17. large_graph — in an NCCL process group of one (a FileStore in a
+               temporary directory) and ``make_mesh(1, 1)``: the
+               node-sharded GCN encoder (hidden 128, 128) on symmetric
+               graphs of density 0.01 at N = 2048 and 8192, F = 128,
+               normalized by ``sharded_gcn_normalize``, with K3 (2 launches
+               per apply) and with the library contraction (none), f32 and
+               bf16: each f32 layer within the summation bound of a float64
+               run, bf16 within 2e-2 of the library path, the card against
+               the CPU at N = 2048; device ms per apply and per layer with
+               each layer's bound, K3 alone beside its plain version and
+               torch.mm + leaky_relu, the normalize's ms, peak memory;
+ 18. dp      — the data-parallel Trainer on that mesh at synthetic2 full
+               width, 2 epochs f32: 2 + 2 launches per step, per-epoch
+               losses equal to a mesh-less Trainer's at rtol 1e-6, the
+               steps/s of both in turns;
+ 19. cli_dp  — ``torchrun --standalone --nproc_per_node 1 -m
+               snd_vae_tpu_torch.cli --type train --dp 1 --distributed
+               --epochs 1`` in a subprocess: it joins, trains to a finite
+               loss and writes one checkpoint;
+ 20. the launches per path and the kernels line (JSON); 21. the result
                line (JSON), last.
+
+NCCL refuses two ranks on one card, so this script runs the parallel
+layer's collectives in a group of one; runs with more than one rank
+happen in the CPU tests (gloo: tests/test_torch_parallel.py,
+test_torch_large_graph.py, test_torch_dp_train.py).
 
 Each path's launches are counted from 0 just before it runs and read just
 after.  Any failed check raises: the script then exits non-zero without a
@@ -100,6 +124,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -169,6 +194,43 @@ def device_ms(fn, reps: int = REPS) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def busy_ms(fn, reps: int = 5) -> dict:
+    """The device-busy ms (the sum of kernel times, from the profiler) and
+    the kernels of one call, over ``reps`` calls after a warm-up: where a
+    call launches many kernels, ``device_ms``'s events also count the
+    card's waits on the host between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return {"busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / reps,
+            "kernels": sum(e.count for e in kernels) / reps}
+
+
+def host_top_ops(fn, reps: int = 5, k: int = 8) -> list:
+    """The host ops with the most self CPU time per call (profiler, CPU
+    activity; the profiler's own cost inflates them), over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    return [[e.key[:70], e.self_cpu_time_total / 1e3 / reps, e.count / reps]
+            for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:k]]
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple:
@@ -1466,6 +1528,256 @@ def run_cli_eval():
     return out
 
 
+LARGE_GRAPH_NODES = (2048, 8192)   # benchmarks/large_graph_bench.py's graphs
+LARGE_GRAPH_DENSITY = 0.01
+LARGE_GRAPH_WIDTH = 128            # F = H = 128, two layers
+LARGE_GRAPH_REPS = 20
+
+
+def large_graph_case(am, lg, mesh, adj, x):
+    """One normalized graph through the encoder's kernel and library paths
+    (see ``run_large_graph``); returns the phase's row and each path's last
+    layer and pooled vector."""
+    n, W = x.shape
+    dtype = x.dtype
+    encs = {name: lg.ShardedGCNEncoder(mesh, (W, W), W, torch.Generator().manual_seed(1),
+                                       use_kernel=name == "kernel").to("cuda", dtype)
+            for name in ("kernel", "library")}
+    row = {"launches": {}, "layers": []}
+    pooled, h = {}, {name: x for name in encs}
+    with torch.no_grad():
+        for name, enc in encs.items():
+            am.blocked_adj_matmul.launches = 0
+            pooled[name] = enc(adj, x)
+            torch.cuda.synchronize()
+            row["launches"][name] = am.blocked_adj_matmul.launches
+        check(row["launches"] == {"kernel": 2, "library": 0},
+              f"large_graph N={n} {dtype}: launches {row['launches']}, expected 2 K3 per "
+              "apply with the kernel and none without")
+        for w in encs["kernel"].kernels:
+            lay = dict(zip(("bound_ms", "bound_by"), bound(
+                x.element_size() * (n * n + n * W + W * W + n * W),
+                2 * n * W * W + 2 * n * n * W + 2 * n * W, dtype)))
+            for name in encs:
+                conv = lambda hn=h[name], k=name == "kernel": lg.sharded_graph_conv(
+                    adj, hn, w, mesh, use_kernel=k)
+                got = conv()
+                if dtype == torch.float32:
+                    lay[f"{name}_err_vs_f64"], _ = compare_f64_bound(
+                        got, [adj, h[name], w], n + W,
+                        lambda aa, hh, ww: am.adj_matmul_plain(aa, hh, 0.2, ww))
+                lay[f"{name}_ms"] = device_ms(conv, reps=LARGE_GRAPH_REPS)
+                lay[f"{name}_busy"] = busy_ms(conv)
+                h[name] = got
+            if dtype == torch.bfloat16:
+                lay["kernel_vs_library_err"] = compare(h["kernel"], h["library"], dtype)
+            row["layers"].append(lay)
+        row["pooled_kernel_vs_library_err"] = (
+            compare(pooled["kernel"], pooled["library"], dtype) if dtype == torch.bfloat16
+            else (pooled["kernel"] - pooled["library"]).abs().max().item())
+        # K3 alone on the first layer's operands, beside its plain version
+        # and one library call of the same function
+        xw = am.project(x, encs["kernel"].kernels[0])
+        row["k3"] = dict(zip(("bound_ms", "bound_by"), bound(
+            x.element_size() * (n * n + 2 * n * W), 2 * n * n * W + 2 * n * W, dtype)))
+        row["k3"].update(
+            shape=[[n, n], [n, W]],
+            ms=device_ms(lambda: am.blocked_adj_matmul(adj, xw, 0.2), reps=LARGE_GRAPH_REPS),
+            plain_ms=device_ms(lambda: am.adj_matmul_plain(adj, xw, 0.2), reps=LARGE_GRAPH_REPS),
+            library_ms=device_ms(lambda: torch.nn.functional.leaky_relu(torch.mm(adj, xw), 0.2),
+                                 reps=LARGE_GRAPH_REPS))
+        for name, enc in encs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row[f"{name}_apply_ms"] = device_ms(lambda enc=enc: enc(adj, x),
+                                                reps=LARGE_GRAPH_REPS)
+            row[f"{name}_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+            row[f"{name}_apply_busy"] = busy_ms(lambda enc=enc: enc(adj, x))
+    return row, h, pooled, [w.detach() for w in encs["kernel"].kernels]
+
+
+def run_large_graph(am, mesh):
+    """The node-sharded GCN encoder (parallel/large_graph.py) in an NCCL
+    group of one: graphs as benchmarks/large_graph_bench.py builds them
+    (symmetric, density 0.01, F = H = 128) at N = 2048 and 8192, normalized
+    by ``sharded_gcn_normalize``, through a ShardedGCNEncoder of hidden
+    (128, 128) with ``use_kernel`` True and False, f32 and bf16.  Counts 2
+    K3 launches per apply with the kernel and none without.  Each f32 layer
+    of either path within the summation bound of N + F terms of a float64
+    run on the same input; bf16 within 2e-2 of the library path's largest
+    magnitude, layer by layer and pooled; at N = 2048 the card's
+    normalized adjacency, last layer and pooled vector against the CPU's
+    (the dense ``gcn_normalize`` and the layers' plain versions) at rtol
+    1e-4.  Reports device ms per apply and per layer of each path with each
+    layer's bound, K3 alone on the first layer's operands beside its plain
+    version and torch.mm + leaky_relu, the normalize's device ms and each
+    apply's peak of allocated memory."""
+    from snd_vae_tpu_torch.data.transforms import gcn_normalize
+    from snd_vae_tpu_torch.parallel import large_graph as lg
+
+    W = LARGE_GRAPH_WIDTH
+    out = {"density": LARGE_GRAPH_DENSITY, "hidden": [W, W], "features": W,
+           "launches": 0}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in LARGE_GRAPH_NODES:
+        a = (torch.rand(n, n, generator=gen, device="cuda") < LARGE_GRAPH_DENSITY).float().triu(1)
+        a = a + a.T
+        x32 = torch.randn(n, W, generator=gen, device="cuda")
+        res = {"normalize_ms": device_ms(lambda: lg.sharded_gcn_normalize(a, mesh),
+                                         reps=LARGE_GRAPH_REPS),
+               "normalize_busy": busy_ms(lambda: lg.sharded_gcn_normalize(a, mesh))}
+        adj32 = lg.sharded_gcn_normalize(a, mesh)
+        a_cpu = a.cpu() if n == LARGE_GRAPH_NODES[0] else None
+        del a
+        for dtype in (torch.float32, torch.bfloat16):
+            row, h, pooled, ws = large_graph_case(am, lg, mesh, adj32.to(dtype), x32.to(dtype))
+            out["launches"] += row["launches"]["kernel"] if dtype == torch.float32 else 0
+            if a_cpu is not None and dtype == torch.float32:
+                adj_cpu = gcn_normalize(a_cpu)
+                torch.testing.assert_close(adj32.cpu(), adj_cpu, rtol=1e-5, atol=1e-7)
+                hc = x32.cpu()
+                for w in ws:
+                    hc = am.adj_matmul_plain(adj_cpu, hc, 0.2, w.cpu())
+                for name in ("kernel", "library"):
+                    torch.testing.assert_close(h[name].cpu(), hc, rtol=1e-4, atol=1e-6)
+                    torch.testing.assert_close(pooled[name].cpu(), hc.sum(0) / n,
+                                               rtol=1e-4, atol=1e-7)
+                row["card_vs_cpu_max_abs_err"] = {
+                    "last_layer": max((h[k].cpu() - hc).abs().max().item() for k in h),
+                    "pooled": max((pooled[k].cpu() - hc.sum(0) / n).abs().max().item()
+                                  for k in pooled)}
+            res[str(dtype)[6:]] = row
+        out[str(n)] = res
+        del adj32, x32
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dp(ml, mc, am, mesh):
+    """The data-parallel Trainer at synthetic2 full width in the NCCL group
+    of one (``mesh=make_mesh(1, 1)``): Trainer.run for 2 epochs f32 from
+    the seed weights, counted (2 motif_level3 and 2 adj_matmul per step, no
+    motif_combine); its per-epoch losses equal to a mesh-less Trainer's
+    from the same seed at rtol 1e-6; the steps/s of both over one epoch
+    each, run in turns (mesh, plain, plain, mesh, twice) after the counted
+    runs.  The difference is the host cost of the collectives: the loss
+    terms' all-reduce (forward and backward), the edge accuracy's and the
+    gradients' one flattened all-reduce per step; each is also timed alone
+    (host µs per call, the card synchronized after the calls), with a
+    one-element all-reduce.  A profile of 5 steps of each: wall and busy
+    ms, kernels, the top host ops."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "train", device="cuda")
+    nb = data.batch_size // B
+    out = {"batch": [B, cfg.sampling_num, cfg.num_nodes], "steps_per_epoch": nb,
+           "epochs": TRAIN_EPOCHS}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainers, means = {}, {}
+        for name, m in (("mesh", mesh), ("no_mesh", None)):
+            trainers[name] = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/{name}",
+                                        mesh=m)
+            zero_counts(ml, mc, am)
+            trainers[name].run(TRAIN_EPOCHS, verbose=False)
+            launches = read_counts(ml, mc, am)
+            steps = TRAIN_EPOCHS * nb
+            check(launches == per(steps, ml3=2, k3=2),
+                  f"dp {name}: launches {launches} over {steps} steps, expected 2 of "
+                  "motif_level3 and adj_matmul per step and no motif_combine")
+            with open(trainers[name].logger.jsonl_path) as f:
+                means[name] = [json.loads(line)["loss"] for line in f]
+            out[name] = {"launches": launches, "epoch_mean_loss": means[name],
+                         "launches_per_step": {k: v / steps for k, v in launches.items()}}
+        check(all(math.isfinite(v) for v in means["mesh"]), f"dp losses {means['mesh']}")
+        for got, want in zip(means["mesh"], means["no_mesh"]):
+            check(abs(got - want) <= 1e-6 * abs(want),
+                  f"dp epoch losses {means['mesh']} vs the mesh-less {means['no_mesh']}")
+        secs = {"mesh": [], "no_mesh": []}
+        for i, name in enumerate(("mesh", "no_mesh", "no_mesh", "mesh") * 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainers[name].run_epoch(TRAIN_EPOCHS + i)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+        for name, ts in secs.items():
+            out[name]["steps_per_s"] = [nb / t for t in ts]
+            out[name]["median_steps_per_s"] = statistics.median(nb / t for t in ts)
+        out["mesh_over_no_mesh_step_time"] = (statistics.median(secs["mesh"])
+                                              / statistics.median(secs["no_mesh"]))
+        gi = torch.zeros((), device="cuda")
+        batches = [data.slice_batch(i * B, B) for i in range(PROFILE_STEPS)]
+        for name, tr in trainers.items():
+            out[name]["profile"] = profile_steps(lambda b, tr=tr: tt.train_step(
+                tr.state, b, gi), batches)
+            it = iter(batches * 2)
+            out[name]["host_top_ops"] = host_top_ops(
+                lambda tr=tr: tt.train_step(tr.state, next(it), gi), reps=PROFILE_STEPS)
+        # the data-parallel pieces of a step alone, on the mesh trainer's
+        # parameters and gradients
+        from snd_vae_tpu_torch.parallel.batch import average_gradients, global_mean
+        from snd_vae_tpu_torch.parallel.hints import use_mesh
+
+        params = list(trainers["mesh"].state.model.parameters())
+        terms = [torch.zeros((), device="cuda", requires_grad=True) for _ in range(6)]
+
+        def loss_terms():
+            with use_mesh(mesh):
+                sum(global_mean(*terms)).backward()
+
+        one = torch.ones(1, device="cuda")
+        out["host_us_per_call"] = {
+            "one_element_all_reduce": host_us(
+                lambda: torch.distributed.all_reduce(one, group=mesh.get_group("data"))),
+            "loss_terms_all_reduce_forward_backward": host_us(loss_terms),
+            "average_gradients": host_us(lambda: average_gradients(params, mesh)),
+            "parameters": len(params)}
+    return out
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host µs per call of ``fn`` over ``n`` calls, the card synchronized
+    before the first and after the last."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def run_cli_dp():
+    """``torchrun --standalone --nproc_per_node 1 -m snd_vae_tpu_torch.cli
+    --type train --dp 1 --distributed --epochs 1`` in a subprocess (timeout
+    600 s): it prints ``distributed: process 0/1``, a finite loss, and
+    writes one checkpoint."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "snd_vae_tpu_torch.cli", "--type", "train",
+               "--dp", "1", "--distributed", "--epochs", "1", "--workdir", workdir,
+               "--dataset-path", str(ROOT / "dataset")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0, f"cli_dp exited {proc.returncode}: {proc.stderr[-2000:]}")
+        check("distributed: process 0/1" in lines, f"cli_dp printed {lines[:3]}")
+        result = json.loads(lines[-1])
+        check(math.isfinite(result["loss"]), f"cli_dp loss {result['loss']}")
+        ckpts = sorted(os.listdir(Path(workdir) / "checkpoints" / "synthetic2_disentangled"))
+        check(ckpts == ["ckpt_0.pt"], f"cli_dp checkpoints {ckpts}")
+    return {"seconds": secs, "loss": result["loss"], "checkpoints": ckpts}
+
+
 def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
     """One kernel's line: its times summed over the shapes one served batch
     of the disentangled model (or one train step's forward: the same
@@ -1597,8 +1909,29 @@ def main() -> int:
     emit("remat", remat)
     emit("cli_eval", run_cli_eval())
 
-    # 17. launches per path (the f32 runs, each counted from 0), the kernels
-    # line; 18. the result line (the card's line just before)
+    # 17.-19. the parallel layer: the large-graph encoder and the
+    # data-parallel Trainer in an NCCL process group of one, then the CLI
+    # under torchrun
+    import tempfile
+
+    import torch.distributed as dist
+
+    from snd_vae_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as rendezvous:
+        initialize_distributed(f"file://{rendezvous}/rendezvous", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh(1, 1)
+            large_graph = run_large_graph(am, mesh)
+            emit("large_graph", large_graph)
+            dp = run_dp(ml, mc, am, mesh)
+            emit("dp", dp)
+        finally:
+            dist.destroy_process_group()
+    emit("cli_dp", run_cli_dp())
+
+    # 20. launches per path (the f32 runs, each counted from 0), the kernels
+    # line; 21. the result line (the card's line just before)
     by_path = {"serve": serving["float32"]["launches"],
                "train": training["float32"]["launches"],
                "joint_serve": joint_serving["float32"]["launches"],
@@ -1619,7 +1952,10 @@ def main() -> int:
                "eval_heldout": evaluation["per_eval_launches"],
                "remat_train": remat["synthetic2"]["remat"]["launches"],
                "remat_joint_train": remat["synthetic2_joint"]["remat"]["launches"],
-               "remat_protein_train": remat["protein"]["remat"]["launches"]}
+               "remat_protein_train": remat["protein"]["remat"]["launches"],
+               "large_graph": {"motif_level3": 0, "motif_combine": 0,
+                               "adj_matmul": large_graph["launches"]},
+               "dp_train": dp["mesh"]["launches"]}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})

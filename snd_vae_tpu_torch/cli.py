@@ -11,6 +11,9 @@
   python -m snd_vae_tpu_torch.cli --dataset scene --type train     # the joint model
   python -m snd_vae_tpu_torch.cli --dataset protein --type train --remat
   python -m snd_vae_tpu_torch.cli --dataset mnist --type test_reconstruct
+  torchrun --nproc_per_node 4 -m snd_vae_tpu_torch.cli --type train --dp 4 --distributed
+  torchrun --nproc_per_node 2 -m snd_vae_tpu_torch.cli --type train --dp 2 --distributed \
+      --device cpu
 
 takes every preset (synthetic1/2/3, protein, mnist, scene) with any model
 type the dataset's inputs allow (scene has no spanning trees: its preset is
@@ -39,6 +42,13 @@ prints one JSON dict (``test_disentangle``: the directory it wrote).
     ``sweep`` trains, then runs test_reconstruct and test_generation.
     ``sample`` writes decoded prior samples.
 
+``--distributed`` joins the processes ``torchrun`` started into one
+process group (``parallel.initialize_distributed``: NCCL on the card, one
+card per process; gloo with ``--device cpu``) and prints ``distributed:
+process i/n``.  ``--dp k`` then trains data parallel over k processes
+(``train.Trainer``; ``--dp k`` needs a world of k), as the JAX CLI's
+``--dp`` does; ``--tp`` above 1 raises (ROADMAP.md queue 1, item 6(a)).
+
 The figures of the JAX CLI (``visualize.py``, matplotlib) are not ported.
 """
 
@@ -53,6 +63,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import config as cfg_mod
 from .checkpoint import Checkpointer, checkpoint_dir
@@ -65,6 +76,8 @@ from .evaluate import (
 )
 from .models import JointSNDVAE, build_model
 from .models import traversal as trav
+from .parallel import initialize_distributed
+from .parallel.mesh import MODEL_AXIS_TODO
 from .serve import reconstruct, sample
 from .train import Trainer
 
@@ -115,6 +128,8 @@ def build_cfg(args) -> Config:
         cfg = cfg.with_(reproduce_pairing_skew=True)
     if args.normalize_coords:
         cfg = cfg.with_(normalize_coords=True)
+    if args.dp != 1 or args.tp != 1:
+        cfg = cfg.with_(mesh=cfg_mod.MeshConfig(data=args.dp, model=args.tp))
     if args.scene_node_loss:
         cfg = cfg.with_(loss=dataclasses.replace(cfg.loss, scene_node_loss=True))
     latents = {k: getattr(args, k) for k in ("s_latent_size", "g_latent_size", "sg_latent_size")
@@ -335,14 +350,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--traverse-dim", type=int, default=0, dest="traverse_dim",
                    help="the dimension of --traverse-mode single and of the joint "
                         "model's sweep")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel mesh size: train over this many processes, each "
+                        "on its block of every batch (needs --distributed)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh size (not ported: above 1 raises)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the processes torchrun started into one process group "
+                        "(NCCL on the card, gloo with --device cpu)")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = build_cfg(args)
+    if cfg.mesh.model > 1:
+        raise NotImplementedError(MODEL_AXIS_TODO)
     full_f32()
     device = resolve_device(args.device)
+    joined = args.distributed and not dist.is_initialized()
+    if args.distributed:
+        rank = initialize_distributed(device=device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        print(f"distributed: process {rank}/{dist.get_world_size()}", flush=True)
+    try:
+        out = _run(args, cfg, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    print(out if isinstance(out, str) else json.dumps(out))
+    return out
+
+
+def _run(args, cfg, device):
     if args.type == "train":
         out = dict(run_train(cfg, args.workdir, device, args.epochs), device=str(device))
     elif args.type == "sweep":
@@ -361,7 +402,6 @@ def main(argv=None):
             out = dict(run_sample(cfg, model, args.workdir,
                                   args.num_generate or cfg.train.batch_size),
                        device=str(device))
-    print(out if isinstance(out, str) else json.dumps(out))
     return out
 
 

@@ -9,6 +9,7 @@ is connected (the spanning-tree augmentation needs it).
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -135,3 +136,12 @@ def generate_synthetic(
         "rel": rel,
         "prop": np.asarray(props),
     }
+
+
+def save_synthetic_npy(data: dict, path: str, prefix: str = "2D") -> None:
+    """Write ``generate_synthetic``'s arrays in the reference's on-disk
+    layout (input_data.py:56-60): ``<prefix>_{adj,node,geometry,rel,prop}.npy``
+    under ``path``."""
+    os.makedirs(path, exist_ok=True)
+    for name in ("adj", "node", "geometry", "rel", "prop"):
+        np.save(os.path.join(path, f"{prefix}_{name}.npy"), data[name])

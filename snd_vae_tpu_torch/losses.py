@@ -13,6 +13,12 @@
 returns (total, aux) with the same aux keys.  The losses are computed in at
 least float32 whatever the compute dtype: bf16 outputs are cast up, float64
 stays float64 (the tests compare in float64).
+
+Under a data-parallel mesh (``parallel.hints.use_mesh``) each rank holds
+its block of the batch, and every term that reads the whole batch is taken
+over the global batch (``parallel/batch.py``): the loss terms' means, the
+weighted BCE's counts, DIP-VAE's moments and β-TCVAE's log q(z), which
+scores each local sample against every sample's (μ, logσ).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from .config import Config
 from .models.outputs import ModelOutput
+from .parallel.batch import global_mean, global_rows, global_sum
 
 
 def at_least_f32(x):
@@ -101,8 +108,7 @@ def kl_between_gaussians(mu, sigma, mu1, sigma1) -> torch.Tensor:
 def dip_regularizer(enc_mean: torch.Tensor, lambda_od: float, lambda_d: float) -> torch.Tensor:
     """DIP-VAE covariance penalty."""
     mu = enc_mean.reshape(-1, enc_mean.shape[-1])
-    exp_mu = mu.mean(0)
-    exp_mu_mu_t = (mu[:, None, :] * mu[:, :, None]).mean(0)
+    exp_mu, exp_mu_mu_t = global_mean(mu.mean(0), (mu[:, None, :] * mu[:, :, None]).mean(0))
     cov = exp_mu_mu_t - exp_mu[None, :] * exp_mu[:, None]
     diag = torch.diagonal(cov)
     off_diag = cov - torch.diag(diag)
@@ -117,29 +123,32 @@ def gaussian_log_density(samples, mean, log_var) -> torch.Tensor:
 
 
 def total_correlation(z, z_mean, z_logstd) -> torch.Tensor:
-    """Minibatch TC estimate: E_j[log q(z_j) − log Π_l q(z_j_l)]."""
-    z = z.reshape(-1, z.shape[-1])
-    z_mean = z_mean.reshape(-1, z_mean.shape[-1])
-    z_logvar = 2.0 * z_logstd.reshape(-1, z_logstd.shape[-1])
+    """Minibatch TC estimate: E_j[log q(z_j) − log Π_l q(z_j_l)], each
+    sample z_j against every (μ, logσ) of the global batch."""
+    L = z.shape[-1]
+    z = z.reshape(-1, L)
+    stats = global_rows(torch.cat([z_mean.reshape(-1, L), z_logstd.reshape(-1, L)], dim=1))
+    z_mean, z_logvar = stats[:, :L], 2.0 * stats[:, L:]
     log_qz_prob = gaussian_log_density(z[:, None, :], z_mean[None], z_logvar[None])
     log_qz_product = torch.logsumexp(log_qz_prob, dim=1).sum(1)
     log_qz = torch.logsumexp(log_qz_prob.sum(2), dim=1)
-    return (log_qz - log_qz_product).mean()
+    return global_mean((log_qz - log_qz_product).mean())
 
 
 def hierarchical_total_correlation(z1, m1, s1, z2, m2, s2, z3, m3, s3) -> torch.Tensor:
     """Group TC across the three branches."""
     flat = lambda t: t.reshape(-1, t.shape[-1])
     z = torch.cat([flat(z1), flat(z2), flat(z3)], dim=1)
-    mean = torch.cat([flat(m1), flat(m2), flat(m3)], dim=1)
-    logvar = torch.cat([2.0 * flat(s1), 2.0 * flat(s2), 2.0 * flat(s3)], dim=1)
     d1 = z1.shape[-1]
     d2 = d1 + z2.shape[-1]
     d3 = d2 + z3.shape[-1]
+    stats = global_rows(torch.cat([flat(m1), flat(m2), flat(m3), 2.0 * flat(s1),
+                                   2.0 * flat(s2), 2.0 * flat(s3)], dim=1))
+    mean, logvar = stats[:, :d3], stats[:, d3:]
     log_qz_prob = gaussian_log_density(z[:, None, :], mean[None], logvar[None])
     group = lambda lo, hi: torch.logsumexp(log_qz_prob[:, :, lo:hi].sum(2), dim=1)
     log_qz = torch.logsumexp(log_qz_prob.sum(2), dim=1)
-    return (log_qz - (group(0, d1) + group(d1, d2) + group(d2, d3))).mean()
+    return global_mean((log_qz - (group(0, d1) + group(d1, d2) + group(d2, d3))).mean())
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +181,9 @@ def reconstruction_losses(
                 n_tot = (node_mask[..., :, None] * node_mask[..., None, :]).sum().to(adj_true.dtype)
             else:
                 n_tot = adj_true.new_tensor(float(adj_true.numel()))
-            n_pos = torch.clamp(adj_true.sum(), min=1.0)
+            # the global batch's counts under a data-parallel mesh
+            n_tot, n_pos = global_sum(n_tot, adj_true.sum())
+            n_pos = torch.clamp(n_pos, min=1.0)
             pos_weight = (n_tot - n_pos) / n_pos
             norm = n_tot / (2.0 * torch.clamp(n_tot - n_pos, min=1.0))
         if norm is None:
@@ -203,22 +214,19 @@ def elbo_loss(
     output = at_least_f32(output)
     adj_true, node_true, coords_true = (at_least_f32(t) for t in (adj_true, node_true,
                                                                    coords_true))
-    rec = reconstruction_losses(cfg, output, adj_true, node_true, coords_true,
-                                pos_weight, norm, node_mask=node_mask)
-    mse_loss = rec["adj_loss"] + rec["node_loss"] + rec["spatial_loss"]
     stats, lat = output.stats, output.latents
-    aux = dict(rec)
-
-    kl_sg = kl_diag_gaussian(stats.mean_sg, stats.logstd_sg)
-    aux["sg_kl"] = kl_sg
-
+    aux = reconstruction_losses(cfg, output, adj_true, node_true, coords_true,
+                                pos_weight, norm, node_mask=node_mask)
+    aux["sg_kl"] = kl_diag_gaussian(stats.mean_sg, stats.logstd_sg)
     mt = cfg.model_type
     if mt in ("disentangled", "geoGCN", "posGCN", "disentangled_C", "NED-VAE-IP",
               "beta-TCVAE"):
-        kl_s = kl_diag_gaussian(stats.mean_s, stats.logstd_s)
-        kl_g = kl_diag_gaussian(stats.mean_g, stats.logstd_g)
-        aux["spatial_kl"] = kl_s
-        aux["graph_kl"] = kl_g
+        aux["spatial_kl"] = kl_diag_gaussian(stats.mean_s, stats.logstd_s)
+        aux["graph_kl"] = kl_diag_gaussian(stats.mean_g, stats.logstd_g)
+    # the global batch's means under a data-parallel mesh, in one all-reduce
+    aux = dict(zip(aux, global_mean(*aux.values())))
+    mse_loss = aux["adj_loss"] + aux["node_loss"] + aux["spatial_loss"]
+    kl_sg, kl_s, kl_g = aux["sg_kl"], aux.get("spatial_kl"), aux.get("graph_kl")
 
     if mt in ("disentangled", "geoGCN", "posGCN"):
         cost = mse_loss + beta * (kl_sg + kl_s + kl_g)

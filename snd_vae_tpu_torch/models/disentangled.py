@@ -36,6 +36,7 @@ from ..nn import (
     StructGraphConv, lrelu, make_norm,
 )
 from ..nn.ckpt import policy_from_config, rematerialized
+from ..parallel.batch import local_rows
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
     diag_masked,
@@ -238,8 +239,9 @@ class DisentangledSNDVAE(nn.Module):
     def _normal(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
         if generator is None:
             raise ValueError("drawing latents needs a torch.Generator")
-        z = torch.randn(tuple(shape), generator=generator, device=generator.device,
-                        dtype=self.dtype)
+        # under a data-parallel mesh: the global batch's draw, this rank's rows
+        z = local_rows(lambda s: torch.randn(s, generator=generator, device=generator.device,
+                                             dtype=self.dtype), shape)
         return z.to(self.device)
 
     def reparameterize(self, stats: LatentStats, eps: Optional[Latents] = None,

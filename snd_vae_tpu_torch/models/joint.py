@@ -38,6 +38,7 @@ from ..config import Config
 from ..data.graphbatch import GraphBatch
 from ..nn import E2E, Conv1D, Dense, dropout, lrelu, make_norm
 from ..nn.ckpt import policy_from_config, rematerialized
+from ..parallel.batch import local_rows
 from .disentangled import adj_head_params, motif_conv
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
@@ -144,8 +145,9 @@ class JointSNDVAE(nn.Module):
     def _normal(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
         if generator is None:
             raise ValueError("drawing latents needs a torch.Generator")
-        z = torch.randn(tuple(shape), generator=generator, device=generator.device,
-                        dtype=self.dtype)
+        # under a data-parallel mesh: the global batch's draw, this rank's rows
+        z = local_rows(lambda s: torch.randn(s, generator=generator, device=generator.device,
+                                             dtype=self.dtype), shape)
         return z.to(self.device)
 
     def reparameterize(self, stats: LatentStats, eps: Optional[Latents] = None,

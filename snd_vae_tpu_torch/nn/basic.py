@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.batch import global_mean, local_rows
 from . import init as inits
 
 
@@ -108,7 +109,8 @@ class FrozenBatchNorm(nn.Module):
 
 class BatchStatNorm(nn.Module):
     """Corrected batch norm: normalize with the current batch's statistics
-    over all axes but the last; trainable gamma/beta."""
+    over all axes but the last (the global batch's under a data-parallel
+    mesh); trainable gamma/beta."""
 
     def __init__(self, features: int, epsilon: float = 1e-3):
         super().__init__()
@@ -120,8 +122,8 @@ class BatchStatNorm(nn.Module):
                 block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         gamma, beta = _block_params(self.gamma, self.beta, x, block)
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=axes, keepdim=True)
-        var = x.var(dim=axes, keepdim=True, unbiased=False)
+        mean = global_mean(x.mean(dim=axes, keepdim=True))
+        var = global_mean((x - mean).square().mean(dim=axes, keepdim=True))
         return (x - mean) * torch.rsqrt(var + self.epsilon) * gamma + beta
 
 
@@ -136,13 +138,15 @@ def dropout(x: torch.Tensor, keep_prob: float, generator: Optional[torch.Generat
     """Inverted dropout with a keep-probability (``snd_vae_tpu/nn/basic.py:
     174-183``, tf.nn.dropout's semantics): x / keep_prob where the mask
     keeps, 0 elsewhere.  The boolean mask is ``mask`` when given, else
-    uniform < keep_prob drawn from ``generator``; identity at keep_prob >= 1."""
+    uniform < keep_prob drawn from ``generator`` (under a data-parallel mesh
+    the global batch's draw, this rank's rows); identity at keep_prob >= 1."""
     if keep_prob >= 1.0:
         return x
     if mask is None:
         if generator is None:
             raise ValueError("dropout needs a torch.Generator or a mask")
-        u = torch.rand(x.shape, generator=generator, device=generator.device)
+        u = local_rows(lambda s: torch.rand(s, generator=generator, device=generator.device),
+                       x.shape)
         mask = u < keep_prob
     mask = mask.to(x.device)
     return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -11,6 +11,10 @@ on, unless that expansion would exceed ``matmul_max_bytes``.  Given
 D[b,i,j]], the separable lowering (``E2E._separable``) computes the same
 layer without building the map.  Maps are NHWC [B,H,W,C] at the public
 boundary, NCHW only around ``F.conv2d``.
+
+The rest of the JAX family (``edge_conv.py:254-403``) follows at the end:
+``E2N``, ``N2N``, ``N2GAdj``, the transposed ``DeN2G``, ``DeN2N``,
+``DeE2N``, ``DeE2E`` and the pooling pair ``N2GPool`` / ``G2NBroadcast``.
 """
 
 from __future__ import annotations
@@ -141,3 +145,171 @@ class E2E(nn.Module):
             row, col = _row_col_convs(D.permute(0, 3, 1, 2), w1[:, cP + cQ:].to(dt), None)
             y = y + row.permute(0, 2, 3, 1).to(acc) + col.permute(0, 2, 3, 1).to(acc)
         return (y + 2.0 * self.biases1.to(acc)).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the family (``snd_vae_tpu/nn/edge_conv.py:254-403``, reference
+# layers.py:362-564).  No model calls them; the JAX package exports them.
+# Maps are NHWC at the boundary.  A 4-D ``w`` / ``w1`` is stored in torch's
+# layout: the flax [H, W, I, O] kernel permuted to [O, I, H, W], which is
+# F.conv2d's weight for the VALID convs and, for the transposed convs (flax
+# [h, w, features, C], tf.nn.conv2d_transpose's [h, w, out, in]),
+# F.conv_transpose2d's [C, features, h, w].
+# ---------------------------------------------------------------------------
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _conv_param(shape, init) -> nn.Parameter:
+    """A flax-layout [H, W, I, O] kernel drawn by ``init``, stored as
+    [O, I, H, W]."""
+    return nn.Parameter(init(shape).permute(3, 2, 0, 1).contiguous())
+
+
+class E2N(nn.Module):
+    """Edge-to-node 1 x k_h VALID conv: [B,N,N,C] -> [B,N,N-k_h+1,F]
+    (k_h = N gives [B,N,1,F])."""
+
+    def __init__(self, in_features: int, features: int, k_h: int,
+                 generator: torch.Generator, stddev: float = 0.02):
+        super().__init__()
+        self.w = _conv_param((1, k_h, in_features, features),
+                             lambda s: inits.truncated_normal(s, stddev, generator))
+        self.biases = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(F.conv2d(_nchw(x), self.w)) + self.biases
+
+
+class N2N(nn.Module):
+    """Node-to-node 1 x k_h VALID conv."""
+
+    def __init__(self, in_features: int, features: int, k_h: int,
+                 generator: torch.Generator, stddev: float = 0.02):
+        super().__init__()
+        self.w = _conv_param((1, k_h, in_features, features),
+                             lambda s: inits.truncated_normal(s, stddev, generator))
+        self.bias = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(F.conv2d(_nchw(x), self.w)) + self.bias
+
+
+class N2GAdj(nn.Module):
+    """Node-to-graph N x 1 VALID conv of a one-channel [B,N,W,1] map:
+    returns (out [B,1,W,features], w), ``w`` in the flax layout [N,1,1,1]
+    as the JAX module returns it."""
+
+    def __init__(self, num_nodes: int, features: int, generator: torch.Generator,
+                 stddev: float = 0.02):
+        super().__init__()
+        self.w = _conv_param((num_nodes, 1, 1, 1),
+                             lambda s: inits.truncated_normal(s, stddev, generator))
+        self.biases = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = _nhwc(F.conv2d(_nchw(x), self.w)) + self.biases
+        return out, self.w.permute(2, 3, 1, 0)
+
+
+class DeN2G(nn.Module):
+    """Transposed node-to-graph conv: a [B,1,W,C] map back to [B,height,W,
+    features] through a [height,1,1,1] kernel (C = 1)."""
+
+    def __init__(self, height: int, generator: torch.Generator, features: int = 1,
+                 stddev: float = 0.02):
+        super().__init__()
+        self.w = _conv_param((height, 1, 1, 1), lambda s: inits.normal(s, stddev, generator))
+        self.biases = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(F.conv_transpose2d(_nchw(x), self.w)) + self.biases
+
+
+class DeN2N(nn.Module):
+    """Transposed node-to-node conv (1 x k_h)."""
+
+    def __init__(self, in_features: int, features: int, k_h: int,
+                 generator: torch.Generator, stddev: float = 0.02):
+        super().__init__()
+        self.w = _conv_param((1, k_h, features, in_features),
+                             lambda s: inits.normal(s, stddev, generator))
+        self.biases1 = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(F.conv_transpose2d(_nchw(x), self.w)) + self.biases1
+
+
+class DeE2N(nn.Module):
+    """Transposed edge-to-node conv: the deconvolution of the map plus that
+    of its spatial transpose with the kernel transposed, one shared bias
+    added to each."""
+
+    def __init__(self, in_features: int, features: int, k_h: int,
+                 generator: torch.Generator, stddev: float = 0.02):
+        super().__init__()
+        self.w1 = _conv_param((1, k_h, features, in_features),
+                              lambda s: inits.normal(s, stddev, generator))
+        self.biases1 = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d1 = _nhwc(F.conv_transpose2d(_nchw(x), self.w1)) + self.biases1
+        d2 = _nhwc(F.conv_transpose2d(_nchw(x.transpose(1, 2)),
+                                      self.w1.transpose(2, 3))) + self.biases1
+        return d1 + d2
+
+
+class DeE2E(nn.Module):
+    """Transposed edge-to-edge conv: the map's column sums and row sums
+    ([B,k_h,k_h,C] in, k_h = N) deconvolved back to full edge maps along
+    each axis, averaged."""
+
+    def __init__(self, in_features: int, features: int, k_h: int,
+                 generator: torch.Generator, stddev: float = 0.02):
+        super().__init__()
+        self.k_h = k_h
+        self.w1 = _conv_param((1, k_h, features, in_features),
+                              lambda s: inits.normal(s, stddev, generator))
+        self.biases1 = nn.Parameter(inits.zeros((features,)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[0], x.shape[-1]
+        x1 = x.sum(1).reshape(B, self.k_h, 1, C)
+        x2 = x.sum(2).reshape(B, 1, self.k_h, C)
+        d1 = _nhwc(F.conv_transpose2d(_nchw(x1), self.w1)) + self.biases1
+        d2 = _nhwc(F.conv_transpose2d(_nchw(x2), self.w1.transpose(2, 3))) + self.biases1
+        return (d1 + d2) / 2.0
+
+
+class N2GPool(nn.Module):
+    """Node -> graph pooling with a diagonal mask: relu((W @ x) ∘ I) for x
+    [B, hidden, T], W [input_dim, hidden] (products in at least f32)."""
+
+    def __init__(self, input_dim: int, generator: torch.Generator, hidden: int = 20):
+        super().__init__()
+        self.weights = nn.Parameter(inits.truncated_normal((input_dim, hidden), 0.1, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        acc = acc_dtype(x.dtype)
+        y = torch.einsum("io,bot->bit", self.weights.to(acc), x.to(acc)).to(x.dtype)
+        eye = torch.eye(self.weights.shape[0], dtype=x.dtype, device=x.device)
+        return torch.relu(y * eye[None, :y.shape[1], :y.shape[2]])
+
+
+class G2NBroadcast(nn.Module):
+    """Graph -> node broadcast: relu(W @ x) for x [B, input_dim, T], W
+    [hidden, input_dim] (products in at least f32)."""
+
+    def __init__(self, input_dim: int, generator: torch.Generator, hidden: int = 20):
+        super().__init__()
+        self.weights = nn.Parameter(inits.truncated_normal((hidden, input_dim), 0.1, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        acc = acc_dtype(x.dtype)
+        return torch.relu(torch.einsum("ho,bot->bht", self.weights.to(acc),
+                                       x.to(acc)).to(x.dtype))

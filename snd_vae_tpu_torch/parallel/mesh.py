@@ -1,0 +1,120 @@
+"""The ``("data", "model")`` device mesh — the counterpart of
+``snd_vae_tpu/parallel/mesh.py:22-78``.
+
+JAX places global arrays on a ``Mesh`` with ``NamedSharding``s and lets
+GSPMD insert the collectives.  The port is explicit SPMD: a
+``torch.distributed`` ``DeviceMesh`` over the processes of the default
+group (one per card), each process holding its own block, and the
+collectives called on the mesh's named groups (``mesh.get_group("data")``).
+``batch_sharding`` / ``replicated`` / ``param_shardings`` return the
+placements JAX's shardings name (``Shard(0)`` over ``data``,
+``Replicate()``); ``shard_graphbatch`` takes this process's block of a
+global batch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
+
+from ..config import MeshConfig
+from ..device import DeviceLike, resolve_device
+from .distributed import backend_for
+
+# canonical axis names of the 2-D ('data', 'model') mesh
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+AXES = (DATA_AXIS, MODEL_AXIS)
+# what the model axis above 1 still needs, named wherever it raises
+MODEL_AXIS_TODO = ("the mesh's 'model' axis (tensor-parallel parameters and node-sharded "
+                   "activations) is not ported yet (ROADMAP.md queue 1, item 6(a))")
+
+
+def make_mesh(data: int = 1, model: int = 1, device: DeviceLike = None) -> DeviceMesh:
+    """A ``data`` x ``model`` mesh over every process of the default group
+    (call ``initialize_distributed`` first), on ``device``'s type (CUDA
+    unless named).  Raises ValueError unless data·model is the group's
+    size, and RuntimeError when the group's backend is not the device's."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call "
+                           "parallel.initialize_distributed() first (the CLI: --distributed)")
+    world = dist.get_world_size()
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} needs {data * model} processes, "
+                         f"the group has {world}")
+    backend = dist.get_backend()
+    if backend != backend_for(dev):
+        raise RuntimeError(f"the process group runs {backend}, a {dev.type} mesh needs "
+                           f"{backend_for(dev)}")
+    return init_device_mesh(dev.type, (data, model), mesh_dim_names=AXES)
+
+
+def mesh_from_config(cfg: MeshConfig, device: DeviceLike = None) -> DeviceMesh:
+    return make_mesh(cfg.data, cfg.model, device)
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return mesh.shape[mesh.mesh_dim_names.index(axis)]
+
+
+def batch_sharding(mesh: DeviceMesh) -> Tuple:
+    """The leading (graph-batch) axis sharded over ``data``."""
+    return (Shard(0), Replicate())
+
+
+def replicated(mesh: DeviceMesh) -> Tuple:
+    return (Replicate(), Replicate())
+
+
+def shard_graphbatch(batch, mesh: DeviceMesh):
+    """This process's contiguous block of every batch-axis tensor of a
+    global ``GraphBatch``: rows [r·B/d, (r+1)·B/d) for data rank r of d.
+    Raises ValueError when d does not divide B."""
+    d, r = axis_size(mesh, DATA_AXIS), mesh.get_local_rank(DATA_AXIS)
+    B = batch.batch_size
+    if B % d:
+        raise ValueError(f"a batch of {B} graphs does not split over {d} data ranks")
+    return batch.slice_batch(r * (B // d), B // d)
+
+
+def param_shardings(params: Mapping[str, torch.Tensor], mesh: DeviceMesh,
+                    min_size: int = 1 << 14) -> Dict[str, Tuple]:
+    """Each parameter's placements, by JAX's rule: a tensor of at least
+    ``min_size`` elements shards the last axis whose size the ``model``
+    axis divides over ``model``; everything else is replicated."""
+    m = axis_size(mesh, MODEL_AXIS)
+
+    def one(p):
+        if m > 1 and p.dim() > 0 and math.prod(p.shape) >= min_size:
+            for ax in reversed(range(p.dim())):
+                if p.shape[ax] % m == 0 and p.shape[ax] >= m:
+                    return (Replicate(), Shard(ax))
+        return replicated(mesh)
+
+    return {name: one(p) for name, p in params.items()}
+
+
+def shard_params(params: Mapping[str, torch.Tensor], mesh: DeviceMesh,
+                 min_size: int = 1 << 14) -> Mapping[str, torch.Tensor]:
+    """Place the parameters on the mesh.  At ``model`` = 1 every parameter
+    is replicated: rank 0's values are broadcast to every process, in one
+    flattened buffer per dtype, and written in place (a ``state_dict``'s
+    tensors are the module's).  A ``model`` axis above 1 raises."""
+    if axis_size(mesh, MODEL_AXIS) > 1:
+        raise NotImplementedError(MODEL_AXIS_TODO)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in params.values():
+        by_dtype.setdefault(t.dtype, []).append(t)
+    with torch.no_grad():
+        for tensors in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            dist.broadcast(flat, src=0)
+            for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+                t.copy_(v.view_as(t))
+    return params

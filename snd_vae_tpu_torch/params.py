@@ -9,8 +9,12 @@ keys:
   * list entries ``name_<i>`` become ``name.<i>`` (``g_convs_0/kernel`` ->
     ``g_convs.0.kernel``, ``d_bn_e_0/gamma`` -> ``d_bn_e.0.gamma``);
   * a Conv1D ``kernel`` [k, in, out] becomes torch's [out, in, k];
-  * an E2E ``w1`` [1, k_h, C, O] becomes the row conv's [O, C, 1, k_h] (the
-    column conv uses its transpose [O, C, k_h, 1] inside the module);
+  * a 4-D ``w`` or ``w1`` [H, W, I, O] becomes [O, I, H, W]: E2E's [1, k_h,
+    C, O] the row conv's [O, C, 1, k_h] (the column conv uses its transpose
+    [O, C, k_h, 1] inside the module), the VALID convs' (E2N, N2N, N2GAdj)
+    ``F.conv2d`` weights, the transposed convs' (DeN2G, DeN2N, DeE2N,
+    DeE2E: tf.nn.conv2d_transpose's [h, w, out, in]) ``F.conv_transpose2d``
+    weights [in, out, h, w];
   * everything else keeps its layout: Dense and GraphConv ``kernel`` [in,
     out], the motif ``Matrix*``, biases, BN ``gamma``/``beta``, geoGCN's
     ``GeoGraphConv.w`` [in, out] and posGCN's ``StructGraphConv``
@@ -25,7 +29,7 @@ The joint model's tree (``sg_convs_<i>``, ``sg_bns_<i>``, ``sg_lin1``,
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +50,7 @@ def torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
     leaf = flax_path.rsplit("/", 1)[-1]
     if leaf == "kernel" and value.ndim == 3:       # Conv1D [k, in, out]
         return np.transpose(value, (2, 1, 0))
-    if leaf == "w1" and value.ndim == 4:           # E2E [1, k_h, C, O]
+    if leaf in ("w", "w1") and value.ndim == 4:    # conv kernels [H, W, I, O]
         return np.transpose(value, (3, 2, 0, 1))
     return value
 
@@ -57,3 +61,10 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
             np.ascontiguousarray(torch_layout(path, np.asarray(value))))
         for path, value in flat.items()
     }
+
+
+def sharded_gcn_state_dict(kernels: Sequence[np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX's ``ShardedGCNEncoder`` parameters (a list of [F, H] kernels) as
+    the state_dict of the port's ``parallel.large_graph.ShardedGCNEncoder``."""
+    return {f"kernels.{i}": torch.from_numpy(np.ascontiguousarray(np.asarray(k)))
+            for i, k in enumerate(kernels)}

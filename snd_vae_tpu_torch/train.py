@@ -29,9 +29,22 @@ of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
     ``best_metric`` to ``<checkpoint_dir>_best`` with its score in
     ``best.json``, read back on resume (``snd_vae_tpu/train.py:351-518``).
 
+  * Data parallel (``cfg.mesh.data`` > 1, or a ``mesh`` passed; the JAX
+    ``Trainer``'s mesh, ``snd_vae_tpu/train.py:355-450``): one process per
+    card, joined by ``parallel.initialize_distributed``.  Every process
+    builds the same model, takes rank 0's weights (``shard_params``), holds
+    the whole train split and steps on its block of each global batch
+    (``rebatch``, then ``shard_graphbatch``).  The step runs under the mesh
+    (``hints.use_mesh``), where every quantity that reads the whole batch is
+    taken over the global batch (``parallel/batch.py``), and averages the
+    gradients over the ranks in one flattened all-reduce before the
+    optimizer step: the step equals the single-process step on the global
+    batch.  Rank 0 alone writes logs, checkpoints and ``best.json`` and
+    evaluates the held-out split; every rank resumes from the checkpoint.
+    A ``model`` axis above 1 raises (ROADMAP.md queue 1, item 6(a)).
+
 The JAX trainer's ``scan_unroll``, ``epoch_chunk`` and ``max_dispatch_s``
-shape how XLA dispatches an epoch and have no counterpart here.  The device
-mesh is not ported yet and raises.
+shape how XLA dispatches an epoch and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -47,6 +60,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.func import functional_call
 from torch.profiler import record_function
 
@@ -58,8 +73,13 @@ from .device import DeviceLike, dtype_of, full_f32, resolve_device
 from .evaluate import edge_presence_scores, reconstruct_evaluation
 from .losses import elbo_loss
 from .models import Latents, Model, build_model
+from .parallel.batch import average_gradients, global_mean
+from .parallel.distributed import is_primary
+from .parallel.hints import use_mesh
+from .parallel.mesh import MODEL_AXIS_TODO, axis_size, mesh_from_config, shard_graphbatch, \
+    shard_params
 from .serve import reconstruct
-from .utils.logging import LossesLogger
+from .utils.logging import LossesLogger, epoch_means
 
 
 @dataclass
@@ -67,13 +87,15 @@ class TrainState:
     """What one step reads and updates: the run's config (its
     ``compute_dtype`` is the forward's), the model holding the f32 master
     parameters, the optimizer, the generator of the ε stream (on the
-    model's device) and the count of steps taken."""
+    model's device), the count of steps taken and the data-parallel mesh
+    (None: one process)."""
 
     cfg: Config
     model: Model
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     step: int = 0
+    mesh: Optional[DeviceMesh] = None
 
 
 class TF1Adam(torch.optim.Optimizer):
@@ -162,18 +184,26 @@ def train_step(state: TrainState, batch: GraphBatch, global_iter,
     the joint model's z_sg only) unless given.  After the call
     each parameter's ``.grad`` holds this step's gradient.  The three
     phases run under ``record_function`` ranges (``train_step.forward``,
-    ``.backward``, ``.optimizer``) for the profiler."""
-    with record_function("train_step.forward"):
-        out = _forward(state, batch, eps)
-        total, aux = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
-                               global_iter, node_mask=batch.node_mask)
-        # edge accuracy of the decoded graphs against the truth
-        aux["adj_acc"] = (out.decoded.adj == batch.adj).float().mean()
-    with record_function("train_step.backward"):
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-    with record_function("train_step.optimizer"):
-        state.optimizer.step()
+    ``.backward``, ``.optimizer``) for the profiler.
+
+    With ``state.mesh``, ``batch`` (and ``eps``, when given) is this rank's
+    block of the global batch; the loss, the aux values and, once averaged
+    over the ranks, the gradients are the global batch's."""
+    with use_mesh(state.mesh):
+        with record_function("train_step.forward"):
+            out = _forward(state, batch, eps)
+            total, aux = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
+                                   global_iter, node_mask=batch.node_mask)
+            # edge accuracy of the decoded graphs against the truth
+            aux["adj_acc"] = global_mean((out.decoded.adj == batch.adj).float().mean())
+        with record_function("train_step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            if state.mesh is not None:
+                average_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
+                                  state.mesh)
+        with record_function("train_step.optimizer"):
+            state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in aux.items()}
 
@@ -232,24 +262,31 @@ class Trainer:
     ``<workdir>/<log_dir>/train_loss_<dataset>_<model_type>.txt`` and
     ``.jsonl`` and checkpoints to ``checkpoint.checkpoint_dir(cfg, workdir)``.
     ``eval_batch`` is the held-out split that ``cfg.train.eval_every``
-    scores."""
+    scores.  ``mesh`` (or, when None, ``cfg.mesh.data`` > 1) trains data
+    parallel over the processes of the mesh (see the module docstring)."""
 
     def __init__(self, cfg: Config, train_batch: GraphBatch, device: DeviceLike = None,
-                 workdir: str = ".", eval_batch: Optional[GraphBatch] = None):
-        if cfg.mesh.data * cfg.mesh.model > 1:
-            raise NotImplementedError(
-                "training over a device mesh is not ported yet (ROADMAP.md queue 1, item 6)")
+                 workdir: str = ".", eval_batch: Optional[GraphBatch] = None,
+                 mesh: Optional[DeviceMesh] = None):
         full_f32()
         dev = resolve_device(device)
-        self.cfg, self.device, self.workdir = cfg, dev, workdir
+        if cfg.mesh.model > 1 or (mesh is not None and axis_size(mesh, "model") > 1):
+            raise NotImplementedError(MODEL_AXIS_TODO)
+        if mesh is None and cfg.mesh.data > 1:
+            mesh = mesh_from_config(cfg.mesh, dev)
+        self.cfg, self.device, self.workdir, self.mesh = cfg, dev, workdir, mesh
         model = build_model(cfg.with_(compute_dtype="float32"), dev).train()
+        if mesh is not None:
+            shard_params(model.state_dict(), mesh)
         self.state = TrainState(
             cfg=cfg, model=model, optimizer=make_optimizer(cfg, model.parameters()),
-            generator=torch.Generator(device=dev).manual_seed(cfg.train.seed))
+            generator=torch.Generator(device=dev).manual_seed(cfg.train.seed), mesh=mesh)
         self.data = train_batch.to(dev)
         self.batched = rebatch(self.data, cfg.train.batch_size)
+        self.primary = is_primary()
         self.logger = LossesLogger(os.path.join(
-            workdir, cfg.train.log_dir, f"train_loss_{cfg.dataset}_{cfg.model_type}.txt"))
+            workdir, cfg.train.log_dir,
+            f"train_loss_{cfg.dataset}_{cfg.model_type}.txt")) if self.primary else None
         self.checkpointer = Checkpointer(checkpoint_dir(cfg, workdir))
         # epoch of the spanning-tree draw in effect (0 = the load-time draw)
         self._tree_boundary = 0
@@ -261,7 +298,7 @@ class Trainer:
             for name in ("adj", "features", "coords")}
         self.best_checkpointer: Optional[Checkpointer] = None
         self._best_value: Optional[float] = None
-        if cfg.train.eval_every > 0 and eval_batch is not None:
+        if cfg.train.eval_every > 0 and eval_batch is not None and self.primary:
             self.best_checkpointer = Checkpointer(checkpoint_dir(cfg, workdir) + "_best",
                                                   max_to_keep=1)
             self.best_path = os.path.join(self.best_checkpointer.directory, "best.json")
@@ -321,9 +358,10 @@ class Trainer:
         scores and keep the best checkpoint by ``cfg.train.best_metric`` (a
         leading "-" minimizes), with its score in ``best.json`` so that a
         resumed run compares against the best of all its runs.  A metric
-        the scores lack is skipped, as in JAX."""
+        the scores lack is skipped, as in JAX.  Rank 0 alone evaluates."""
         k = self.cfg.train.eval_every
-        if k <= 0 or self.eval_batch is None or epoch <= 0 or epoch % k != 0:
+        if (k <= 0 or self.eval_batch is None or not self.primary or epoch <= 0
+                or epoch % k != 0):
             return
         metrics = self.evaluate_heldout()
         self.eval_logger.log(epoch, {f"val_{n}": [v] for n, v in metrics.items()})
@@ -359,23 +397,36 @@ class Trainer:
 
     def run_epoch(self, epoch: int) -> Dict[str, list]:
         """One epoch of steps over the contiguous batches (global_iter =
-        ``epoch``); returns each aux value's per-step list, fetched from the
-        device in the epoch's one host sync."""
+        ``epoch``; under a mesh, this rank's block of each); returns each aux
+        value's per-step list, fetched from the device in the epoch's one
+        host sync."""
         self._maybe_resample_trees(epoch)
         batched = _maybe_reshuffle(self.state, self.batched)
         global_iter = torch.full((), float(epoch), device=self.device)
-        auxes = [train_step(self.state, batched._map(lambda t: t[i]), global_iter)
+
+        def batch(i):
+            b = batched._map(lambda t: t[i])
+            return b if self.mesh is None else shard_graphbatch(b, self.mesh)
+
+        auxes = [train_step(self.state, batch(i), global_iter)
                  for i in range(batched.adj.shape[0])]
         keys = list(auxes[0])
         values = torch.stack([torch.stack([a[k].double() for k in keys])
                               for a in auxes]).cpu().numpy()
         return {k: values[:, j].tolist() for j, k in enumerate(keys)}
 
+    def _save(self, epoch: int) -> None:
+        if self.primary:
+            self.checkpointer.save(epoch, self.state)
+
     def run(self, epochs: Optional[int] = None, verbose: bool = True) -> Dict[str, float]:
         """Train up to ``epochs`` (``cfg.train.epochs`` when None); returns
-        the last epoch's means."""
+        the last epoch's means (on every rank: the global batch's).  Under a
+        mesh the ranks meet once more at the end, so that every checkpoint
+        is on disk when any rank returns."""
         cfg = self.cfg
         epochs = cfg.train.epochs if epochs is None else epochs
+        verbose = verbose and self.primary
         last_means: Dict[str, float] = {}
         start = self.maybe_restore()
         with _GracefulStop() as stopper:
@@ -386,12 +437,15 @@ class Trainer:
                     print(f"Epoch: {epoch + 1:04d} loss= {np.mean(storer['loss']):.5f}")
                     print(f"epoch time= {time.time() - t0:.5f}")
                 if epoch % cfg.train.checkpoint_every == 0:
-                    self.checkpointer.save(epoch, self.state)
+                    self._save(epoch)
                 self._maybe_eval(epoch, verbose)
-                last_means = self.logger.log(epoch, storer)
+                last_means = (self.logger.log(epoch, storer) if self.logger is not None
+                              else epoch_means(storer))
                 if stopper.stop:
-                    self.checkpointer.save(epoch, self.state)
+                    self._save(epoch)
                     if verbose:
                         print(f"interrupted: checkpointed epoch {epoch}")
                     break
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group("data"))
         return last_means

@@ -17,6 +17,11 @@ from typing import Dict, Mapping, Sequence, Union
 Number = Union[int, float]
 
 
+def epoch_means(storer: Mapping[str, Sequence[Number]]) -> Dict[str, float]:
+    """The mean of each loss's per-batch values."""
+    return {k: float(sum(v)) / max(len(v), 1) for k, v in storer.items()}
+
+
 class LossesLogger:
     def __init__(self, path: str):
         self.path = path
@@ -32,7 +37,7 @@ class LossesLogger:
 
     def log(self, epoch: int, storer: Mapping[str, Sequence[Number]]) -> Dict[str, float]:
         """Append the per-epoch mean of each loss list; returns the means."""
-        means = {k: float(sum(v)) / max(len(v), 1) for k, v in storer.items()}
+        means = epoch_means(storer)
         with open(self.path, "a") as f:
             for k, v in means.items():
                 f.write(f"{epoch},{k},{v}\n")

@@ -1,0 +1,150 @@
+"""The port's kernels on a CUDA card, against their plain PyTorch versions.
+
+This file imports no JAX and none of the JAX package, so it runs where the
+card is (that machine has no JAX); ``tests/conftest.py`` imports JAX, so
+leave it out there:
+
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
+
+Every test is marked ``cuda`` and skips without a card.  The CPU tests that
+hold the plain versions against the JAX package are in
+``tests/test_torch_kernels.py``, ``test_torch_motif_level3.py``,
+``test_torch_graph_conv_kernel.py`` and ``test_torch_large_graph.py``."""
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from snd_vae_tpu_torch.nn.kernels import adj_matmul as am
+from snd_vae_tpu_torch.nn.kernels.adj_matmul import adj_matmul, adj_matmul_plain, \
+    blocked_adj_matmul
+from snd_vae_tpu_torch.nn.kernels.motif_combine import fused_motif_combine, \
+    motif_combine_plain
+from snd_vae_tpu_torch.nn.kernels.motif_level3 import fused_motif_level3, motif_level3_plain
+from snd_vae_tpu_torch.parallel import initialize_distributed, make_mesh
+from snd_vae_tpu_torch.parallel import large_graph as lg
+
+pytestmark = pytest.mark.cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (the kernels compile only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _t(arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _motif_inputs(rng, B, N, h, dtype=np.float32):
+    adj = np.triu((rng.random((B, N, N)) < 0.4).astype(dtype), 1)
+    adj = adj + adj.transpose(0, 2, 1)
+    return (adj, rng.standard_normal((B, N, h)).astype(dtype),
+            rng.standard_normal((B, N, N, h)).astype(dtype),
+            rng.standard_normal((B, N, h)).astype(dtype),
+            rng.standard_normal((B, N, N, h)).astype(dtype),
+            rng.standard_normal((h,)).astype(dtype))
+
+
+def _level3_inputs(rng, B, N, h, R, weighted=False):
+    """adj, φ(rel), a_i, v_j, deg, M1d, M1f, bias as numpy float64."""
+    adj = np.triu((rng.random((B, N, N)) < 0.4).astype(np.float64), 1)
+    adj = adj + np.swapaxes(adj, 1, 2)
+    if weighted:
+        adj = adj * rng.random((B, N, N))
+        adj = (adj + np.swapaxes(adj, 1, 2)) / 2
+    rel = rng.standard_normal((B, N, N, R))
+    rel = (rel + np.swapaxes(rel, 1, 2)) / 2
+    draw = lambda *s: rng.standard_normal(s)
+    return [adj, np.maximum(rel, 0.2 * rel), draw(B, N, h), draw(B, N, h), adj.sum(-1),
+            draw(R, h), draw(R, h), draw(h)]
+
+
+def test_cuda_kernels_match_plain_versions():
+    """On the card: each kernel against its plain version (f32 at 1e-5)."""
+    _card()
+    rng = np.random.default_rng(0)
+    inputs = [t.cuda() for t in _t(_motif_inputs(rng, 4, 29, 37))]
+    n0 = fused_motif_combine.launches
+    got = fused_motif_combine(*inputs)
+    torch.cuda.synchronize()
+    assert fused_motif_combine.launches == n0 + 1
+    torch.testing.assert_close(got, motif_combine_plain(*inputs), rtol=1e-5, atol=1e-5)
+    adj = torch.from_numpy(rng.standard_normal((3, 45, 70)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((3, 70, 33)).astype(np.float32)).cuda()
+    torch.testing.assert_close(blocked_adj_matmul(adj, x, leak=0.2),
+                               adj_matmul_plain(adj, x, leak=0.2), rtol=1e-5, atol=1e-5)
+    # the autograd wrapper launches the kernel and passes gradients back
+    n0 = blocked_adj_matmul.launches
+    xg = x.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(adj_matmul(adj, xg, leak=0.2).sum(), [xg])
+    xp = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(adj_matmul_plain(adj, xp, leak=0.2).sum(), [xp])
+    assert blocked_adj_matmul.launches == n0 + 1
+    torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_kernel_matches_plain_version():
+    """On the card: ``motif_level3`` against its plain version at ragged N
+    and h with R = 2 and a weighted A (one tile of j and k), f32 at
+    rtol/atol 1e-5; and at N = 70, h = 75 (several j-tiles, k-chunks and h
+    chunks) against the plain version in float64, within (2N + 2R +
+    10)·2^-24 times the sum of the terms' magnitudes (the f32 rounding of
+    the k-sum, the R-sums and the j-sum; lrelu is 1-Lipschitz)."""
+    _card()
+    rng = np.random.default_rng(0)
+    for B, N, h, R, weighted in ((3, 29, 37, 2, True), (2, 70, 75, 1, False)):
+        ts = [t.float().cuda() for t in _t(_level3_inputs(rng, B, N, h, R, weighted))]
+        n0 = fused_motif_level3.launches
+        got = fused_motif_level3(*ts)
+        torch.cuda.synchronize()
+        assert fused_motif_level3.launches == n0 + 1
+        if N < 32:
+            torch.testing.assert_close(got, motif_level3_plain(*ts), rtol=1e-5, atol=1e-5)
+        x64 = [t.double() for t in ts]
+        err = (got.double() - motif_level3_plain(*x64)).abs()
+        mag = motif_level3_plain(*[t.abs() for t in x64])
+        assert bool((err <= (2 * N + 2 * R + 10) * 2.0 ** -24 * mag).all())
+
+
+def test_cuda_fused_matches_plain():
+    """On a card: K3 with GraphConv's W fused, small and tiled, against the
+    plain version (f32 at rtol/atol 1e-5)."""
+    _card()
+    rng = np.random.default_rng(0)
+    for B, N, F, H in ((10, 25, 11, 20), (2, 300, 11, 20)):
+        adj = (rng.random((B, N, N)) < 0.3).astype(np.float32)
+        x = rng.standard_normal((B, N, F)).astype(np.float32)
+        w = (0.5 * rng.standard_normal((F, H))).astype(np.float32)
+        adj, x, w = (torch.from_numpy(t).cuda() for t in (adj, x, w))
+        torch.testing.assert_close(am.blocked_adj_matmul(adj, x, 0.2, w),
+                                   am.adj_matmul_plain(adj, x, 0.2, w), rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_large_graph_kernel_path_matches_library(tmp_path):
+    """On a card, in an NCCL group of one process: the node-sharded encoder
+    (hidden 128, 128) at N = 2048 with K3 (2 launches) against the library
+    path, f32 at rtol 1e-4 / atol 1e-6 on the pooled vector."""
+    _card()
+    initialize_distributed(f"file://{tmp_path}/rendezvous", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        n = 2048
+        adj = (torch.rand(n, n, generator=g, device="cuda") < 0.01).float().triu(1)
+        adj = lg.sharded_gcn_normalize(adj + adj.T, mesh)
+        x = torch.randn(n, 128, generator=g, device="cuda")
+        pooled = {}
+        for use_kernel in (False, True):
+            enc = lg.ShardedGCNEncoder(mesh, (128, 128), 128, torch.Generator().manual_seed(1),
+                                       use_kernel=use_kernel).cuda()
+            n0 = blocked_adj_matmul.launches
+            with torch.no_grad():
+                pooled[use_kernel] = enc(adj, x)
+            torch.cuda.synchronize()
+            assert blocked_adj_matmul.launches == n0 + (2 if use_kernel else 0)
+        torch.testing.assert_close(pooled[True], pooled[False], rtol=1e-4, atol=1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -5,7 +5,7 @@ output's magnitude), against the Pallas kernel in interpret mode without
 ``w``, and its gradients against ``jax.vjp``; plus the launch plan
 ``adj_matmul_plan`` over a sweep of shapes, which the wrapper launches as it
 says.  On the CPU the wrapper returns the plain version; the kernels run
-only on a card."""
+only on a card, in ``tests/test_torch_cuda.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -248,16 +248,3 @@ def test_plan_rejects_what_no_grid_holds():
         am.adj_matmul_plan(70_000, 100, 100, 8, None, torch.float32)
     with pytest.raises(TypeError):
         am.adj_matmul_plan(1, 100, 100, 8, None, torch.float64)
-
-
-@pytest.mark.cuda
-def test_cuda_fused_matches_plain(rng):
-    """On a card: the fused small and tiled kernels against the plain
-    version (f32 at rtol/atol 1e-5)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for B, N, F, H in ((10, 25, 11, 20), (2, 300, 11, 20)):
-        adj, x, w = (torch.from_numpy(t).cuda() for t in _inputs(rng, B, N, F, H, np.float32))
-        torch.testing.assert_close(am.blocked_adj_matmul(adj, x, 0.2, w),
-                                   am.adj_matmul_plain(adj, x, 0.2, w), rtol=1e-5, atol=1e-5)

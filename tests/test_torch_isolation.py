@@ -1,6 +1,10 @@
-"""The port stands alone: no module of ``snd_vae_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, optax, sklearn or the JAX package, and its
-entry points refuse to run on a missing card instead of falling back."""
+"""The port stands alone: no module of ``snd_vae_tpu_torch`` (the
+``parallel`` subpackage and ``data/transforms.py`` included), nor
+``chip_smoke.py``, nor the test helpers that run where JAX is absent
+(``tests/torch_dist_workers.py``, the ranks of the multi-process tests, and
+``tests/test_torch_cuda.py``, the card's tests) imports JAX, flax, optax,
+sklearn or the JAX package, and its entry points refuse to run on a missing
+card instead of falling back."""
 
 import ast
 import os
@@ -17,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "snd_vae_tpu", "sklearn")
 
 def _port_files():
     files = sorted((ROOT / "snd_vae_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py",
+                    ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _imported_roots(path):
@@ -32,6 +37,9 @@ def _imported_roots(path):
 def test_port_files_import_no_jax():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"snd_vae_tpu_torch/parallel/large_graph.py", "snd_vae_tpu_torch/parallel/batch.py",
+            "snd_vae_tpu_torch/data/transforms.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN]
     assert not bad, bad
@@ -43,10 +51,12 @@ def test_import_leaves_jax_out_of_sys_modules():
             "snd_vae_tpu_torch.train, snd_vae_tpu_torch.losses, snd_vae_tpu_torch.checkpoint, "
             "snd_vae_tpu_torch.models.joint, snd_vae_tpu_torch.nn.geometric, "
             "snd_vae_tpu_torch.nn.decoders, snd_vae_tpu_torch.evaluate, "
-            "snd_vae_tpu_torch.models.traversal, snd_vae_tpu_torch.nn.ckpt, sys; "
+            "snd_vae_tpu_torch.models.traversal, snd_vae_tpu_torch.nn.ckpt, "
+            "snd_vae_tpu_torch.parallel, snd_vae_tpu_torch.parallel.large_graph, "
+            "snd_vae_tpu_torch.data.transforms, torch_dist_workers, test_torch_cuda, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'snd_vae_tpu', 'sklearn')]; assert not bad, bad")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)
 

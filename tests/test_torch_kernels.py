@@ -1,7 +1,8 @@
 """The port's kernels (K1 motif combine, K2 its autograd wrapper, K3 A@X+lrelu)
 held against the JAX package's Pallas kernels, run in interpret mode on the
 CPU, and their reference oracles.  On the CPU each wrapper returns its plain
-PyTorch version; the CUDA launch path runs only where there is a card."""
+PyTorch version; the CUDA launch path runs only where there is a card, in
+``tests/test_torch_cuda.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -17,13 +18,11 @@ from snd_vae_tpu.nn.pallas import (
 )
 from snd_vae_tpu_torch.nn.kernels.adj_matmul import (
     adj_matmul,
-    adj_matmul_plain,
     blocked_adj_matmul,
 )
 from snd_vae_tpu_torch.nn.kernels.motif_combine import (
     fused_motif_combine,
     motif_combine,
-    motif_combine_plain,
 )
 
 
@@ -200,30 +199,3 @@ def test_wrappers_reject_bad_inputs(rng, case):
     else:
         with pytest.raises(ValueError):
             adj_matmul(a, torch.ones(2, 5, 3))
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    """On the card: each kernel against its plain version (f32 at 1e-5)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc (the kernels compile only there)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(0)
-    inputs = [t.cuda() for t in _t(_motif_inputs(rng, 4, 29, 37))]
-    n0 = fused_motif_combine.launches
-    got = fused_motif_combine(*inputs)
-    torch.cuda.synchronize()
-    assert fused_motif_combine.launches == n0 + 1
-    torch.testing.assert_close(got, motif_combine_plain(*inputs), rtol=1e-5, atol=1e-5)
-    adj = torch.from_numpy(rng.standard_normal((3, 45, 70)).astype(np.float32)).cuda()
-    x = torch.from_numpy(rng.standard_normal((3, 70, 33)).astype(np.float32)).cuda()
-    torch.testing.assert_close(blocked_adj_matmul(adj, x, leak=0.2),
-                               adj_matmul_plain(adj, x, leak=0.2), rtol=1e-5, atol=1e-5)
-    # the autograd wrapper launches the kernel and passes gradients back
-    n0 = blocked_adj_matmul.launches
-    xg = x.clone().requires_grad_(True)
-    (gx,) = torch.autograd.grad(adj_matmul(adj, xg, leak=0.2).sum(), [xg])
-    xp = x.clone().requires_grad_(True)
-    (want,) = torch.autograd.grad(adj_matmul_plain(adj, xp, leak=0.2).sum(), [xp])
-    assert blocked_adj_matmul.launches == n0 + 1
-    torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)

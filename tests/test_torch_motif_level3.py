@@ -2,7 +2,8 @@
 one launch) against the JAX package: its default rank-R path and dense
 oracle in float64, the Pallas motif-combine kernel (interpret mode) in f32,
 and ``jax.vjp`` for the gradients.  On the CPU the wrapper returns its plain
-PyTorch version; the CUDA kernel runs only where there is a card."""
+PyTorch version; the CUDA kernel runs only where there is a card, in
+``tests/test_torch_cuda.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,6 @@ from snd_vae_tpu_torch.nn.kernels.motif_combine import motif_combine_plain
 from snd_vae_tpu_torch.nn.kernels.motif_level3 import (
     fused_motif_level3,
     motif_level3,
-    motif_level3_plain,
 )
 
 
@@ -192,29 +192,3 @@ def test_wrapper_rejects_bad_inputs(rng, case):
         err = ValueError
     with pytest.raises(err):
         fused_motif_level3(*ts)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
-    """On the card: the kernel against its plain version at ragged N and h
-    with R = 2 and a weighted A (one tile of j and k), f32 at rtol/atol 1e-5;
-    and at N = 70, h = 75 (several j-tiles, k-chunks and h chunks) against
-    the plain version in float64, within (2N + 2R + 10)·2^-24 times the sum
-    of the terms' magnitudes (the f32 rounding of the k-sum, the R-sums and
-    the j-sum; lrelu is 1-Lipschitz)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc (the kernel compiles only there)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(0)
-    for B, N, h, R, weighted in ((3, 29, 37, 2, True), (2, 70, 75, 1, False)):
-        ts = [t.float().cuda() for t in _t(_level3_inputs(rng, B, N, h, R, weighted))]
-        n0 = fused_motif_level3.launches
-        got = fused_motif_level3(*ts)
-        torch.cuda.synchronize()
-        assert fused_motif_level3.launches == n0 + 1
-        if N < 32:
-            torch.testing.assert_close(got, motif_level3_plain(*ts), rtol=1e-5, atol=1e-5)
-        x64 = [t.double() for t in ts]
-        err = (got.double() - motif_level3_plain(*x64)).abs()
-        mag = motif_level3_plain(*[t.abs() for t in x64])
-        assert bool((err <= (2 * N + 2 * R + 10) * 2.0 ** -24 * mag).all())

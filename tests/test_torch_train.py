@@ -360,8 +360,10 @@ def test_reshuffle_permutes_and_is_off_in_parity_mode(tmp_path):
         assert torch.equal(flat(getattr(out, name)), flat(getattr(tr.batched, name))[perm])
 
 
-@pytest.mark.parametrize("over", [dict(mesh=dict(data=2))])
+@pytest.mark.parametrize("over", [dict(mesh=dict(model=2))])
 def test_unported_trainer_options_raise(tmp_path, over):
+    """The mesh's model axis (tensor parallelism) is not ported; the data
+    axis is (tests/test_torch_dp_train.py)."""
     _, tc = configs("small")
     tc = tc.with_(mesh=tcfg.MeshConfig(**over["mesh"]))
     data = load_dataset(tc, "train", num_graphs=10, device="cpu")

@@ -1,0 +1,267 @@
+"""Worker processes of the port's multi-process tests, and the helper that
+starts them.  Imports no JAX: the ranks run the port alone, and the tests
+compare what they write with the JAX package in their own process.
+
+``run_many([(job, world, directory, inputs), ...])`` starts the runs at
+once.  Each saves ``inputs`` to ``<directory>/inputs.pt`` and starts
+``world`` processes of
+
+    python tests/torch_dist_workers.py <job> <rank> <world> <directory>
+
+Each joins a gloo process group through ``file://<directory>/rendezvous``
+(no TCP port, so runs side by side never collide), runs torch on one
+thread, calls ``JOBS[job](rank, world, inputs, directory)`` and saves what
+it returns to ``<directory>/out_<rank>.pt``; ``run_many`` returns those of
+each run, in rank order, and raises with a rank's output when one fails.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from snd_vae_tpu_torch import train as ttrain  # noqa: E402
+from snd_vae_tpu_torch.data.graphbatch import from_numpy  # noqa: E402
+from snd_vae_tpu_torch.data.loaders import load_dataset  # noqa: E402
+from snd_vae_tpu_torch.losses import hierarchical_total_correlation  # noqa: E402
+from snd_vae_tpu_torch.models import Latents, build_model  # noqa: E402
+from snd_vae_tpu_torch.parallel import (  # noqa: E402
+    constrain, initialize_distributed, is_primary, make_mesh, param_shardings,
+    shard_graphbatch, shard_nodes, shard_params, use_mesh,
+)
+from snd_vae_tpu_torch.parallel import large_graph as lg  # noqa: E402
+from snd_vae_tpu_torch.parallel.batch import (  # noqa: E402
+    global_mean, global_rows, global_sum, local_rows,
+)
+from snd_vae_tpu_torch.params import sharded_gcn_state_dict  # noqa: E402
+
+F64 = torch.float64
+
+
+def run_many(jobs, timeout: float = 300) -> list:
+    """Several ``(job, world, directory, inputs)`` runs at once; the outputs
+    of each, in order."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    started = []
+    for job, world, directory, inputs in jobs:
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        torch.save(inputs, directory / "inputs.pt")
+        started.append((job, world, directory, [
+            subprocess.Popen([sys.executable, __file__, job, str(r), str(world), str(directory)],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for r in range(world)]))
+    procs = [p for *_, ps in started for p in ps]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = iter(logs)
+    outs = []
+    for job, world, directory, ps in started:
+        for r, p in enumerate(ps):
+            log = next(logs)
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of {job} exited {p.returncode}:\n{log[-4000:]}")
+        outs.append([torch.load(directory / f"out_{r}.pt", weights_only=False)
+                     for r in range(world)])
+    return outs
+
+
+# --------------------------------------------------------------------------
+# The data-parallel step, shared with the single-process reference
+# --------------------------------------------------------------------------
+
+def make_state(cfg, state_dict=None, mesh=None) -> ttrain.TrainState:
+    """The float64 train state of ``cfg`` on the CPU: the seed's weights
+    (or ``state_dict``), the optimizer of ``cfg``, the ε generator seeded
+    with 0."""
+    model = build_model(cfg, device="cpu").to(F64)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return ttrain.TrainState(cfg=cfg, model=model,
+                             optimizer=ttrain.make_optimizer(cfg, model.parameters()),
+                             generator=torch.Generator().manual_seed(0), mesh=mesh)
+
+
+def one_step(cfg, arrays, state_dict=None, eps=None, mesh=None) -> dict:
+    """One ``train_step`` in float64 on the global batch ``arrays`` (numpy),
+    or under ``mesh`` on this rank's block of it (and of ``eps``, a dict
+    of global noise arrays s / sg / g); returns the aux values, every
+    gradient and every updated parameter."""
+    state = make_state(cfg, state_dict, mesh)
+    batch = from_numpy(**arrays, dtype=F64)
+    if mesh is not None:
+        batch = shard_graphbatch(batch, mesh)
+    if eps is not None:
+        rows = lambda a: a if mesh is None else np.array_split(
+            a, mesh.shape[0])[mesh.get_local_rank("data")]
+        t = lambda k: torch.from_numpy(rows(eps[k])).to(F64)
+        eps = Latents(z_s=t("s"), z_sg=t("sg"), z_g=t("g"))
+    aux = ttrain.train_step(state, batch, torch.tensor(0.0, dtype=F64), eps=eps)
+    named = dict(state.model.named_parameters())
+    return {"aux": {k: v.item() for k, v in aux.items()},
+            "grads": {n: p.grad.clone() for n, p in named.items()},
+            "params": {n: p.detach().clone() for n, p in named.items()}}
+
+
+# --------------------------------------------------------------------------
+# Jobs
+# --------------------------------------------------------------------------
+
+def _spec(placements, ndim):
+    """Placements as JAX's PartitionSpec entries: "model" at the sharded
+    axis, None elsewhere."""
+    model = placements[1]
+    return tuple("model" if model.is_shard() and model.dim == ax else None
+                 for ax in range(ndim))
+
+
+def job_parallel(rank, world, inputs, directory):
+    """The mesh, the shardings, the hints and the batch reductions at
+    world 4."""
+    out = {"rank_again": initialize_distributed(), "primary": is_primary()}
+    meshes = {"4x1": make_mesh(4, 1, "cpu"), "2x2": make_mesh(2, 2, "cpu"),
+              "1x4": make_mesh(1, 4, "cpu")}
+    out["shapes"] = {k: tuple(m.shape) for k, m in meshes.items()}
+    try:
+        make_mesh(8, 1, "cpu")
+    except ValueError as e:
+        out["too_big"] = str(e)
+    out["shardings"] = {}
+    for (tree, mesh_name, min_size) in inputs["sharding_cases"]:
+        params = {n: torch.empty(s, device="meta") for n, s in inputs["trees"][tree].items()}
+        got = param_shardings(params, meshes[mesh_name], min_size)
+        out["shardings"][(tree, mesh_name, min_size)] = {
+            n: _spec(p, len(inputs["trees"][tree][n])) for n, p in got.items()}
+    batch = from_numpy(**inputs["batch"], dtype=F64)
+    out["blocks"] = {k: shard_graphbatch(batch, meshes[k]).adj for k in ("4x1", "2x2", "1x4")}
+    try:
+        shard_graphbatch(batch.slice_batch(0, 6), meshes["4x1"])
+    except ValueError as e:
+        out["uneven"] = str(e)
+    x = torch.ones(2, 3)
+    out["identity"] = [constrain(x, "data") is x, shard_nodes(x) is x]
+    with use_mesh(meshes["4x1"]):
+        out["identity"] += [constrain(x, "data") is x, shard_nodes(x) is x]
+        g = torch.Generator().manual_seed(3)
+        out["local_draw"] = local_rows(lambda s: torch.randn(s, generator=g, dtype=F64), (2, 3))
+        local = torch.arange(6, dtype=F64).reshape(2, 3) + 10.0 * rank
+        out["global_sum"] = global_sum(local.sum())
+        out["global_mean"] = global_mean(local.mean(0), local.mean())
+        out["global_rows"] = global_rows(local)
+    raised = []
+    with use_mesh(meshes["2x2"]):
+        for hint in (lambda: constrain(x, None), lambda: shard_nodes(x)):
+            try:
+                hint()
+            except NotImplementedError as e:
+                raised.append(str(e))
+    out["hints_raise"] = raised
+    params = {"a": torch.full((3,), float(rank)), "b": torch.full((2, 2), float(rank), dtype=F64)}
+    shard_params(params, meshes["4x1"])
+    out["broadcast"] = params
+    try:
+        shard_params(params, meshes["2x2"])
+    except NotImplementedError as e:
+        out["shard_params_raise"] = str(e)
+    return out
+
+
+def job_large_graph(rank, world, inputs, directory):
+    """Each case's node-sharded ops on this rank's rows, float64: the
+    normalized adjacency, the degrees, one layer and the encoder's pooled
+    vector, by the library and by K3's plain version; at world 1 the
+    gradient of the pooled sum for the kernels."""
+    mesh = make_mesh(1, world, "cpu")
+    out = []
+    for case in inputs:
+        adj_blk, x_blk = lg.shard_graph(case["adj"], case["x"], mesh, dtype=F64)
+        norm = lg.sharded_gcn_normalize(adj_blk, mesh)
+        w0 = torch.from_numpy(case["kernels"][0])
+        res = {"adj_blk": adj_blk, "norm": norm, "degree": lg.sharded_degree(adj_blk),
+               "conv": lg.sharded_graph_conv(norm, x_blk, w0, mesh),
+               "conv_kernel": lg.sharded_graph_conv(norm, x_blk, w0, mesh, use_kernel=True)}
+        for use_kernel in (False, True):
+            enc = lg.ShardedGCNEncoder(mesh, [k.shape[1] for k in case["kernels"]],
+                                       case["x"].shape[1], torch.Generator().manual_seed(0),
+                                       use_kernel=use_kernel).to(F64)
+            enc.load_state_dict(sharded_gcn_state_dict(case["kernels"]))
+            pooled = enc(norm, x_blk)
+            res["pooled_kernel" if use_kernel else "pooled"] = pooled.detach()
+            if world == 1 and not use_kernel:
+                res["grads"] = torch.autograd.grad(pooled.sum(), list(enc.kernels))
+        out.append(res)
+    return out
+
+
+def job_dp_step(rank, world, inputs, directory):
+    """Each case's data-parallel step at this world; at world 2 also the
+    Trainer's 2 epochs and a resume, and the hierarchical total
+    correlation."""
+    mesh = make_mesh(world, 1, "cpu")
+    out = {name: one_step(c["cfg"], c["arrays"], c.get("state_dict"), c.get("eps"), mesh)
+           for name, c in inputs["cases"].items()}
+    if "htc" in inputs:
+        full = [torch.from_numpy(a) for a in inputs["htc"]]
+        local = [a.chunk(world)[rank].clone().requires_grad_(True) for a in full]
+        with use_mesh(mesh):
+            value = hierarchical_total_correlation(*local)
+            grads = torch.autograd.grad(value, local)
+        out["htc"] = {"value": value.item(), "grads": grads}
+    if "trainer" in inputs:
+        out["trainer"] = _trainer_runs(inputs["trainer"], mesh, Path(directory))
+    return out
+
+
+def _trainer_runs(cfg, mesh, directory) -> dict:
+    """2 epochs straight in workdir a; 1 epoch, then a new Trainer resumed
+    to 2, in workdir b."""
+    data = load_dataset(cfg, "train", num_graphs=2 * cfg.train.batch_size, device="cpu")
+    trainer = lambda wd: ttrain.Trainer(cfg, data, device="cpu", workdir=str(directory / wd),
+                                        mesh=mesh)
+    straight = trainer("a")
+    means = straight.run(2, verbose=False)
+    trainer("b").run(1, verbose=False)
+    resumed = trainer("b")
+    resumed.run(2, verbose=False)
+    state = lambda t: {"params": {n: p.detach().clone()
+                                  for n, p in t.state.model.named_parameters()},
+                       "optimizer": t.state.optimizer.state_dict(),
+                       "generator": t.state.generator.get_state(), "step": t.state.step}
+    return {"means": means, "straight": state(straight), "resumed": state(resumed),
+            "writes_logs": straight.logger is not None,
+            "checkpoints": sorted(os.listdir(straight.checkpointer.directory))}
+
+
+JOBS = {"parallel": job_parallel, "large_graph": job_large_graph, "dp_step": job_dp_step}
+
+
+def main(argv) -> None:
+    job, rank, world, directory = argv[1], int(argv[2]), int(argv[3]), Path(argv[4])
+    torch.set_num_threads(1)
+    initialize_distributed(f"file://{directory}/rendezvous", world, rank, device="cpu")
+    try:
+        inputs = torch.load(directory / "inputs.pt", weights_only=False)
+        out = JOBS[job](rank, world, inputs, directory)
+        torch.save(out, directory / f"out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv)
