@@ -38,11 +38,11 @@ from snd_vae_tpu_torch.nn.kernels._launch import stream_handle  # noqa: E402
 PHASES = (
     ("SKIP_RF", "      for (int rr = 0; rr < r; ++rr) {\n        float s0",
      "(s2 + s3);\n      }"),
-    ("SKIP_STAGE", "    stage_chunk<kTk>(as, ps, ab, pb, n, r, i0, j0, 0, vec);", "vec);"),
+    ("SKIP_STAGE", "    stage_chunk<kTk>(as, ps, ab, pb, n, rows, r, i0, j0, 0, vec);", "vec);"),
     ("SKIP_STAGE", "        stage_chunk<kTk>(as + nb", "(c + 1) * kTk, vec);"),
     ("SKIP_EPI_STAGE", "    for (int e = tid; e < kTi * kTj * r; e += kThreads) {",
      "stage(vs + e, v_j + (ok ? (b * n + j) * h + hh : 0), ok);\n    }"),
-    ("SKIP_EPI", "    if (i < n) {\n      const unsigned all",
+    ("SKIP_EPI", "    if (i < rows) {\n      const unsigned all",
      "if (two) acc[q] = fmaf(a2, l2, acc[q]);\n        }\n      }\n    }"),
 )
 VARIANTS = {"full": [], "no_rf_sums": ["SKIP_RF"], "no_chunk_copies": ["SKIP_STAGE"],
@@ -90,7 +90,7 @@ def build_variants() -> dict:
 def launch(fn, x):
     nt = torch.empty_like(x[2])
     B, N, _, R = x[1].shape
-    code = fn(*(t.data_ptr() for t in x), nt.data_ptr(), B, N, R, x[2].shape[-1], 0,
+    code = fn(*(t.data_ptr() for t in x), nt.data_ptr(), B, N, 0, N, R, x[2].shape[-1], 0,
               stream_handle(x[0].device))
     if code != 0:
         raise RuntimeError(f"launch failed with cudaError {code}")

@@ -100,6 +100,16 @@ Phases, one output line each:
                width, 2 epochs f32: 2 + 2 launches per step, per-epoch
                losses equal to a mesh-less Trainer's at rtol 1e-6, the
                steps/s of both in turns;
+ 18b. tp     — the mesh's model axis: K1's row windows at m = 2 and 4
+               ([100,25,25,50] f32 and bf16, [4,256,256,50] f32; every
+               rank's window against ``_level3_rows`` on its rows, the
+               windows put together against the full launch, device ms per
+               window, each a ``kernel`` line); one rank's rows of the
+               third-order conv's layer 2 at N = 256 for m = 1, 2, 4 (peak
+               memory, device ms); the Trainer at synthetic2 full width on
+               that mesh through the model-axis code, 2 + 2 launches per
+               step, per-epoch losses equal to a mesh-less Trainer's at rtol
+               1e-6 beside two mesh-less runs' spread;
  19. cli_dp  — ``torchrun --standalone --nproc_per_node 1 -m
                snd_vae_tpu_torch.cli --type train --dp 1 --distributed
                --epochs 1`` in a subprocess: it joins, trains to a finite
@@ -302,15 +312,18 @@ def replaced_chain(mc, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias):
     return torch.einsum("bij,bijh->bih", adj, torch.maximum(m3, 0.2 * m3))
 
 
-def level3_bound(x, dtype):
+def level3_bound(x, dtype, row0: int = 0):
     """Bytes: every input once, nt once.  Operations: what these inputs
     need, i.e. rf only at pairs with A[i,j] != 0 and over k with
-    A[j,k] != 0, and the epilogue's 4R+7 FLOP per (i,j,h) with A[i,j] != 0."""
+    A[j,k] != 0, and the epilogue's 4R+7 FLOP per (i,j,h) with A[i,j] != 0.
+    A row window (φ(rel) and a_i holding rows [row0, row0 + n)) counts the
+    pairs of its rows i."""
     adj, phi_r, a_i = x[0], x[1], x[2]
-    R, h = phi_r.shape[-1], a_i.shape[-1]
+    R, h, n = phi_r.shape[-1], a_i.shape[-1], phi_r.shape[1]
     nz = (adj != 0).double()
-    rf_ops = 2 * R * (nz.sum(1) * nz.sum(2)).sum().item()
-    epi_ops = nz.sum().item() * h * (4 * R + 7)
+    rows = nz[:, row0:row0 + n]
+    rf_ops = 2 * R * (rows.sum(1) * nz.sum(2)).sum().item()
+    epi_ops = rows.sum().item() * h * (4 * R + 7)
     nbytes = sum(t.numel() for t in x) * x[0].element_size() + a_i.numel() * a_i.element_size()
     return bound(nbytes, rf_ops + epi_ops, dtype)
 
@@ -1740,6 +1753,164 @@ def run_dp(ml, mc, am, mesh):
     return out
 
 
+def tp_windows(ml, gen) -> dict:
+    """K1's row windows, the launches the mesh's model axis makes: for m =
+    2 and 4 every rank's window (``node_block``'s ceil rows, the last
+    short) of [100,25,25,50] f32 and bf16 and [4,256,256,50] f32, each
+    held against ``_level3_rows`` on its rows (f32 within the summation
+    bound of float64, bf16 within 2e-2 of the largest magnitude) and timed;
+    the windows put together against the full launch (expected bit-equal:
+    each row's sums run the same way whatever the window)."""
+    from snd_vae_tpu_torch.parallel.mesh import node_block
+
+    rows, joined = [], []
+    for B, N, h, dt in ((100, 25, 50, torch.float32), (100, 25, 50, torch.bfloat16),
+                        (4, 256, 50, torch.float32)):
+        x = level3_inputs(B, N, h, 1, dt, gen, 0.4)
+        full = ml.fused_motif_level3(*x)
+        for m in (2, 4):
+            parts = []
+            for r in range(m):
+                r0, n = node_block(N, m, r)
+                win = [x[0], x[1][:, r0:r0 + n].contiguous(), x[2][:, r0:r0 + n].contiguous(),
+                       *x[3:]]
+                got = ml.fused_motif_level3(*win, r0)
+                plain = lambda *w, r0=r0, n=n: ml._level3_rows(w[0], w[0][:, r0:r0 + n], *w[1:])
+                extra = {}
+                if dt == torch.float32:
+                    err, extra["plain_f32_err_vs_f64"] = compare_f64_bound(got, win, 2 * N + 4,
+                                                                           plain)
+                else:
+                    err = compare(got, plain(*win), dt)
+                b_ms, b_by = level3_bound(win, dt, r0)
+                rows.append(dict(
+                    kernel="motif_level3", path=f"tp_window_m{m}_N{N}", shape=[B, N, h],
+                    window=[r0, n], rank=r, dtype=str(dt)[6:], served=False,
+                    batch_shape=False, max_abs_err=err,
+                    ms=device_ms(lambda w=win, r0=r0: ml.fused_motif_level3(*w, r0)),
+                    plain_ms=device_ms(lambda w=win, p=plain: p(*w)),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
+                parts.append(got)
+            cat = torch.cat(parts, dim=1)
+            joined.append({"shape": [B, N, h], "dtype": str(dt)[6:], "m": m,
+                           "bit_equal_to_full": bool(torch.equal(cat, full)),
+                           "max_abs_diff_to_full": (cat.float() - full.float()).abs().max().item(),
+                           "full_ms": device_ms(lambda x=x: ml.fused_motif_level3(*x))})
+    return {"rows": rows, "joined": joined}
+
+
+def tp_rank_rows(ml, mc, am, gen) -> dict:
+    """What one model rank holds: the third-order conv's second layer at
+    synthetic2 widths (20 features in, hidden 50, 50, 50, R = 1) over 10
+    trees of N = 256 (density 0.02), forward and backward for rank 0's rows
+    at m = 1, 2, 4 (``spatial_graph_conv(..., rows=(0, ceil(N/m)))``, the
+    rank-local computation the collectives wrap): one K1 launch each, the
+    peak of allocated memory above the inputs, the ms by events and the
+    device-busy ms (the call is ~100 kernels, so the events also time the
+    card's waits on the host); the rows of m = 2 and 4 equal the same rows
+    of m = 1's output (rtol 1e-5)."""
+    from snd_vae_tpu_torch.nn import SpatialGraphConv
+    from snd_vae_tpu_torch.nn.spatial_conv import spatial_graph_conv
+
+    N, T = 256, 10
+    conv = SpatialGraphConv(20, 1, (50, 50, 50), torch.Generator().manual_seed(0)).cuda()
+    params = dict(conv.named_parameters())
+    adj = (torch.rand(T, N, N, generator=gen, device="cuda") < 0.02).float().triu(1)
+    adj = adj + adj.transpose(1, 2)
+    x = torch.randn(T, N, 20, generator=gen, device="cuda")
+    rel = torch.rand(T, N, N, 1, generator=gen, device="cuda")
+    out, full = {}, None
+    for m in (1, 2, 4):
+        n = -(-N // m)
+        g = torch.randn(T, n, 50, generator=gen, device="cuda")
+
+        def step(n=n, g=g):
+            xx = x.clone().requires_grad_(True)
+            y = spatial_graph_conv(adj, xx, rel, params, rows=(0, n))
+            torch.autograd.backward(y, g)
+            return y.detach()
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(ml, mc, am)
+        y = step()
+        launches = read_counts(ml, mc, am)
+        check(launches == per(1, ml3=1), f"tp rank rows m={m}: launches {launches}")
+        peak = torch.cuda.max_memory_allocated() - base
+        for p in params.values():
+            p.grad = None
+        if full is None:
+            full = y
+        else:
+            torch.testing.assert_close(y, full[:, :n], rtol=1e-5, atol=1e-5)
+        out[f"m{m}"] = {"rows": [0, n], "launches": launches, "peak_above_inputs_bytes": peak,
+                        "forward_backward_ms": device_ms(step, reps=10),
+                        "forward_backward_busy": busy_ms(step)}
+    return out
+
+
+def run_tp(ml, mc, am, mesh):
+    """The mesh's model axis on one card: K1's row windows (``tp_windows``),
+    what one rank holds (``tp_rank_rows``), and the Trainer at synthetic2
+    full width, f32, on ``make_mesh(1, 1)`` through the model-axis code at
+    a model axis of 1 (the hint sites, which report through
+    ``hints._INSPECT`` and return their input, as XLA elides a trivial
+    constraint; the canonical parameter order; the whole checkpoint): 2 epochs
+    counted (2 motif_level3 and 2 adj_matmul per step), per-epoch losses
+    equal to a mesh-less Trainer's at rtol 1e-6, as the dp phase holds
+    them, beside the spread of two mesh-less runs (the card's f32 runs are
+    not bit-reproducible: ~1e-8), a checkpoint written and its tensors
+    whole."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.parallel import hints
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {"windows": tp_windows(ml, gen), "rank_rows": tp_rank_rows(ml, mc, am, gen)}
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "train", device="cuda")
+    nb = data.batch_size // B
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        means = {}
+        for name, m in (("tp", mesh), ("no_mesh", None), ("no_mesh_again", None)):
+            tr = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/{name}", mesh=m)
+            sites = {}
+            hints._INSPECT = lambda tag, a, b, n: sites.__setitem__(tag, sites.get(tag, 0) + 1)
+            zero_counts(ml, mc, am)
+            try:
+                tr.run(TRAIN_EPOCHS, verbose=False)
+            finally:
+                hints._INSPECT = None
+            launches = read_counts(ml, mc, am)
+            steps = TRAIN_EPOCHS * nb
+            check(launches == per(steps, ml3=2, k3=2),
+                  f"tp {name}: launches {launches} over {steps} steps")
+            with open(tr.logger.jsonl_path) as f:
+                means[name] = [json.loads(line)["loss"] for line in f]
+            out[name] = {"launches": launches, "epoch_mean_loss": means[name],
+                         "launches_per_step": {k: v / steps for k, v in launches.items()},
+                         "hint_reports_per_step": {k: v / steps for k, v in sites.items()}}
+            if name == "tp":
+                check(any(t.startswith("sgc.") for t in sites)
+                      and any(t.startswith("dec.") for t in sites), f"tp hint sites {sites}")
+                saved = tr.checkpointer.load()["model"]
+                check(all(saved[k].shape == p.shape for k, p in
+                          tr.state.model.named_parameters()), "tp checkpoint whole")
+        rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(means[a], means[b]))
+        for got, want in zip(means["tp"], means["no_mesh"]):
+            check(math.isfinite(got) and abs(got - want) <= 1e-6 * abs(want),
+                  f"tp epoch losses {means['tp']} vs the mesh-less {means['no_mesh']}")
+        out["rel_diff_tp_vs_no_mesh"] = rel("tp", "no_mesh")
+        out["rel_diff_no_mesh_vs_again"] = rel("no_mesh_again", "no_mesh")
+        del out["no_mesh_again"]
+    return out
+
+
 def host_us(fn, n: int = 200) -> float:
     """Host µs per call of ``fn`` over ``n`` calls, the card synchronized
     before the first and after the last."""
@@ -1926,6 +2097,12 @@ def main() -> int:
             emit("large_graph", large_graph)
             dp = run_dp(ml, mc, am, mesh)
             emit("dp", dp)
+            tp = run_tp(ml, mc, am, mesh)
+            rows += tp["windows"]["rows"]
+            emit("tp", {k: v for k, v in tp.items() if k != "windows"}
+                 | {"windows_joined": tp["windows"]["joined"]})
+            for r in tp["windows"]["rows"]:
+                emit("kernel", r)
         finally:
             dist.destroy_process_group()
     emit("cli_dp", run_cli_dp())
@@ -1955,7 +2132,8 @@ def main() -> int:
                "remat_protein_train": remat["protein"]["remat"]["launches"],
                "large_graph": {"motif_level3": 0, "motif_combine": 0,
                                "adj_matmul": large_graph["launches"]},
-               "dp_train": dp["mesh"]["launches"]}
+               "dp_train": dp["mesh"]["launches"],
+               "tp_train": tp["tp"]["launches"]}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})

@@ -5,7 +5,11 @@ does not read those).
 One ``torch.save`` file per saved epoch, ``ckpt_<epoch>.pt`` under the
 directory, holding the model's f32 state_dict, the optimizer's state_dict,
 the step count and the state of the trainer's generator (the ε stream), so
-that a restored run continues bit for bit.  A save goes to a temporary file
+that a restored run continues bit for bit.  The tensors are whole and in
+the unsharded layout whatever the mesh (``checkpoint_payload``; under the
+mesh's model axis every rank gathers its slices, ``parallel.tensor_
+parallel``), so a run saved on one mesh resumes on another, or in one
+process.  A save goes to a temporary file
 first and is moved into place with ``os.replace``: a crash mid-save leaves
 the previous checkpoints as they were.  With ``max_to_keep`` a save then
 deletes the oldest other files beyond that many, as Orbax's option of that
@@ -20,6 +24,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .parallel.tensor_parallel import (
+    load_whole_optimizer_state, load_whole_state_dict, whole_optimizer_state, whole_state_dict,
+)
+
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
 
 
@@ -30,6 +38,18 @@ def checkpoint_dir(cfg, workdir: str) -> str:
     return os.path.join(workdir, cfg.train.checkpoint_dir, f"{cfg.dataset}_{cfg.model_type}")
 
 
+def checkpoint_payload(state) -> Dict[str, Any]:
+    """What a checkpoint of ``state`` (a ``train.TrainState``) holds: whole
+    tensors in the unsharded layout.  Under a model axis every model rank
+    calls it (the gathers are collectives)."""
+    return {
+        "model": whole_state_dict(state.model),
+        "optimizer": whole_optimizer_state(state.optimizer, state.model),
+        "step": int(state.step),
+        "generator": state.generator.get_state(),
+    }
+
+
 class Checkpointer:
     def __init__(self, directory: str, max_to_keep: Optional[int] = None):
         self.directory = os.path.abspath(os.path.expanduser(directory))
@@ -38,16 +58,13 @@ class Checkpointer:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{int(step)}.pt")
 
-    def save(self, step: int, state) -> None:
+    def save(self, step: int, state, payload: Optional[Dict[str, Any]] = None) -> None:
         """Write ``state`` (a ``train.TrainState``) as the checkpoint of
-        epoch ``step``."""
+        epoch ``step``; ``payload``, its ``checkpoint_payload`` when the
+        caller has it already."""
         os.makedirs(self.directory, exist_ok=True)
-        payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-            "generator": state.generator.get_state(),
-        }
+        if payload is None:
+            payload = checkpoint_payload(state)
         tmp = self.path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.path(step))
@@ -78,8 +95,8 @@ class Checkpointer:
         """Load the checkpoint of ``step`` (the latest when None) into
         ``state`` in place; returns it."""
         payload = self.load(step)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        load_whole_state_dict(state.model, payload["model"])
+        load_whole_optimizer_state(state.optimizer, state.model, payload["optimizer"])
         state.step = payload["step"]
         state.generator.set_state(payload["generator"])
         return state

@@ -14,6 +14,8 @@
   torchrun --nproc_per_node 4 -m snd_vae_tpu_torch.cli --type train --dp 4 --distributed
   torchrun --nproc_per_node 2 -m snd_vae_tpu_torch.cli --type train --dp 2 --distributed \
       --device cpu
+  torchrun --nproc_per_node 2 -m snd_vae_tpu_torch.cli --type train --tp 2 --distributed
+  torchrun --nproc_per_node 4 -m snd_vae_tpu_torch.cli --type train --dp 2 --tp 2 --distributed
 
 takes every preset (synthetic1/2/3, protein, mnist, scene) with any model
 type the dataset's inputs allow (scene has no spanning trees: its preset is
@@ -47,7 +49,9 @@ process group (``parallel.initialize_distributed``: NCCL on the card, one
 card per process; gloo with ``--device cpu``) and prints ``distributed:
 process i/n``.  ``--dp k`` then trains data parallel over k processes
 (``train.Trainer``; ``--dp k`` needs a world of k), as the JAX CLI's
-``--dp`` does; ``--tp`` above 1 raises (ROADMAP.md queue 1, item 6(a)).
+``--dp`` does, and ``--tp m`` over the mesh's model axis (tensor-parallel
+parameters, node-sharded activations; ``--dp d --tp m`` needs a world of
+d·m).  The serving and evaluation types run in each process alone.
 
 The figures of the JAX CLI (``visualize.py``, matplotlib) are not ported.
 """
@@ -77,7 +81,6 @@ from .evaluate import (
 from .models import JointSNDVAE, build_model
 from .models import traversal as trav
 from .parallel import initialize_distributed
-from .parallel.mesh import MODEL_AXIS_TODO
 from .serve import reconstruct, sample
 from .train import Trainer
 
@@ -354,7 +357,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel mesh size: train over this many processes, each "
                         "on its block of every batch (needs --distributed)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel mesh size (not ported: above 1 raises)")
+                   help="tensor-parallel mesh size: shard the big parameters and the node "
+                        "axis of the big activations over this many processes (needs "
+                        "--distributed; --dp d --tp m needs d*m processes)")
     p.add_argument("--distributed", action="store_true",
                    help="join the processes torchrun started into one process group "
                         "(NCCL on the card, gloo with --device cpu)")
@@ -364,8 +369,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = build_cfg(args)
-    if cfg.mesh.model > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
     full_f32()
     device = resolve_device(args.device)
     joined = args.distributed and not dist.is_initialized()

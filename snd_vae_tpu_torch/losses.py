@@ -19,6 +19,12 @@ its block of the batch, and every term that reads the whole batch is taken
 over the global batch (``parallel/batch.py``): the loss terms' means, the
 weighted BCE's counts, DIP-VAE's moments and β-TCVAE's log q(z), which
 scores each local sample against every sample's (μ, logσ).
+
+Under the mesh's ``model`` axis the decoder's edge logits hold this rank's
+rows i (``parallel.hints.own_block``): the edge terms average them against
+the same rows of the truth and sum over the model ranks
+(``parallel.batch.node_mean``), while the weighted BCE's ``pos_weight`` /
+``norm`` count the whole truth adjacency, which every model rank holds, once.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 
 from .config import Config
 from .models.outputs import ModelOutput
-from .parallel.batch import global_mean, global_rows, global_sum
+from .parallel.batch import global_mean, global_rows, global_sum, node_mean
+from .parallel.hints import shard_nodes
 
 
 def at_least_f32(x):
@@ -51,10 +58,11 @@ def at_least_f32(x):
 # ---------------------------------------------------------------------------
 
 def edge_cross_entropy(adj_logits: torch.Tensor, adj_true: torch.Tensor) -> torch.Tensor:
-    """Mean softmax CE of 2-class edge logits vs the [1-A, A] one-hot."""
+    """Mean softmax CE of 2-class edge logits vs the [1-A, A] one-hot (under
+    a model axis: over every rank's rows)."""
     labels = torch.stack([1.0 - adj_true, adj_true], dim=-1)
     logp = torch.log_softmax(adj_logits, dim=-1)
-    return -(labels * logp).sum(-1).mean()
+    return node_mean(-(labels * logp).sum(-1), adj_logits.shape[2])
 
 
 def edge_categorical_cross_entropy(adj_logits: torch.Tensor, adj_true: torch.Tensor,
@@ -62,7 +70,7 @@ def edge_categorical_cross_entropy(adj_logits: torch.Tensor, adj_true: torch.Ten
     """Scene dataset: K-way categorical edges."""
     labels = F.one_hot(adj_true.long(), num_classes).to(adj_logits.dtype)
     logp = torch.log_softmax(adj_logits, dim=-1)
-    return -(labels * logp).sum(-1).mean()
+    return node_mean(-(labels * logp).sum(-1), adj_logits.shape[2])
 
 
 def edge_weighted_bce(adj_logits: torch.Tensor, adj_true: torch.Tensor,
@@ -72,7 +80,7 @@ def edge_weighted_bce(adj_logits: torch.Tensor, adj_true: torch.Tensor,
     logit = adj_logits[..., 1] - adj_logits[..., 0]
     log1p = torch.logaddexp(torch.zeros_like(logit), -logit)
     loss = (1.0 - adj_true) * logit + (1.0 + (pos_weight - 1.0) * adj_true) * log1p
-    return norm * loss.mean()
+    return norm * node_mean(loss, adj_logits.shape[2])
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -166,8 +174,10 @@ def reconstruction_losses(
     node_mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     d = output.decoded
+    # the truth's rows that the logits hold (all of them without a model axis)
+    adj_rows = shard_nodes(adj_true, tag="loss.adj_true", nodes=adj_true.shape[1])
     if cfg.dataset == "scene":
-        adj_cost = edge_categorical_cross_entropy(d.adj_prob, adj_true,
+        adj_cost = edge_categorical_cross_entropy(d.adj_prob, adj_rows,
                                                   cfg.decoder.num_edge_feature)
         if cfg.loss.scene_node_loss and d.node_feat_prob is not None:
             node_cost = -(node_true * torch.log_softmax(d.node_feat_prob, dim=-1)).sum(-1).mean()
@@ -188,10 +198,10 @@ def reconstruction_losses(
             norm = n_tot / (2.0 * torch.clamp(n_tot - n_pos, min=1.0))
         if norm is None:
             norm = 1.0
-        adj_cost = edge_weighted_bce(d.adj_prob, adj_true, pos_weight, norm)
+        adj_cost = edge_weighted_bce(d.adj_prob, adj_rows, pos_weight, norm)
         node_cost = mse(d.node_feat, node_true)
     else:
-        adj_cost = edge_cross_entropy(d.adj_prob, adj_true)
+        adj_cost = edge_cross_entropy(d.adj_prob, adj_rows)
         node_cost = mse(d.node_feat, node_true)
     spatial_cost = mse(d.coords, coords_true)
     return {"adj_loss": adj_cost, "node_loss": node_cost, "spatial_loss": spatial_cost}

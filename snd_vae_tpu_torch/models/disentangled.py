@@ -36,7 +36,8 @@ from ..nn import (
     StructGraphConv, lrelu, make_norm,
 )
 from ..nn.ckpt import policy_from_config, rematerialized
-from ..parallel.batch import local_rows
+from ..parallel.batch import gather_nodes, local_rows
+from ..parallel.hints import own_block, shard_nodes
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
     diag_masked,
@@ -222,7 +223,10 @@ class DisentangledSNDVAE(nn.Module):
         else:
             sg = feats[:, None].expand((B, S) + feats.shape[1:]).reshape(B * S, N, -1)
         for conv, bn in zip(self.sg_convs, self.sg_bns):
-            sg = lrelu(bn(rematerialized(self, conv, conv, adj_s, sg, rel_s)))
+            # under a model axis the conv returns this rank's node rows: the
+            # next layer and the flatten read every node
+            sg = lrelu(bn(rematerialized(self, conv, conv, adj_s, sg, rel_s), nodes=N))
+            sg = gather_nodes(sg, N)
         sg_ = self.sg_lin1(self.encoder_sg_bn(sg).reshape(B * S, -1))
         z_mean_sg, z_std_sg = self.sg_lin_mean(sg_), self.sg_lin_std(sg_)
 
@@ -303,9 +307,12 @@ class DisentangledSNDVAE(nn.Module):
         return DecodedGraph(adj=adj, adj_prob=adj_prob, coords=coords, node_feat=node_feat)
 
     def _adj_head(self, z_sg_g: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        """Pairwise tile-concat + E2E stack + diag mask (model.py:196-208)."""
+        """Pairwise tile-concat + E2E stack + diag mask (model.py:196-208);
+        this rank's rows under a model axis."""
+        N = z_sg_g.shape[1]
         t = adjacency_e2e(self.cfg, self.e_deconvs, self.d_bn_e, z_sg_g, coords)
-        return diag_masked(self.d_e_lin2(torch.relu(self.decoder_adj_bn(t))))
+        logits = self.d_e_lin2(torch.relu(self.decoder_adj_bn(t, nodes=N)))
+        return diag_masked(shard_nodes(logits, tag="dec.logits", nodes=N), own_block(N)[0])
 
     def generate(self, generator: torch.Generator, num: int,
                  num_samples: Optional[int] = None) -> DecodedGraph:

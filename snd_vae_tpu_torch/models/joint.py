@@ -38,7 +38,8 @@ from ..config import Config
 from ..data.graphbatch import GraphBatch
 from ..nn import E2E, Conv1D, Dense, dropout, lrelu, make_norm
 from ..nn.ckpt import policy_from_config, rematerialized
-from ..parallel.batch import local_rows
+from ..parallel.batch import gather_nodes, local_rows
+from ..parallel.hints import own_block, shard_nodes
 from .disentangled import adj_head_params, motif_conv
 from .outputs import (
     DecodedGraph, Latents, LatentStats, ModelOutput, adjacency_e2e, apply_coord_activation,
@@ -132,10 +133,12 @@ class JointSNDVAE(nn.Module):
 
     def encode(self, batch: GraphBatch, drop=None) -> LatentStats:
         """One joint branch over the truth graph (model_joint.py:72-85)."""
-        B = batch.batch_size
+        B, N = batch.batch_size, batch.num_nodes
         sg = batch.features
         for i, (conv, bn) in enumerate(zip(self.sg_convs, self.sg_bns)):
-            sg = lrelu(bn(rematerialized(self, conv, conv, batch.adj, sg, batch.rel)))
+            # this rank's node rows under a model axis, gathered for what follows
+            sg = lrelu(bn(rematerialized(self, conv, conv, batch.adj, sg, batch.rel), nodes=N))
+            sg = gather_nodes(sg, N)
             if drop is not None:
                 sg = drop(sg, ("encode", i))
         sg_ = self.sg_lin1(sg.reshape(B, -1))
@@ -195,9 +198,10 @@ class JointSNDVAE(nn.Module):
     def _adj_head(self, joint_h: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         """Tile-concat + E2E stack; scene: K-way edge logits as they are,
         else the 2-class diag mask (model_joint.py:164-179)."""
+        N = joint_h.shape[1]
         t = adjacency_e2e(self.cfg, self.e_deconvs, self.d_bn_e, joint_h, coords)
-        logits = self.d_e_lin2(torch.relu(t))
-        return logits if self.cfg.dataset == "scene" else diag_masked(logits)
+        logits = shard_nodes(self.d_e_lin2(torch.relu(t)), tag="dec.logits", nodes=N)
+        return logits if self.cfg.dataset == "scene" else diag_masked(logits, own_block(N)[0])
 
     def prior_latents(self, batch_size: int, generator: Optional[torch.Generator]) -> Latents:
         """z_sg ~ N(0, I) [B, 1, L] in the model's dtype."""

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.batch import global_mean, local_rows
+from ..parallel.batch import global_mean, local_rows, model_sum
+from ..parallel.hints import model_group
 from . import init as inits
 
 
@@ -93,7 +94,8 @@ class FrozenBatchNorm(nn.Module):
     """Keras BN with its moving statistics frozen at init (parity mode):
     y = gamma * x / sqrt(1 + eps) + beta over the last axis.  ``block=(lo,
     hi)`` applies channels [lo, hi) of the full width to an input holding
-    only those channels."""
+    only those channels.  ``nodes`` (see ``BatchStatNorm``) changes
+    nothing: the map is per element."""
 
     def __init__(self, features: int, epsilon: float = 1e-3):
         super().__init__()
@@ -101,8 +103,8 @@ class FrozenBatchNorm(nn.Module):
         self.gamma = nn.Parameter(inits.ones((features,)))
         self.beta = nn.Parameter(inits.zeros((features,)))
 
-    def forward(self, x: torch.Tensor,
-                block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, block: Optional[Tuple[int, int]] = None,
+                nodes: Optional[int] = None) -> torch.Tensor:
         gamma, beta = _block_params(self.gamma, self.beta, x, block)
         return x * (gamma * (1.0 / math.sqrt(1.0 + self.epsilon))) + beta
 
@@ -110,7 +112,10 @@ class FrozenBatchNorm(nn.Module):
 class BatchStatNorm(nn.Module):
     """Corrected batch norm: normalize with the current batch's statistics
     over all axes but the last (the global batch's under a data-parallel
-    mesh); trainable gamma/beta."""
+    mesh); trainable gamma/beta.  ``nodes``: ``x``'s axis 1 holds this
+    rank's rows of a node axis of that many under the mesh's model axis
+    (the adjacency head's maps, a motif conv's output), so the moments sum
+    over the model ranks too before the data axis's mean."""
 
     def __init__(self, features: int, epsilon: float = 1e-3):
         super().__init__()
@@ -118,12 +123,17 @@ class BatchStatNorm(nn.Module):
         self.gamma = nn.Parameter(inits.ones((features,)))
         self.beta = nn.Parameter(inits.zeros((features,)))
 
-    def forward(self, x: torch.Tensor,
-                block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, block: Optional[Tuple[int, int]] = None,
+                nodes: Optional[int] = None) -> torch.Tensor:
         gamma, beta = _block_params(self.gamma, self.beta, x, block)
         axes = tuple(range(x.dim() - 1))
-        mean = global_mean(x.mean(dim=axes, keepdim=True))
-        var = global_mean((x - mean).square().mean(dim=axes, keepdim=True))
+        if nodes is None or model_group() is None:
+            mean = global_mean(x.mean(dim=axes, keepdim=True))
+            var = global_mean((x - mean).square().mean(dim=axes, keepdim=True))
+        else:
+            count = x.shape[0] * nodes * math.prod(x.shape[2:-1])
+            mean = global_mean(model_sum(x.sum(dim=axes, keepdim=True)) / count)
+            var = global_mean(model_sum((x - mean).square().sum(dim=axes, keepdim=True)) / count)
         return (x - mean) * torch.rsqrt(var + self.epsilon) * gamma + beta
 
 

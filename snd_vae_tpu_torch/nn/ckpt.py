@@ -38,6 +38,11 @@ Where the tags are (``BIG_NAMES``; ``tests/test_torch_remat.py`` holds the
   * ``models/outputs.py::adjacency_e2e`` — ``dec.pair`` (the tile-concat
     map) and ``dec.e2e`` (each E2E layer after the first separable one).
 
+Under the mesh's model axis the regions hold the node-sharded sites (the
+motif convs' rows, the adjacency head's rows and E2E's gathers): the
+recompute takes the same rows and runs the same collectives again, in the
+same order on every rank, as JAX's remat regions hold its hints.
+
 Regions are identity outside a checkpoint, so the hot code carries them
 unconditionally.  The open regions are per thread, as autograd's grad mode
 is.

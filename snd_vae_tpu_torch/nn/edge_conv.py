@@ -12,6 +12,23 @@ D[b,i,j]], the separable lowering (``E2E._separable``) computes the same
 layer without building the map.  Maps are NHWC [B,H,W,C] at the public
 boundary, NCHW only around ``F.conv2d``.
 
+Under an ambient mesh that names a ``model`` axis the auto rule takes the
+conv lowering, as JAX's does (``edge_conv.py:149-156``): the Toeplitz
+expansion is O(N²·C·O) and would sit whole on every rank.  With that
+axis above 1 the map is node-sharded: ``E2E`` takes and returns this rank's rows
+i of the [B,N,N,C] map (``hints.own_block``).  The row conv (along j) is
+local.  The column conv (along i, kernel height k_h) reads rows of every
+rank: the port all-gathers the input rows (``batch.gather_nodes``) and
+convolves the padded window of rows its output needs, rather than
+reduce-scattering each rank's partial products as JAX's GSPMD lowering
+does.  Each output row is then computed once, from the same operands in
+the same order as in one process, and the gather's backward is the
+reduce-scatter; the partial products would cost the same operations but
+an [B,N,N,O] buffer per rank for the reduce-scatter where the gather takes
+[B,N,N,C], and their sum over ranks reassociates the column conv.  The
+separable lowering keeps P and D row-sharded and Q whole, and returns rows
+(JAX ``:228-251``): conv1d(P) and D's column conv read P and D gathered.
+
 The rest of the JAX family (``edge_conv.py:254-403``) follows at the end:
 ``E2N``, ``N2N``, ``N2GAdj``, the transposed ``DeN2G``, ``DeN2N``,
 ``DeE2N``, ``DeE2E`` and the pooling pair ``N2GPool`` / ``G2NBroadcast``.
@@ -26,6 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import init as inits
+from ..parallel.batch import gather_nodes
+from ..parallel.hints import MODEL_AXIS, ambient_mesh, model_group, own_block, shard_nodes
 from .basic import acc_dtype, same_pad
 
 
@@ -35,6 +54,18 @@ def _row_col_convs(xc: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tenso
     H, W, k = xc.shape[2], xc.shape[3], w.shape[-1]
     row = F.conv2d(F.pad(xc, same_pad(W, k, 1)), w, bias)
     col = F.conv2d(F.pad(xc, (0, 0) + same_pad(H, k, 1)), w.transpose(2, 3), bias)
+    return row, col
+
+
+def _row_col_conv_rows(rows: torch.Tensor, whole: torch.Tensor, start: int,
+                       w: torch.Tensor, bias: Optional[torch.Tensor]):
+    """``_row_col_convs`` for output rows [start, start + n) of a square
+    NCHW map: the row conv of ``rows`` (those rows of the map), the column
+    conv of the window of the SAME-padded ``whole`` map that they read."""
+    n, N, k = rows.shape[2], whole.shape[2], w.shape[-1]
+    row = F.conv2d(F.pad(rows, same_pad(N, k, 1)), w, bias)
+    window = F.pad(whole, (0, 0) + same_pad(N, k, 1)).narrow(2, start, n + k - 1)
+    col = F.conv2d(window, w.transpose(2, 3), bias)
     return row, col
 
 
@@ -80,8 +111,14 @@ class E2E(nn.Module):
         self.biases1 = nn.Parameter(inits.zeros((features,)))
 
     def uses_matmul(self, x: torch.Tensor) -> bool:
+        """The lowering of ``x``: ``use_matmul`` when set, else JAX's auto
+        rule, which takes the conv lowering under any ambient mesh that names
+        a ``model`` axis."""
         if self.use_matmul is not None:
             return self.use_matmul
+        mesh = ambient_mesh()
+        if mesh is not None and MODEL_AXIS in (mesh.mesh_dim_names or ()):
+            return False
         mt_bytes = x.shape[2] ** 2 * x.shape[-1] * self.w1.shape[0] * x.element_size()
         return x.shape[2] >= self.matmul_threshold and mt_bytes <= self.matmul_max_bytes
 
@@ -91,6 +128,8 @@ class E2E(nn.Module):
             raise ValueError("E2E takes a dense map x or factors=(P, Q, D), one of them")
         if factors is not None:
             return self._separable(*factors)
+        if model_group() is not None:
+            return self._rows(x)
         if self.uses_matmul(x):
             if x.shape[1] != x.shape[2]:
                 raise ValueError(
@@ -105,6 +144,26 @@ class E2E(nn.Module):
         row, col = _row_col_convs(x.permute(0, 3, 1, 2), self.w1, self.biases1)
         return (row + col).permute(0, 2, 3, 1)
 
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Under a model axis above 1: this rank's rows of the output, from
+        ``x`` whole or this rank's rows of it ([B,n,N,C]; see the module
+        docstring)."""
+        N = x.shape[2]
+        start, n = own_block(N)
+        rows = shard_nodes(x, tag="e2e.in", nodes=N)
+        whole = x if x.shape[1] == N else gather_nodes(rows, N)
+        if self.uses_matmul(whole):
+            w = self.w1[:, :, 0, :].permute(2, 1, 0)                  # [k_h, C, O]
+            mt = _toeplitz_weights(w, N)                              # [t, j, C, O]
+            conv1 = torch.einsum("bitc,tjco->bijo", rows, mt) + self.biases1
+            conv2 = torch.einsum("btjc,tico->bijo", whole, mt[:, start:start + n]) + self.biases1
+            out = conv1 + conv2
+        else:
+            row, col = _row_col_conv_rows(rows.permute(0, 3, 1, 2), whole.permute(0, 3, 1, 2),
+                                          start, self.w1, self.biases1)
+            out = (row + col).permute(0, 2, 3, 1)
+        return shard_nodes(out, tag="e2e.out", nodes=N)
+
     def _separable(self, P: torch.Tensor, Q: torch.Tensor,
                    D: Optional[torch.Tensor]) -> torch.Tensor:
         """E2E over the implicit map t[b,i,j] = [P[b,i], Q[b,j], D[b,i,j]]
@@ -116,13 +175,21 @@ class E2E(nn.Module):
 
         with S[j] = Σ_{t in window(j)} w[t] the per-position window sums of
         the kernel, and D's channels through their own 2-D row and column
-        convs.  O(B·N²·C·O) where the dense map costs O(B·N³·C·O)."""
-        W = P.shape[1]
-        if Q.shape[1] != W:
+        convs.  O(B·N²·C·O) where the dense map costs O(B·N³·C·O).
+
+        Under a model axis above 1, P and D may hold this rank's rows (or be
+        whole), Q is whole, and the result is this rank's rows."""
+        W = Q.shape[1]
+        start, n = own_block(W)
+        if P.shape[1] not in (W, n):
             raise ValueError(
                 f"separable E2E factor node axes disagree: P {tuple(P.shape)} "
                 f"vs Q {tuple(Q.shape)}"
             )
+        sharded = model_group() is not None
+        P_rows = shard_nodes(P, tag="e2e.sepP", nodes=W)
+        if P.shape[1] != W:
+            P = gather_nodes(P_rows, W)
         k_h, pl = self.k_h, (self.k_h - 1) // 2
         cP, cQ = P.shape[-1], Q.shape[-1]
         dt = P.dtype
@@ -136,15 +203,22 @@ class E2E(nn.Module):
         cs = torch.cat([torch.zeros_like(w[:1]), torch.cumsum(w, dim=0)])
         S = (cs[hi + 1] - cs[lo]).to(dt)                              # [W, C, O]
         SP, SQ = S[:, :cP], S[:, cP:cP + cQ]
-        y = torch.einsum("bic,jco->bijo", P.to(acc), SP.to(acc))
-        y = y + torch.einsum("bjc,ico->bijo", Q.to(acc), SQ.to(acc))
+        y = torch.einsum("bic,jco->bijo", P_rows.to(acc), SP.to(acc))
+        y = y + torch.einsum("bjc,ico->bijo", Q.to(acc), SQ[start:start + n].to(acc))
         convQ = _conv1d_same(Q, w1[:, cP:cP + cQ, 0, :].to(dt)).to(acc)
-        convP = _conv1d_same(P, w1[:, :cP, 0, :].to(dt)).to(acc)
+        convP = _conv1d_same(P, w1[:, :cP, 0, :].to(dt)).to(acc)[:, start:start + n]
         y = y + convQ[:, None, :, :] + convP[:, :, None, :]
         if D is not None:
-            row, col = _row_col_convs(D.permute(0, 3, 1, 2), w1[:, cP + cQ:].to(dt), None)
+            wD = w1[:, cP + cQ:].to(dt)
+            if sharded:
+                D_rows = shard_nodes(D, tag="e2e.sepD", nodes=W)
+                D_whole = D if D.shape[1] == W else gather_nodes(D_rows, W)
+                row, col = _row_col_conv_rows(D_rows.permute(0, 3, 1, 2),
+                                              D_whole.permute(0, 3, 1, 2), start, wD, None)
+            else:
+                row, col = _row_col_convs(D.permute(0, 3, 1, 2), wD, None)
             y = y + row.permute(0, 2, 3, 1).to(acc) + col.permute(0, 2, 3, 1).to(acc)
-        return (y + 2.0 * self.biases1.to(acc)).to(dt)
+        return shard_nodes((y + 2.0 * self.biases1.to(acc)).to(dt), tag="e2e.sep", nodes=W)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,12 @@
 //
 // with f32 accumulation, for f32 or bf16 tensors (nt has the inputs' dtype).
 //
+// A launch computes a window of rows i in [row0, row0 + n_rows): phi, a_i
+// and nt hold those rows only ([B, n_rows, N, R], [B, n_rows, h]), while A,
+// deg and v_j stay whole (rf reads row j of A for every j).  Under the
+// mesh's model axis each rank launches its own window; the full launch is
+// the window (0, N).
+//
 // It replaces, on the served path, the chain built around the TPU kernel
 // fused_motif_combine (snd_vae_tpu/nn/pallas/blocked_spmm.py:204, ported as
 // csrc/motif_combine.cu): the projections d_ij = phi @ M1d and
@@ -106,12 +112,14 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // k-chunk [k0, k0+kTk) of A[b, j-tile, :] into as [kTj][kTk+4] and of
-// phi[b, i-tile, :, :] into ps [kTi][kTk*r].  Invalid pieces read from the
-// base pointer with src-size 0.  ``vec`` (f32, N % 4 == 0, 16-byte aligned
+// phi[b, i-tile, :, :] into ps [kTi][kTk*r] (i counts the window's rows,
+// ``rows`` of them).  Invalid pieces read from the base pointer with
+// src-size 0.  ``vec`` (f32, N % 4 == 0, 16-byte aligned
 // tensors): 16-byte pieces, none of which straddles N.
 template <int kTk, typename T>
 __device__ __forceinline__ void stage_chunk(float* as, float* ps, const T* ab, const T* pb,
-                                            int n, int r, int i0, int j0, int k0, bool vec) {
+                                            int n, int rows, int r, int i0, int j0, int k0,
+                                            bool vec) {
   constexpr int kAp = kTk + 4;
   if constexpr (std::is_same<T, float>::value) {
     if (vec) {
@@ -123,7 +131,7 @@ __device__ __forceinline__ void stage_chunk(float* as, float* ps, const T* ab, c
       const int row = kTk * r / 4;
       for (int e = threadIdx.x; e < kTi * row; e += kThreads) {
         const int ii = e / row, q = 4 * (e % row), i = i0 + ii, k = k0 + q / r;
-        const bool ok = i < n && k < n;
+        const bool ok = i < rows && k < n;
         stage16(ps + ii * kTk * r + q,
                 pb + (ok ? (static_cast<int64_t>(i) * n + k0) * r + q : 0), ok);
       }
@@ -138,7 +146,7 @@ __device__ __forceinline__ void stage_chunk(float* as, float* ps, const T* ab, c
   const int row = kTk * r;
   for (int e = threadIdx.x; e < kTi * row; e += kThreads) {
     const int ii = e / row, q = e % row, i = i0 + ii, k = k0 + q / r;
-    const bool ok = i < n && k < n;
+    const bool ok = i < rows && k < n;
     stage(ps + e, pb + (ok ? (static_cast<int64_t>(i) * n + k0) * r + q : 0), ok);
   }
 }
@@ -149,8 +157,8 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
                     const T* __restrict__ a_i, const T* __restrict__ v_j,
                     const T* __restrict__ deg, const T* __restrict__ m1d,
                     const T* __restrict__ m1f, const T* __restrict__ bias,
-                    T* __restrict__ nt, int n, int r, int h, int n_i_tiles, int n_h_tiles,
-                    bool vec) {
+                    T* __restrict__ nt, int n, int row0, int rows, int r, int h,
+                    int n_i_tiles, int n_h_tiles, bool vec) {
   // one A tile; rows padded by 4 floats keep 16-byte alignment, and a
   // quarter-warp's float4 reads of 8 rows then fall on distinct banks
   constexpr int kAp = kTk + 4, kAs = kTj * kAp;
@@ -171,9 +179,10 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
   blk /= n_h_tiles;
   const int i0 = static_cast<int>(blk % n_i_tiles) * kTi;
   const int64_t b = blk / n_i_tiles;
-  const int i = i0 + w;                 // this warp's row
+  const int i = i0 + w;                 // this warp's row of the window
   const T* ab = adj + b * n * n;        // A[b]   [n, n]
-  const T* pb = phi + b * n * n * r;    // phi[b] [n, n, r]
+  const T* pb = phi + b * rows * n * r; // phi[b] [rows, n, r]
+  const T* mb = ab + static_cast<int64_t>(row0) * n;   // A[b, row0:, :], the mask rows
 
   for (int e = tid; e < r * kHc; e += kThreads) {   // joins the first tile's copy group
     const int rr = e / kHc, hh = hc0 + e % kHc;
@@ -184,7 +193,7 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
 #pragma unroll
   for (int q = 0; q < kHl; ++q) {
     const int hh = hc0 + lane + 32 * q;
-    base[q] = (i < n && hh < h) ? to_f(a_i[(b * n + i) * h + hh]) + to_f(bias[hh]) : 0.f;
+    base[q] = (i < rows && hh < h) ? to_f(a_i[(b * rows + i) * h + hh]) + to_f(bias[hh]) : 0.f;
     acc[q] = 0.f;
   }
 
@@ -193,13 +202,13 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
     __syncthreads();                    // the last j-tile's epilogue is done with the tiles
     for (int e = tid; e < kTi * kTj * r; e += kThreads) {
       const int ii = i0 + e / (kTj * r), q = e % (kTj * r);
-      const bool ok = ii < n && j0 + q / r < n;
+      const bool ok = ii < rows && j0 + q / r < n;
       stage(pj + e, pb + (ok ? (static_cast<int64_t>(ii) * n + j0) * r + q : 0), ok);
     }
     for (int e = tid; e < kTi * kTj; e += kThreads) {
       const int ii = i0 + e / kTj, j = j0 + e % kTj;
-      const bool ok = ii < n && j < n;
-      stage(mk + e, ab + (ok ? static_cast<int64_t>(ii) * n + j : 0), ok);
+      const bool ok = ii < rows && j < n;
+      stage(mk + e, mb + (ok ? static_cast<int64_t>(ii) * n + j : 0), ok);
     }
     for (int e = tid; e < kTj; e += kThreads) {
       const bool ok = j0 + e < n;
@@ -213,12 +222,12 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
     for (int rr = 0; rr < r; ++rr) rfs[(w * kTj + lane) * r + rr] = 0.f;
 
     // 1. rf[i, j0 + lane, :] for this thread, k-chunk by k-chunk
-    stage_chunk<kTk>(as, ps, ab, pb, n, r, i0, j0, 0, vec);
+    stage_chunk<kTk>(as, ps, ab, pb, n, rows, r, i0, j0, 0, vec);
     cp_async_commit();
     for (int c = 0; c < nk; ++c) {
       if (c + 1 < nk) {                 // the next chunk's copies fly during this one's sums
         const int nb = (c + 1) & 1;
-        stage_chunk<kTk>(as + nb * kAs, ps + nb * kTi * kTk * r, ab, pb, n, r, i0, j0,
+        stage_chunk<kTk>(as + nb * kAs, ps + nb * kTi * kTk * r, ab, pb, n, rows, r, i0, j0,
                          (c + 1) * kTk, vec);
         cp_async_commit();
         cp_async_wait<1>();
@@ -250,7 +259,7 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
 
     // 2. m3, lrelu and the masked j-sum for row i, over the j with
     // A[i,j] != 0 only (a ballot lists them), two j at a time
-    if (i < n) {
+    if (i < rows) {
       const unsigned all = 0xffffffffu;
       const float a_l = mk[w * kTj + lane], d_l = dg[lane];   // A[i, j0+lane], deg[j0+lane]
       float wd0[kHl], wf0[kHl];                                // channel 0 of M1d, M1f
@@ -295,19 +304,19 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
       }
     }
   }
-  if (i >= n) return;
+  if (i >= rows) return;
 #pragma unroll
   for (int q = 0; q < kHl; ++q) {
     const int hh = hc0 + lane + 32 * q;
-    if (hh < h) nt[(b * n + i) * h + hh] = from_f<T>(acc[q]);
+    if (hh < h) nt[(b * rows + i) * h + hh] = from_f<T>(acc[q]);
   }
 }
 
 template <typename T, int kTk>
 int launch(const void* adj, const void* phi, const void* a_i, const void* v_j,
            const void* deg, const void* m1d, const void* m1f, const void* bias, void* nt,
-           int batch, int n, int r, int h, void* stream) {
-  const int n_i_tiles = (n + kTi - 1) / kTi;
+           int batch, int n, int row0, int rows, int r, int h, void* stream) {
+  const int n_i_tiles = (rows + kTi - 1) / kTi;
   const int n_h_tiles = (h + kHc - 1) / kHc;
   const int64_t blocks = static_cast<int64_t>(batch) * n_i_tiles * n_h_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -328,8 +337,8 @@ int launch(const void* adj, const void* phi, const void* a_i, const void* v_j,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(adj), static_cast<const T*>(phi), static_cast<const T*>(a_i),
       static_cast<const T*>(v_j), static_cast<const T*>(deg), static_cast<const T*>(m1d),
-      static_cast<const T*>(m1f), static_cast<const T*>(bias), static_cast<T*>(nt), n, r, h,
-      n_i_tiles, n_h_tiles, vec);
+      static_cast<const T*>(m1f), static_cast<const T*>(bias), static_cast<T*>(nt), n, row0,
+      rows, r, h, n_i_tiles, n_h_tiles, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,27 +346,31 @@ int launch(const void* adj, const void* phi, const void* a_i, const void* v_j,
 template <typename T>
 int launch(const void* adj, const void* phi, const void* a_i, const void* v_j,
            const void* deg, const void* m1d, const void* m1f, const void* bias, void* nt,
-           int batch, int n, int r, int h, void* stream) {
-  if (batch == 0 || n == 0 || h == 0) return 0;
-  return n <= 32 ? launch<T, 32>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, r, h,
-                                 stream)
-                 : launch<T, 128>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, r, h,
-                                  stream);
+           int batch, int n, int row0, int rows, int r, int h, void* stream) {
+  if (row0 < 0 || rows < 0 || row0 + rows > n) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || rows == 0 || h == 0) return 0;
+  return n <= 32 ? launch<T, 32>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, row0,
+                                 rows, r, h, stream)
+                 : launch<T, 128>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, row0,
+                                  rows, r, h, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous: adj [B,N,N],
-// phi [B,N,N,R], a_i [B,N,H], v_j [B,N,H], deg [B,N], m1d [R,H], m1f [R,H],
-// bias [H], nt [B,N,H]; their strides follow from the shapes.
+// phi [B,rows,N,R], a_i [B,rows,H], v_j [B,N,H], deg [B,N], m1d [R,H],
+// m1f [R,H], bias [H], nt [B,rows,H] for the window of rows
+// [row0, row0 + rows) of N; their strides follow from the shapes.
 extern "C" int motif_level3_launch(const void* adj, const void* phi, const void* a_i,
                                    const void* v_j, const void* deg, const void* m1d,
                                    const void* m1f, const void* bias, void* nt, int batch,
-                                   int n, int r, int h, int dtype, void* stream) {
+                                   int n, int row0, int rows, int r, int h, int dtype,
+                                   void* stream) {
   if (dtype == 0)
-    return launch<float>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, r, h, stream);
+    return launch<float>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, row0, rows, r,
+                         h, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, r, h,
-                                 stream);
+    return launch<__nv_bfloat16>(adj, phi, a_i, v_j, deg, m1d, m1f, bias, nt, batch, n, row0,
+                                 rows, r, h, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,7 +30,20 @@ tensors run in ``nn.ckpt.big`` regions (``sgc3.nd4``, ``sgc3.m4_sum``,
 ``recompute-big`` remat policy.
 
 Public layouts as in JAX: adj [B,N,N], x [B,N,F], rel [B,N,N,R] ->
-[B,N,h_last].  Products accumulate in the inputs' dtype (JAX's
+[B,N,h_last].
+
+Under the mesh's ``model`` axis (``parallel.hints``) both convs compute the
+rows i of this rank (``hints.own_block``) and return [B,n,h_last]: level 3
+(the K1 window of ``motif_level3``, or ``rows`` of the fourth order), then
+levels 2 and 1 on those rows.  What level 3 reads for every node (adj,
+φ(x), φ(rel), b_j, the neighbour sums nx / nr, deg; fourth order's beta_jk
+and gamma_k) stays whole on every rank, so no collective runs inside a
+conv: the model gathers each layer's rows (``parallel.batch.gather_nodes``)
+before the next layer, whose b_j, nx and level 3 read every node.  The
+JAX package hints the same sites with ``shard_nodes``
+(``spatial_conv.py:208-252``, ``:502-544``).  ``rows=(start, n)`` computes
+that window in one process, with no mesh: the rank-local computation as a
+plain function.  Products accumulate in the inputs' dtype (JAX's
 ``_acc_dtype``: f32 for bf16 inputs, the input dtype otherwise; cuBLAS
 accumulates bf16 products in f32).
 """
@@ -48,8 +61,21 @@ from . import init as inits
 from .basic import lrelu
 from .ckpt import big
 from .kernels.motif_level3 import motif_level3
+from ..parallel.hints import own_block, shard_nodes
 
 LEAK = 0.2
+
+
+def _row_taker(n: int, rows: Optional[Tuple[int, int]]):
+    """(start, size, take): the window of rows a conv computes and how it
+    takes those rows of a [B,N,...] tensor — this rank's under the ambient
+    model axis (``shard_nodes``, which reports the tag), or ``rows``.  A
+    tensor that holds the window's rows already is taken as it is."""
+    if rows is None:
+        start, size = own_block(n)
+        return start, size, lambda t, tag: shard_nodes(t, tag=tag, nodes=n)
+    start, size = rows
+    return start, size, lambda t, tag: t.narrow(1, start, size) if t.shape[1] == n else t
 
 
 def _check_block_rows(block_rows: int, n: int) -> None:
@@ -83,12 +109,16 @@ class SpatialGraphConv(nn.Module):
 
 
 def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
-                       block_rows: Optional[int] = None) -> torch.Tensor:
+                       block_rows: Optional[int] = None,
+                       rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Functional factored third-order conv; level 3 through the
     ``motif_level3`` kernel (see the module docstring).  ``block_rows``
-    must divide N; it changes only the backward's live set."""
+    must divide N; it changes only the backward's live set.  Returns the
+    rows of this rank under a model axis, or the window ``rows`` =
+    (start, n) when given: [B,n,h2]."""
     if block_rows is not None:
         _check_block_rows(block_rows, adj.shape[1])
+    row0, _, take = _row_taker(adj.shape[1], rows)
     F, R = x.shape[-1], rel.shape[-1]
     m1, b1 = params["Matrix1"], params["bias1"]
     m2, b2 = params["Matrix2"], params["bias2"]
@@ -97,8 +127,9 @@ def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
     phi_x = lrelu(x)          # [B,N,F]
     phi_r = lrelu(rel)        # [B,N,N,R]
 
+    px = take(phi_x, "sgc.x")                            # this window's rows
     # --- level 3: masked motif sum --------------------------------------
-    a_i = phi_x @ m1[0:F]                                # φ(x_i)@M1a  [B,N,h0]
+    a_i = px @ m1[0:F]                                   # φ(x_i)@M1a  [B,n,h0]
     b_j = phi_x @ m1[F:2 * F]                            # φ(x_j)@M1b  [B,N,h0]
     # neighbour sums of the raw inputs, reused across levels
     nx = torch.einsum("bjk,bkf->bjf", adj, phi_x)        # Σ_k A[j,k]·φ(x_k)
@@ -108,24 +139,25 @@ def spatial_graph_conv(adj, x, rel, params: Dict[str, torch.Tensor],
     ve = nr @ m1[3 * F + R:3 * F + 2 * R]                # Σ_k A[j,k]·e_jk
     v_combined = deg[..., None] * b_j + neigh_c + ve     # j-only terms
     # nt[i] = Σ_j A[i,j]·lrelu(m3_sum[i,j]), d_ij / f_ik folded in through
-    # the R-row slices M1d = m1[3F:3F+R], M1f = m1[3F+2R:]          [B,N,h0]
-    nt = motif_level3(adj.contiguous(), phi_r.contiguous(), a_i.contiguous(),
-                      v_combined.contiguous(), deg.contiguous(),
+    # the R-row slices M1d = m1[3F:3F+R], M1f = m1[3F+2R:]; the K1 window of
+    # this rank's rows i (rf, d_ij and m3_sum of those rows)        [B,n,h0]
+    nt = motif_level3(adj.contiguous(), take(phi_r, "sgc.rf").contiguous(),
+                      a_i.contiguous(), v_combined.contiguous(), deg.contiguous(),
                       m1[3 * F:3 * F + R].contiguous(), m1[3 * F + 2 * R:].contiguous(),
-                      b1.contiguous(), block_rows=block_rows)
+                      b1.contiguous(), block_rows=block_rows, row0=row0)
 
     # --- level 2: masked pair sum, reassociated --------------------------
-    p_i = phi_x @ m2[0:F]
-    nq = nx @ m2[F:2 * F]                                # Σ_j A[i,j]·q_j
+    p_i = px @ m2[0:F]
+    nq = take(nx, "sgc.nx") @ m2[F:2 * F]                # Σ_j A[i,j]·q_j
     m2_sum = (
-        deg[..., None] * (p_i + b2)
+        take(deg, "sgc.deg")[..., None] * (p_i + b2)
         + nq
-        + nr @ m2[2 * F:2 * F + R]
+        + take(nr, "sgc.nr") @ m2[2 * F:2 * F + R]
         + nt @ m2[2 * F + R:]
     )
 
     # --- level 1: per-node update ---------------------------------------
-    return phi_x @ m3[0:F] + lrelu(m2_sum) @ m3[F:] + b3
+    return px @ m3[0:F] + lrelu(take(m2_sum, "sgc.m2_sum")) @ m3[F:] + b3
 
 
 def spatial_graph_conv_dense_oracle(adj, x, rel, params) -> torch.Tensor:
@@ -210,13 +242,19 @@ def _slices(m: torch.Tensor, widths: Sequence[int]) -> Tuple[torch.Tensor, ...]:
 
 def spatial_graph_conv_3d(adj, x, rel, dis, params: Dict[str, torch.Tensor],
                           fully_connected: bool = False,
-                          block_rows: Optional[int] = None) -> torch.Tensor:
+                          block_rows: Optional[int] = None,
+                          rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Functional factored fourth-order conv (JAX ``spatial_conv.py:401-562``).
 
     ``rel`` feeds the chain relations (r_ij, r_jk, r_kp), ``dis`` the skip
     distances (d_ik, d_ip): the same tensor for the standard variant.
     ``block_rows`` (a divisor of N) computes levels 4 and 3 one i-row block
-    at a time (``_blocked_nt_3d``); i-blocking reassociates no sum."""
+    at a time (``_blocked_nt_3d``); i-blocking reassociates no sum.  Returns
+    the rows of this rank under a model axis, or the window ``rows``:
+    [B,n,h3]."""
+    if block_rows is not None:
+        _check_block_rows(block_rows, adj.shape[1])
+    _, _, take = _row_taker(adj.shape[1], rows)
     F, R, Rd = x.shape[-1], rel.shape[-1], dis.shape[-1]
     m0, b0 = params["Matrix0"], params["bias0"]
     m1, b1 = params["Matrix1"], params["bias1"]
@@ -248,7 +286,7 @@ def spatial_graph_conv_3d(adj, x, rel, dis, params: Dict[str, torch.Tensor],
     c_j = phi_x @ m1_cj
     neigh_j = mx @ m1_ck + nr4 @ m1_gjk                  # Σ_k M[j,k]·(c_k + g_jk)
 
-    def rows(mask_i, pr, pd, ai, ci):
+    def level3_rows(mask_i, pr, pd, ai, ci):
         """nt[i] = Σ_j M[i,j]·φ(m3_sum[i,j]) for the i rows given."""
         # level 4: m4[i,j,k] = M[i,j]·M[j,k]·(deg[k]·(a_i+a_j+u_ij+a_k+v_jk+y_ik+b0)
         #                                      + P[k] + Vw[k] + Wz[i,k])
@@ -276,36 +314,41 @@ def spatial_graph_conv_3d(adj, x, rel, dis, params: Dict[str, torch.Tensor],
             m3_sum = mask_i[..., None] * m3_sum                             # [B,b,N,h1]
         return torch.einsum("bij,bijh->bih", mask_i, lrelu(m3_sum))
 
-    row_inputs = (mask, phi_r, phi_d, a_i, c_i)
+    # this window's rows i of what level 4 reads by i (the rest stays whole)
+    row_inputs = tuple(take(t, tag) for t, tag in (
+        (mask, "sgc3d.mask_i"), (phi_r, "sgc3d.phi_r"), (phi_d, "sgc3d.phi_d"),
+        (a_i, "sgc3d.a_i"), (c_i, "sgc3d.c_i")))
     if block_rows is None:
-        nt = rows(*row_inputs)                                              # [B,N,h1]
+        nt = level3_rows(*row_inputs)                                       # [B,n,h1]
     else:
-        nt = _blocked_rows(rows, row_inputs, block_rows)
+        nt = _blocked_rows(level3_rows, row_inputs, block_rows)
 
     # --- level 2: fully reassociated as in the third-order op ------------
     m2_p, m2_q, m2_s, m2_t = _slices(m2, (F, F, R))
+    px = take(phi_x, "sgc3d.x")
     m2_sum = (
-        deg[..., None] * (phi_x @ m2_p + b2)
-        + mx @ m2_q
-        + nr4 @ m2_s
+        take(deg, "sgc3d.deg")[..., None] * (px @ m2_p + b2)
+        + take(mx, "sgc3d.mx") @ m2_q
+        + take(nr4, "sgc3d.nr4") @ m2_s
         + nt @ m2_t
     )
 
     # --- level 1 ---------------------------------------------------------
-    return phi_x @ m3[0:F] + lrelu(m2_sum) @ m3[F:] + b3
+    return px @ m3[0:F] + lrelu(take(m2_sum, "sgc3d.m2_sum")) @ m3[F:] + b3
 
 
 def _blocked_rows(fn: Callable[..., torch.Tensor], row_inputs: Sequence[torch.Tensor],
                   block_rows: int) -> torch.Tensor:
-    """``fn`` of the i-row blocks of ``row_inputs`` (each [B,N,...]),
-    concatenated on the row axis: the port of ``_blocked_nt_3d``'s
-    checkpointed scan (JAX ``spatial_conv.py:565-637``).  Under autograd each
+    """``fn`` of the i-row blocks of ``row_inputs`` (each [B,n,...]; the
+    last block short where ``block_rows`` does not divide n, as in a
+    rank's rows of an uneven split), concatenated on the row axis: the port
+    of ``_blocked_nt_3d``'s checkpointed scan (JAX
+    ``spatial_conv.py:565-637``).  Under autograd each
     block runs in ``torch.utils.checkpoint``: the forward keeps only the
     block outputs, and the backward recomputes one block's internals at a
     time.  Tensors ``fn`` closes over (``beta_jk`` [B,N,N,h0] the largest)
     stay resident across blocks, as in JAX."""
     n = row_inputs[0].shape[1]
-    _check_block_rows(block_rows, n)
     outs = []
     for s in range(0, n, block_rows):
         block = [t[:, s:s + block_rows] for t in row_inputs]

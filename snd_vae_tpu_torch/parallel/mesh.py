@@ -15,24 +15,23 @@ global batch.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
 from ..config import MeshConfig
 from ..device import DeviceLike, resolve_device
+from ..params import torch_perm
 from .distributed import backend_for
 
 # canonical axis names of the 2-D ('data', 'model') mesh
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, MODEL_AXIS)
-# what the model axis above 1 still needs, named wherever it raises
-MODEL_AXIS_TODO = ("the mesh's 'model' axis (tensor-parallel parameters and node-sharded "
-                   "activations) is not ported yet (ROADMAP.md queue 1, item 6(a))")
 
 
 def make_mesh(data: int = 1, model: int = 1, device: DeviceLike = None) -> DeviceMesh:
@@ -60,7 +59,20 @@ def mesh_from_config(cfg: MeshConfig, device: DeviceLike = None) -> DeviceMesh:
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    return mesh.shape[mesh.mesh_dim_names.index(axis)]
+    """The size of ``axis`` on ``mesh``; 1 for an axis the mesh lacks (a
+    sub-mesh such as ``mesh["model"]``)."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.shape[names.index(axis)] if axis in names else 1
+
+
+def node_block(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """Rows [start, start + size) of a node axis of ``n`` that part
+    ``index`` of ``parts`` holds: ceil(n / parts) rows each, the last part
+    short (25 over 4: 7, 7, 7, 4; 10 over 4: 3, 3, 3, 1), as GSPMD pads an
+    uneven axis.  A part past the end holds no rows."""
+    size = -(-n // parts)
+    start = min(index * size, n)
+    return start, min(size, n - start)
 
 
 def batch_sharding(mesh: DeviceMesh) -> Tuple:
@@ -85,31 +97,41 @@ def shard_graphbatch(batch, mesh: DeviceMesh):
 
 def param_shardings(params: Mapping[str, torch.Tensor], mesh: DeviceMesh,
                     min_size: int = 1 << 14) -> Dict[str, Tuple]:
-    """Each parameter's placements, by JAX's rule: a tensor of at least
-    ``min_size`` elements shards the last axis whose size the ``model``
-    axis divides over ``model``; everything else is replicated."""
+    """Each parameter's placements, by JAX's rule on its flax layout: a
+    tensor of at least ``min_size`` elements shards over ``model`` the last
+    flax axis that the ``model`` axis divides; everything else is
+    replicated.  ``params`` are the port's tensors under the port's names
+    (a ``state_dict``): the rule reads each in the flax layout
+    (``params.torch_perm``) and the placement names the port's axis, so
+    every element lives on the ``model`` rank where JAX places it."""
     m = axis_size(mesh, MODEL_AXIS)
 
-    def one(p):
+    def one(name, p):
         if m > 1 and p.dim() > 0 and math.prod(p.shape) >= min_size:
-            for ax in reversed(range(p.dim())):
+            perm = torch_perm(name.rsplit(".", 1)[-1], p.dim())
+            for flax_ax in reversed(range(p.dim())):
+                ax = perm.index(flax_ax)
                 if p.shape[ax] % m == 0 and p.shape[ax] >= m:
                     return (Replicate(), Shard(ax))
         return replicated(mesh)
 
-    return {name: one(p) for name, p in params.items()}
+    return {name: one(name, p) for name, p in params.items()}
 
 
-def shard_params(params: Mapping[str, torch.Tensor], mesh: DeviceMesh,
-                 min_size: int = 1 << 14) -> Mapping[str, torch.Tensor]:
-    """Place the parameters on the mesh.  At ``model`` = 1 every parameter
-    is replicated: rank 0's values are broadcast to every process, in one
-    flattened buffer per dtype, and written in place (a ``state_dict``'s
-    tensors are the module's).  A ``model`` axis above 1 raises."""
-    if axis_size(mesh, MODEL_AXIS) > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
+def shard_params(params: Union[nn.Module, Mapping[str, torch.Tensor]], mesh: DeviceMesh,
+                 min_size: int = 1 << 14):
+    """Place the parameters on the mesh: rank 0's values are broadcast to
+    every process, in one flattened buffer per dtype, and written in place.
+    At ``model`` = 1 that is all.
+    Above it each process keeps its ``model`` rank's slice of every tensor
+    ``param_shardings`` shards: a module's parameter becomes that slice
+    (``tensor_parallel.shard_module``: the module reads the whole tensor,
+    all-gathered, in its forward); a mapping is returned with the slices
+    in place of those tensors.  Returns the module, or the mapping."""
+    module = params if isinstance(params, nn.Module) else None
+    named = dict(module.named_parameters()) if module is not None else dict(params)
     by_dtype: Dict[torch.dtype, list] = {}
-    for t in params.values():
+    for t in named.values():
         by_dtype.setdefault(t.dtype, []).append(t)
     with torch.no_grad():
         for tensors in by_dtype.values():
@@ -117,4 +139,10 @@ def shard_params(params: Mapping[str, torch.Tensor], mesh: DeviceMesh,
             dist.broadcast(flat, src=0)
             for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
                 t.copy_(v.view_as(t))
-    return params
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return params
+    from .tensor_parallel import own_slice, shard_module   # it imports this module
+    if module is not None:
+        return shard_module(module, mesh, min_size)
+    placements = param_shardings(named, mesh, min_size)
+    return {name: own_slice(t, placements[name], mesh) for name, t in named.items()}

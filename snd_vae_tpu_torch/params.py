@@ -20,6 +20,9 @@ keys:
     ``GeoGraphConv.w`` [in, out] and posGCN's ``StructGraphConv``
     ``edge_embedding_matrix`` [39, 128], ``bias1`` [128] and ``w`` [in, out].
 
+``load_flax_npz`` reads such a flattened tree from an ``.npz`` file, as
+``tools/flax_checkpoint_to_npz.py`` writes it from a JAX package checkpoint.
+
 The joint model's tree (``sg_convs_<i>``, ``sg_bns_<i>``, ``sg_lin1``,
 ``sg_lin_mean``/``_std``, ``d_sg_lin1``, ``s_deconvs_<i>``, ``d_bn_s_<i>``,
 ``d_s_lin2``, ``n_deconvs_<i>``, ``d_bn_n_<i>``, ``d_n_lin2``,
@@ -29,7 +32,7 @@ The joint model's tree (``sg_convs_<i>``, ``sg_bns_<i>``, ``sg_lin1``,
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,13 +49,18 @@ def torch_name(flax_path: str) -> str:
     return ".".join(out + [parts[-1]])
 
 
+def torch_perm(leaf: str, ndim: int) -> Tuple[int, ...]:
+    """The flax axis that each axis of the port's tensor holds, for a leaf
+    named ``leaf`` (the last part of its flax path or port name)."""
+    if leaf == "kernel" and ndim == 3:       # Conv1D [k, in, out]
+        return (2, 1, 0)
+    if leaf in ("w", "w1") and ndim == 4:    # conv kernels [H, W, I, O]
+        return (3, 2, 0, 1)
+    return tuple(range(ndim))
+
+
 def torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
-    leaf = flax_path.rsplit("/", 1)[-1]
-    if leaf == "kernel" and value.ndim == 3:       # Conv1D [k, in, out]
-        return np.transpose(value, (2, 1, 0))
-    if leaf in ("w", "w1") and value.ndim == 4:    # conv kernels [H, W, I, O]
-        return np.transpose(value, (3, 2, 0, 1))
-    return value
+    return np.transpose(value, torch_perm(flax_path.rsplit("/", 1)[-1], value.ndim))
 
 
 def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -61,6 +69,14 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
             np.ascontiguousarray(torch_layout(path, np.asarray(value))))
         for path, value in flat.items()
     }
+
+
+def load_flax_npz(path: str) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a JAX package parameter tree saved as an
+    ``.npz`` of its ``"module/leaf"`` paths (``tools/
+    flax_checkpoint_to_npz.py``)."""
+    with np.load(path, allow_pickle=False) as flat:
+        return state_dict_from_flax({k: flat[k] for k in flat.files})
 
 
 def sharded_gcn_state_dict(kernels: Sequence[np.ndarray]) -> Dict[str, torch.Tensor]:

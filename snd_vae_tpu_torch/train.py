@@ -41,7 +41,23 @@ of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
     optimizer step: the step equals the single-process step on the global
     batch.  Rank 0 alone writes logs, checkpoints and ``best.json`` and
     evaluates the held-out split; every rank resumes from the checkpoint.
-    A ``model`` axis above 1 raises (ROADMAP.md queue 1, item 6(a)).
+
+  * The mesh's ``model`` axis (``cfg.mesh.model`` > 1, or a ``mesh`` with
+    one; JAX ``train.py:366-371`` and the hints it turns on,
+    ``:413-419``): every parameter that ``parallel.param_shardings`` shards
+    becomes its model rank's slice (``parallel.tensor_parallel``), so its
+    Adam moments live on that rank too, and the big activations' node axis
+    is split over the model ranks (``parallel.hints``; the convs, the
+    adjacency head and the loss compute on each rank's rows).  A
+    replicated parameter's gradient is summed over the model ranks (each
+    saw only its rows) and a slice's over the model ranks by the backward
+    of its all-gather; both are then averaged over the data ranks and
+    divided by the model axis's size, as every rank computes the same
+    loss.  The step equals the single-process step.  Checkpoints hold
+    whole tensors in the unsharded layout, gathered by every rank and
+    written by rank 0, so a run resumes on any mesh or in one process.
+    The held-out split is scored by the model ranks of data rank 0
+    together, under the model axis (JAX's ``_mesh_scope``).
 
 The JAX trainer's ``scan_unroll``, ``epoch_chunk`` and ``max_dispatch_s``
 shape how XLA dispatches an epoch and have no counterpart here.
@@ -63,9 +79,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.func import functional_call
+from torch.nn.utils import parametrize
 from torch.profiler import record_function
 
-from .checkpoint import Checkpointer, checkpoint_dir
+from .checkpoint import Checkpointer, checkpoint_dir, checkpoint_payload
 from .config import Config
 from .data.graphbatch import GraphBatch
 from .data.spanning_tree import sample_spanning_trees
@@ -73,11 +90,13 @@ from .device import DeviceLike, dtype_of, full_f32, resolve_device
 from .evaluate import edge_presence_scores, reconstruct_evaluation
 from .losses import elbo_loss
 from .models import Latents, Model, build_model
-from .parallel.batch import average_gradients, global_mean
+from .models.outputs import whole_decoded
+from .parallel.batch import average_gradients, global_sum, model_sum
 from .parallel.distributed import is_primary
-from .parallel.hints import use_mesh
-from .parallel.mesh import MODEL_AXIS_TODO, axis_size, mesh_from_config, shard_graphbatch, \
-    shard_params
+from .parallel.hints import shard_nodes, use_mesh
+from .parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, mesh_from_config, \
+    shard_graphbatch, shard_params
+from .parallel.tensor_parallel import canonical_parameters, slices
 from .serve import reconstruct
 from .utils.logging import LossesLogger, epoch_means
 
@@ -87,8 +106,8 @@ class TrainState:
     """What one step reads and updates: the run's config (its
     ``compute_dtype`` is the forward's), the model holding the f32 master
     parameters, the optimizer, the generator of the ε stream (on the
-    model's device), the count of steps taken and the data-parallel mesh
-    (None: one process)."""
+    model's device), the count of steps taken and the mesh (None: one
+    process)."""
 
     cfg: Config
     model: Model
@@ -188,20 +207,27 @@ def train_step(state: TrainState, batch: GraphBatch, global_iter,
 
     With ``state.mesh``, ``batch`` (and ``eps``, when given) is this rank's
     block of the global batch; the loss, the aux values and, once averaged
-    over the ranks, the gradients are the global batch's."""
+    over the ranks, the gradients are the global batch's.  Under a model
+    axis the decoded adjacency holds this rank's rows, and each sharded
+    parameter is gathered once per forward (``parametrize.cached``)."""
     with use_mesh(state.mesh):
-        with record_function("train_step.forward"):
+        with record_function("train_step.forward"), parametrize.cached():
             out = _forward(state, batch, eps)
             total, aux = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
                                    global_iter, node_mask=batch.node_mask)
-            # edge accuracy of the decoded graphs against the truth
-            aux["adj_acc"] = global_mean((out.decoded.adj == batch.adj).float().mean())
+            # edge accuracy of the decoded graphs (this rank's rows) against the
+            # truth: the hits counted over the mesh, then one division (f32
+            # counts are exact, so this is the one-process mean bit for bit)
+            rows = shard_nodes(batch.adj, tag="dec.adj_true", nodes=batch.adj.shape[1])
+            hits, edges = global_sum(model_sum((out.decoded.adj == rows).float().sum()),
+                                     torch.tensor(float(batch.adj.numel()), device=rows.device))
+            aux["adj_acc"] = hits / edges
         with record_function("train_step.backward"):
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             if state.mesh is not None:
                 average_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
-                                  state.mesh)
+                                  state.mesh, sharded=slices(state.model))
         with record_function("train_step.optimizer"):
             state.optimizer.step()
     state.step += 1
@@ -262,25 +288,30 @@ class Trainer:
     ``<workdir>/<log_dir>/train_loss_<dataset>_<model_type>.txt`` and
     ``.jsonl`` and checkpoints to ``checkpoint.checkpoint_dir(cfg, workdir)``.
     ``eval_batch`` is the held-out split that ``cfg.train.eval_every``
-    scores.  ``mesh`` (or, when None, ``cfg.mesh.data`` > 1) trains data
-    parallel over the processes of the mesh (see the module docstring)."""
+    scores.  ``mesh`` (or, when None, ``cfg.mesh.data`` or ``cfg.mesh.model``
+    above 1) trains over the processes of the mesh (see the module
+    docstring)."""
 
     def __init__(self, cfg: Config, train_batch: GraphBatch, device: DeviceLike = None,
                  workdir: str = ".", eval_batch: Optional[GraphBatch] = None,
                  mesh: Optional[DeviceMesh] = None):
         full_f32()
         dev = resolve_device(device)
-        if cfg.mesh.model > 1 or (mesh is not None and axis_size(mesh, "model") > 1):
-            raise NotImplementedError(MODEL_AXIS_TODO)
-        if mesh is None and cfg.mesh.data > 1:
+        if mesh is None and (cfg.mesh.data > 1 or cfg.mesh.model > 1):
             mesh = mesh_from_config(cfg.mesh, dev)
         self.cfg, self.device, self.workdir, self.mesh = cfg, dev, workdir, mesh
         model = build_model(cfg.with_(compute_dtype="float32"), dev).train()
         if mesh is not None:
-            shard_params(model.state_dict(), mesh)
+            shard_params(model, mesh)
+        params = [p for _, p in canonical_parameters(model)]
         self.state = TrainState(
-            cfg=cfg, model=model, optimizer=make_optimizer(cfg, model.parameters()),
+            cfg=cfg, model=model, optimizer=make_optimizer(cfg, params),
             generator=torch.Generator(device=dev).manual_seed(cfg.train.seed), mesh=mesh)
+        # the model ranks of data rank 0 score the held-out split together,
+        # under the model axis alone; without one, rank 0 alone
+        tp = mesh is not None and axis_size(mesh, MODEL_AXIS) > 1
+        self._eval_mesh = mesh[MODEL_AXIS] if tp else None
+        self.evaluates = mesh.get_local_rank(DATA_AXIS) == 0 if tp else is_primary()
         self.data = train_batch.to(dev)
         self.batched = rebatch(self.data, cfg.train.batch_size)
         self.primary = is_primary()
@@ -334,8 +365,10 @@ class Trainer:
         ``batch_size`` (as the JAX ``make_eval_step`` decodes with its f32
         parameters); one host sync fetches every slice's decode."""
         B = self.cfg.train.batch_size
-        outs = [reconstruct(self.state.model, self.eval_batch.slice_batch(i * B, B)).decoded
-                for i in range(max(self.eval_batch.batch_size // B, 1))]
+        with use_mesh(self._eval_mesh), parametrize.cached():
+            outs = [whole_decoded(reconstruct(self.state.model,
+                                              self.eval_batch.slice_batch(i * B, B)).decoded)
+                    for i in range(max(self.eval_batch.batch_size // B, 1))]
         fields = {name: torch.cat([getattr(o, name) for o in outs])
                   for name in ("adj", "adj_prob", "coords", "node_feat")}
         # one transfer: every field as float64 (exact for f32, bf16 and the
@@ -358,12 +391,17 @@ class Trainer:
         scores and keep the best checkpoint by ``cfg.train.best_metric`` (a
         leading "-" minimizes), with its score in ``best.json`` so that a
         resumed run compares against the best of all its runs.  A metric
-        the scores lack is skipped, as in JAX.  Rank 0 alone evaluates."""
+        the scores lack is skipped, as in JAX.  Rank 0 alone evaluates, or
+        under a model axis the model ranks of data rank 0, which gather the
+        checkpoint's tensors each time; rank 0 writes."""
         k = self.cfg.train.eval_every
-        if (k <= 0 or self.eval_batch is None or not self.primary or epoch <= 0
+        if (k <= 0 or self.eval_batch is None or not self.evaluates or epoch <= 0
                 or epoch % k != 0):
             return
         metrics = self.evaluate_heldout()
+        payload = checkpoint_payload(self.state) if self._eval_mesh is not None else None
+        if not self.primary:
+            return
         self.eval_logger.log(epoch, {f"val_{n}": [v] for n, v in metrics.items()})
         name = self.cfg.train.best_metric
         sign = -1.0 if name.startswith("-") else 1.0
@@ -380,7 +418,7 @@ class Trainer:
                      if self._best_value is not None else ""))
         if self._best_value is None or score > self._best_value:
             self._best_value = score
-            self.best_checkpointer.save(epoch, self.state)
+            self.best_checkpointer.save(epoch, self.state, payload)
             with open(self.best_path, "w") as f:
                 json.dump({"epoch": epoch, "metric": key, "value": score,
                            "raw": metrics[key]}, f)
@@ -416,8 +454,11 @@ class Trainer:
         return {k: values[:, j].tolist() for j, k in enumerate(keys)}
 
     def _save(self, epoch: int) -> None:
+        """Every rank gathers the state's whole tensors (collectives under a
+        model axis); rank 0 writes them."""
+        payload = checkpoint_payload(self.state)
         if self.primary:
-            self.checkpointer.save(epoch, self.state)
+            self.checkpointer.save(epoch, self.state, payload)
 
     def run(self, epochs: Optional[int] = None, verbose: bool = True) -> Dict[str, float]:
         """Train up to ``epochs`` (``cfg.train.epochs`` when None); returns
@@ -447,5 +488,5 @@ class Trainer:
                         print(f"interrupted: checkpointed epoch {epoch}")
                     break
         if self.mesh is not None:
-            dist.barrier(group=self.mesh.get_group("data"))
+            dist.barrier()
         return last_means

@@ -109,6 +109,46 @@ def test_cuda_kernel_matches_plain_version():
         assert bool((err <= (2 * N + 2 * R + 10) * 2.0 ** -24 * mag).all())
 
 
+def test_cuda_kernel_row_windows_match_the_rows():
+    """On the card: ``fused_motif_level3``'s row windows (the rows of each
+    of m = 2 and 4 model ranks of an uneven N, ``node_block``'s split) held
+    against ``_level3_rows`` on those rows, f32 within the summation bound
+    of float64 and bf16 within 2e-2 of the largest magnitude, one launch
+    each; the windows put together equal the full launch bit for bit."""
+    from snd_vae_tpu_torch.nn.kernels.motif_level3 import _level3_rows
+    from snd_vae_tpu_torch.parallel.mesh import node_block
+
+    _card()
+    rng = np.random.default_rng(1)
+    for B, N, h, R in ((5, 25, 50, 1), (2, 70, 75, 2)):
+        x64 = _t(_level3_inputs(rng, B, N, h, R))
+        for dt in (torch.float32, torch.bfloat16):
+            ts = [t.to(dt).cuda() for t in x64]
+            full = fused_motif_level3(*ts)
+            for m in (2, 4):
+                parts = []
+                for r in range(m):
+                    r0, n = node_block(N, m, r)
+                    win = [ts[0], ts[1][:, r0:r0 + n].contiguous(),
+                           ts[2][:, r0:r0 + n].contiguous(), *ts[3:]]
+                    n0 = fused_motif_level3.launches
+                    got = fused_motif_level3(*win, r0)
+                    torch.cuda.synchronize()
+                    assert fused_motif_level3.launches == n0 + 1
+                    rows = lambda w: _level3_rows(w[0], w[0][:, r0:r0 + n], *w[1:])
+                    if dt == torch.float32:
+                        w64 = [t.double() for t in win]
+                        err = (got.double() - rows(w64)).abs()
+                        mag = rows([t.abs() for t in w64])
+                        assert bool((err <= (2 * N + 2 * R + 10) * 2.0 ** -24 * mag).all())
+                    else:
+                        want = rows(win).float()
+                        err = (got.float() - want).abs().max().item()
+                        assert err <= 2e-2 * want.abs().max().item()
+                    parts.append(got)
+                assert torch.equal(torch.cat(parts, dim=1), full)
+
+
 def test_cuda_fused_matches_plain():
     """On a card: K3 with GraphConv's W fused, small and tiled, against the
     plain version (f32 at rtol/atol 1e-5)."""

@@ -362,13 +362,42 @@ def test_reshuffle_permutes_and_is_off_in_parity_mode(tmp_path):
 
 @pytest.mark.parametrize("over", [dict(mesh=dict(model=2))])
 def test_unported_trainer_options_raise(tmp_path, over):
-    """The mesh's model axis (tensor parallelism) is not ported; the data
-    axis is (tests/test_torch_dp_train.py)."""
+    """The mesh's model axis, which raised before it was ported: in one
+    process the Trainer asks for the process group it needs, and over two
+    gloo processes (``tests/torch_dist_workers.py``) a config with
+    ``mesh.model = 2`` trains 2 epochs to the losses of one process (rtol
+    1e-5: f32's summation order), both ranks alike, and both model ranks
+    score the held-out split each epoch, whose scores rank 0 logs equal
+    to one process's (tests/test_torch_tp.py holds the rest)."""
+    from torch_dist_workers import run_many
+
     _, tc = configs("small")
-    tc = tc.with_(mesh=tcfg.MeshConfig(**over["mesh"]))
+    tc = tc.with_(train=dataclasses.replace(tc.train, batch_size=5, eval_every=1),
+                  mesh=tcfg.MeshConfig(**over["mesh"]))
     data = load_dataset(tc, "train", num_graphs=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         ttrain.Trainer(tc, data, device="cpu", workdir=str(tmp_path))
+    (outs,) = run_many([("tp_trainer", 2, tmp_path / "tp",
+                         {"cfg": tc, "graphs": 10, "eval_graphs": 5})])
+    assert outs[0]["means"] == outs[1]["means"]
+    assert outs[0]["evaluates"] and outs[1]["evaluates"]
+    one = tc.with_(mesh=tcfg.MeshConfig())
+    held = load_dataset(tc, "test", num_graphs=5, device="cpu")
+    single = ttrain.Trainer(one, data, device="cpu", workdir=str(tmp_path / "one"),
+                            eval_batch=held).run(2, verbose=False)
+    for k, v in single.items():
+        np.testing.assert_allclose(outs[0]["means"][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
+    val = lambda wd: [line.split(",") for line in (
+        tmp_path / wd / tc.train.log_dir /
+        f"val_loss_{tc.dataset}_{tc.model_type}.txt").read_text().splitlines()[1:]]
+    got, want = val("tp/a"), val("one")
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        # the scores of weights that differ in f32's last bits: the edge AUC /
+        # AP of a barely trained model move by ~1e-4 where two scores tie
+        assert g[:2] == w[:2]
+        np.testing.assert_allclose(float(g[2]), float(w[2]), rtol=1e-3, atol=1e-6,
+                                   err_msg=g[1])
 
 
 def test_trainer_with_eval_every_scores_the_heldout_split(tmp_path):

@@ -39,9 +39,11 @@ from snd_vae_tpu_torch.parallel import (  # noqa: E402
     constrain, initialize_distributed, is_primary, make_mesh, param_shardings,
     shard_graphbatch, shard_nodes, shard_params, use_mesh,
 )
+from snd_vae_tpu_torch.parallel import hints  # noqa: E402
 from snd_vae_tpu_torch.parallel import large_graph as lg  # noqa: E402
+from snd_vae_tpu_torch.parallel import tensor_parallel as tp  # noqa: E402
 from snd_vae_tpu_torch.parallel.batch import (  # noqa: E402
-    global_mean, global_rows, global_sum, local_rows,
+    gather_nodes, global_mean, global_rows, global_sum, local_rows,
 )
 from snd_vae_tpu_torch.params import sharded_gcn_state_dict  # noqa: E402
 
@@ -86,24 +88,28 @@ def run_many(jobs, timeout: float = 300) -> list:
 # The data-parallel step, shared with the single-process reference
 # --------------------------------------------------------------------------
 
-def make_state(cfg, state_dict=None, mesh=None) -> ttrain.TrainState:
+def make_state(cfg, state_dict=None, mesh=None, min_size=1 << 14) -> ttrain.TrainState:
     """The float64 train state of ``cfg`` on the CPU: the seed's weights
     (or ``state_dict``), the optimizer of ``cfg``, the ε generator seeded
-    with 0."""
+    with 0.  Under a mesh with a model axis, the parameters of at least
+    ``min_size`` elements that the axis divides are sharded over it."""
     model = build_model(cfg, device="cpu").to(F64)
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    if mesh is not None:
+        shard_params(model, mesh, min_size)
+    params = [p for _, p in tp.canonical_parameters(model)]
     return ttrain.TrainState(cfg=cfg, model=model,
-                             optimizer=ttrain.make_optimizer(cfg, model.parameters()),
+                             optimizer=ttrain.make_optimizer(cfg, params),
                              generator=torch.Generator().manual_seed(0), mesh=mesh)
 
 
-def one_step(cfg, arrays, state_dict=None, eps=None, mesh=None) -> dict:
+def one_step(cfg, arrays, state_dict=None, eps=None, mesh=None, min_size=1 << 14) -> dict:
     """One ``train_step`` in float64 on the global batch ``arrays`` (numpy),
     or under ``mesh`` on this rank's block of it (and of ``eps``, a dict
     of global noise arrays s / sg / g); returns the aux values, every
-    gradient and every updated parameter."""
-    state = make_state(cfg, state_dict, mesh)
+    gradient and every updated parameter, whole, by unsharded name."""
+    state = make_state(cfg, state_dict, mesh, min_size)
     batch = from_numpy(**arrays, dtype=F64)
     if mesh is not None:
         batch = shard_graphbatch(batch, mesh)
@@ -113,10 +119,11 @@ def one_step(cfg, arrays, state_dict=None, eps=None, mesh=None) -> dict:
         t = lambda k: torch.from_numpy(rows(eps[k])).to(F64)
         eps = Latents(z_s=t("s"), z_sg=t("sg"), z_g=t("g"))
     aux = ttrain.train_step(state, batch, torch.tensor(0.0, dtype=F64), eps=eps)
-    named = dict(state.model.named_parameters())
+    named = dict(tp.canonical_parameters(state.model))
     return {"aux": {k: v.item() for k, v in aux.items()},
-            "grads": {n: p.grad.clone() for n, p in named.items()},
-            "params": {n: p.detach().clone() for n, p in named.items()}}
+            "grads": tp.whole_tensors(state.model, {n: p.grad for n, p in named.items()}),
+            "params": tp.whole_tensors(state.model, named),
+            "sharded": sorted(tp.sharded(state.model))}
 
 
 # --------------------------------------------------------------------------
@@ -157,28 +164,30 @@ def job_parallel(rank, world, inputs, directory):
     x = torch.ones(2, 3)
     out["identity"] = [constrain(x, "data") is x, shard_nodes(x) is x]
     with use_mesh(meshes["4x1"]):
-        out["identity"] += [constrain(x, "data") is x, shard_nodes(x) is x]
+        out["identity"] += [constrain(x, "data") is x, shard_nodes(x) is x,
+                            constrain(x, None, "model") is x]
         g = torch.Generator().manual_seed(3)
         out["local_draw"] = local_rows(lambda s: torch.randn(s, generator=g, dtype=F64), (2, 3))
         local = torch.arange(6, dtype=F64).reshape(2, 3) + 10.0 * rank
         out["global_sum"] = global_sum(local.sum())
         out["global_mean"] = global_mean(local.mean(0), local.mean())
         out["global_rows"] = global_rows(local)
-    raised = []
-    with use_mesh(meshes["2x2"]):
-        for hint in (lambda: constrain(x, None), lambda: shard_nodes(x)):
-            try:
-                hint()
-            except NotImplementedError as e:
-                raised.append(str(e))
-    out["hints_raise"] = raised
+    # under a model axis of 2 (and of 4): this rank's rows of the node axis
+    nodes = torch.arange(2 * 5 * 3).reshape(2, 5, 3)
+    out["hint_rows"] = {}
+    for name in ("2x2", "1x4"):
+        with use_mesh(meshes[name]):
+            rows = shard_nodes(nodes, tag="probe")
+            out["hint_rows"][name] = {
+                "shard_nodes": rows, "constrain": constrain(nodes, "data", "model"),
+                "again": shard_nodes(rows, nodes=5) is rows,
+                "whole": gather_nodes(rows, 5), "block": hints.own_block(5)}
     params = {"a": torch.full((3,), float(rank)), "b": torch.full((2, 2), float(rank), dtype=F64)}
     shard_params(params, meshes["4x1"])
     out["broadcast"] = params
-    try:
-        shard_params(params, meshes["2x2"])
-    except NotImplementedError as e:
-        out["shard_params_raise"] = str(e)
+    mixed = {"small": torch.full((3,), float(rank)),
+             "big": torch.arange(64 * 8, dtype=F64).reshape(64, 8) + rank}
+    out["model_slices"] = shard_params(mixed, meshes["2x2"], min_size=256)
     return out
 
 
@@ -248,7 +257,147 @@ def _trainer_runs(cfg, mesh, directory) -> dict:
             "checkpoints": sorted(os.listdir(straight.checkpointer.directory))}
 
 
-JOBS = {"parallel": job_parallel, "large_graph": job_large_graph, "dp_step": job_dp_step}
+# --------------------------------------------------------------------------
+# The mesh's model axis
+# --------------------------------------------------------------------------
+
+def _inspect():
+    """Collect every ``shard_nodes`` report as tag -> [(start, stop, n)]."""
+    seen = {}
+    hints._INSPECT = lambda tag, start, stop, n: seen.setdefault(tag, []).append(
+        (start, stop, n))
+    return seen
+
+
+def tp_op(case, mesh=None):
+    """One node-sharded op of ``case`` (built by ``tp_op_module`` from its
+    seed, float64) on the whole inputs: under ``mesh`` this rank's rows of
+    the output, a local loss Σ out·g over those rows and the gradients of
+    that loss (the inputs' and the parameters'); without it the whole op."""
+    fn, params = tp_op_module(case)
+    inputs = [torch.from_numpy(a).requires_grad_(True) for a in case["inputs"]]
+    with use_mesh(mesh):
+        out = fn(*inputs)
+        n = case["inputs"][0].shape[1]
+        g = shard_nodes(torch.from_numpy(case["g"]), nodes=n)
+        grads = torch.autograd.grad((out * g).sum(), inputs + list(params.values()),
+                                    allow_unused=True)
+        whole = gather_nodes(out.detach(), n)
+    names = [f"input{i}" for i in range(len(inputs))] + list(params)
+    return {"out": whole, "grads": {k: (torch.zeros(()) if v is None else v)
+                                    for k, v in zip(names, grads)}}
+
+
+def tp_op_module(case):
+    """(fn of the whole inputs, the parameters by name) of an op case."""
+    from snd_vae_tpu_torch.models import build_model
+    from snd_vae_tpu_torch.nn import E2E, SpatialGraphConv, SpatialGraphConv3D
+
+    kind, g = case["kind"], torch.Generator().manual_seed(case.get("seed", 0))
+    if kind == "sgc3":
+        m = SpatialGraphConv(case["F"], case["R"], case["hidden"], g,
+                             block_rows=case.get("block_rows")).to(F64)
+        return (lambda adj, x, rel: m(adj, x, rel)), dict(m.named_parameters())
+    if kind == "sgc4":
+        m = SpatialGraphConv3D(case["F"], case["R"], case["hidden"], g,
+                               fully_connected=case.get("fully_connected", False),
+                               block_rows=case.get("block_rows")).to(F64)
+        return (lambda adj, x, rel: m(adj, x, rel)), dict(m.named_parameters())
+    if kind in ("e2e", "e2e_sep"):
+        m = E2E(case["C"], case["O"], case["k_h"], g, use_matmul=case.get("use_matmul")).to(F64)
+        for p in m.parameters():          # a bias of zeros would hide its gradient
+            with torch.no_grad():
+                p.add_(0.1 * torch.randn(p.shape, generator=g, dtype=F64))
+        if kind == "e2e":
+            # the map as the adjacency head hands it over: this rank's rows
+            return (lambda x: m(shard_nodes(x, tag="probe.e2e", nodes=x.shape[1]))), dict(
+                m.named_parameters())
+        return (lambda p_, q, d: m(factors=(p_, q, shard_nodes(d, nodes=d.shape[1])))), dict(
+            m.named_parameters())
+    if kind == "adj_head":
+        model = build_model(case["cfg"], device="cpu").to(F64)
+        head = {n: p for n, p in model.named_parameters()
+                if n.split(".", 1)[0] in model.ADJ_HEAD}
+        return (lambda h, coords: model._adj_head(h, coords)), head
+    raise ValueError(kind)
+
+
+def job_tp_ops(rank, world, inputs, directory):
+    """Every op case on the 2x2 and the 1x4 mesh, with the hint reports."""
+    meshes = {"2x2": make_mesh(2, 2, "cpu"), "1x4": make_mesh(1, 4, "cpu")}
+    out = {}
+    for mesh_name, mesh in meshes.items():
+        seen = _inspect()
+        out[mesh_name] = {name: tp_op(case, mesh) for name, case in inputs["ops"].items()}
+        out[mesh_name]["seen"] = seen
+    hints._INSPECT = None
+    return out
+
+
+def job_tp_step(rank, world, inputs, directory):
+    """Each step case on the 1x4 and the 2x2 mesh (the parameters of at
+    least ``min_size`` elements sharded), the hint reports of the first
+    case, and the parameter and Adam bytes this rank holds at the
+    synthetic2 widths on the 1x4 mesh."""
+    out = {}
+    for mesh_name, (d, m) in (("1x4", (1, 4)), ("2x2", (2, 2))):
+        mesh = make_mesh(d, m, "cpu")
+        for name, c in inputs["cases"].items():
+            seen = _inspect()
+            out[(mesh_name, name)] = one_step(c["cfg"], c["arrays"], c.get("state_dict"),
+                                              c.get("eps"), mesh, inputs["min_size"])
+            out[(mesh_name, name)]["seen"] = seen
+    hints._INSPECT = None
+    out["bytes"] = state_bytes(inputs["bytes_cfg"], make_mesh(1, world, "cpu"))
+    return out
+
+
+def state_bytes(cfg, mesh=None) -> int:
+    """The bytes of the parameters and Adam's moments one process holds for
+    ``cfg``'s model (f32) after a first optimizer step, its big parameters
+    sharded over ``mesh``'s model axis."""
+    model = build_model(cfg, device="cpu")
+    if mesh is not None:
+        shard_params(model, mesh)
+    params = [p for _, p in tp.canonical_parameters(model)]
+    opt = ttrain.make_optimizer(cfg, params)
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    moments = [v for st in opt.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor) and v.dim() > 0]
+    return sum(t.numel() * t.element_size() for t in params + moments)
+
+
+def job_tp_trainer(rank, world, inputs, directory):
+    """The Trainer of ``inputs["cfg"]``, whose ``mesh`` config names the
+    mesh (the Trainer builds it): 2 epochs straight in workdir a (scoring
+    ``eval_graphs`` held-out graphs at the config's ``eval_every``, when
+    given); with ``single_workdir`` also 1 epoch in workdir b (left for a
+    resume in one process) and a resume to 2 epochs of the one-process
+    checkpoint the test wrote there; the whole state after each."""
+    from snd_vae_tpu_torch.checkpoint import checkpoint_payload
+
+    cfg = inputs["cfg"]
+    data = load_dataset(cfg, "train", num_graphs=inputs["graphs"], device="cpu")
+    held = (load_dataset(cfg, "test", num_graphs=inputs["eval_graphs"], device="cpu")
+            if "eval_graphs" in inputs else None)
+    trainer = lambda wd: ttrain.Trainer(cfg, data, device="cpu", workdir=wd, eval_batch=held)
+    straight = trainer(str(directory / "a"))
+    out = {"means": straight.run(2, verbose=False), "evaluates": straight.evaluates,
+           "straight": checkpoint_payload(straight.state),
+           "sharded": sorted(tp.sharded(straight.state.model)),
+           "checkpoints": sorted(os.listdir(straight.checkpointer.directory))}
+    if "single_workdir" in inputs:
+        trainer(str(directory / "b")).run(1, verbose=False)
+        resumed = trainer(inputs["single_workdir"])
+        out["resumed_means"] = resumed.run(2, verbose=False)
+        out["resumed"] = checkpoint_payload(resumed.state)
+    return out
+
+
+JOBS = {"parallel": job_parallel, "large_graph": job_large_graph, "dp_step": job_dp_step,
+        "tp_ops": job_tp_ops, "tp_step": job_tp_step, "tp_trainer": job_tp_trainer}
 
 
 def main(argv) -> None:
