@@ -6,6 +6,14 @@
 Phases, one output line each:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every kernel from csrc/ (sm_90a), in parallel;
+ 2b. native  — the native data-path library (utils/native.py) built with
+               the host's C++ compiler (which one, and the seconds): S =
+               10 spanning trees per graph of the synthetic2 and protein
+               train splits (N = 25, 50), each inside A, symmetric, with N
+               - c edges for A's c components and spanning each (a forest
+               where A is disconnected), two calls bit-equal, the host ms
+               of the native and numpy samplers; pairwise_distances within
+               1e-12 of numpy in float64;
   3. kernels — the timing floor (a one-element fill_ timed the same way);
                each kernel against its plain PyTorch version on the card at
                the shapes the paths give it (and large ones), with its
@@ -84,7 +92,18 @@ Phases, one output line each:
  16. cli_eval — the CLI in-process: train with --eval-every, then
                test_reconstruct, test_generation, test_disentangle (each
                mode), the joint model's test_disentangle and sweep, every
-               metric and grid finite;
+               metric and grid finite; the figures test_reconstruct and
+               test_disentangle draw (figures/reconstruct_, latent_ and
+               traverse_synthetic2.png) decoded with zlib (IHDR / IDAT /
+               IEND and their CRCs), at matplotlib's pixel size for the
+               figure, with drawn pixels; the ms each drawing took;
+ 16b. cli_profile — the CLI's --type train --epochs 2 --profile at
+               synthetic2 full width in a process of its own: the
+               torch.profiler trace of epoch 1 holds one train_epoch range
+               over 20 steps and 40 motif_level3, 40 adj_matmul and no
+               motif_combine kernel events; the traced epoch's wall time
+               and its train_epoch range against an untraced f32 epoch of
+               phase 5;
  17. large_graph — in an NCCL process group of one (a FileStore in a
                temporary directory) and ``make_mesh(1, 1)``: the
                node-sharded GCN encoder (hidden 128, 128) on symmetric
@@ -114,7 +133,8 @@ Phases, one output line each:
                snd_vae_tpu_torch.cli --type train --dp 1 --distributed
                --epochs 1`` in a subprocess: it joins, trains to a finite
                loss and writes one checkpoint;
- 20. the launches per path and the kernels line (JSON); 21. the result
+ 20. the launches per path (profile_train: the kernel events in the
+               trace of 16b) and the kernels line (JSON); 21. the result
                line (JSON), last.
 
 NCCL refuses two ranks on one card, so this script runs the parallel
@@ -1499,17 +1519,54 @@ def run_cli_eval():
     test_generation, test_disentangle in each mode and sweep --epochs 1 (its
     own workdir); the joint model's test_reconstruct and test_disentangle.
     Every metric finite, every traversal grid finite; each command's
-    seconds."""
+    seconds.  The figures each drew (``figures/reconstruct_synthetic2.png``
+    and ``latent_synthetic2.png`` after test_reconstruct, the latter only
+    for the disentangled model; ``traverse_synthetic2.png``, whose path
+    test_disentangle returns), decoded by ``decode_png`` at matplotlib's
+    pixel size for the figure, with pixels beside the background; the ms
+    each drawing function took."""
+    from snd_vae_tpu_torch import cli
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    enc, V = cfg.encoder, cfg.visualize_length
+    grid_rows = {"generation": 3, "single": 1,
+                 "latent": enc.s_latent_size + enc.g_latent_size + enc.sg_latent_size}
+    n_factors = load_dataset(cfg, "test", num_graphs=2, device="cpu").factors.shape[1]
+    draw_ms = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            fig = fn(*args, **kwargs)
+            draw_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            return fig
+        return wrapper
+
+    drawers = ("visualize_reconstruct", "visualize_latent_embedding", "visualize_traverse")
+    originals = {name: getattr(cli, name) for name in drawers}
+    for name in drawers:
+        setattr(cli, name, timed(name, originals[name]))
+    out = {}
+    try:
+        _run_cli_eval(cli, out, grid_rows, V, n_factors)
+    finally:
+        for name in drawers:
+            setattr(cli, name, originals[name])
+    out["draw_ms"] = draw_ms
+    return out
+
+
+def _run_cli_eval(cli, out, grid_rows, V, n_factors):
     import contextlib
     import io
     import tempfile
 
     import numpy as np
 
-    from snd_vae_tpu_torch import cli
-
-    out = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        figures = Path(workdir) / "figures"
         common = ["--workdir", workdir, "--dataset-path", str(ROOT / "dataset")]
         runs = [("train", ["--type", "train", "--epochs", "2", "--eval-every", "1"]),
                 ("test_reconstruct", ["--type", "test_reconstruct"]),
@@ -1527,9 +1584,16 @@ def run_cli_eval():
                                argv + ["--dataset-path", str(ROOT / "dataset")])
             secs = time.perf_counter() - t0
             if isinstance(got, str):
-                grid = {k: np.load(f"{got}/{k}.npy") for k in ("adj", "node_feat", "coords")}
+                model_type = "base" if name.startswith("base") else "disentangled"
+                grid_dir = Path(workdir) / "traverse" / f"synthetic2_{model_type}"
+                grid = {k: np.load(grid_dir / f"{k}.npy") for k in ("adj", "node_feat", "coords")}
                 check(all(np.isfinite(v).all() for v in grid.values()), f"{name}: grid")
-                out[name] = {"seconds": secs, "grid_rows": len(grid["adj"])}
+                check(got == str(figures / "traverse_synthetic2.png"), f"{name} returned {got}")
+                rows = 1 if model_type == "base" else grid_rows[name.rsplit("_", 1)[1]]
+                check(len(grid["adj"]) == rows * V, f"{name}: {len(grid['adj'])} graphs")
+                out[name] = {"seconds": secs, "grid_rows": len(grid["adj"]),
+                             "png": check_png(got, (int(2.0 * V * 150), int(2.0 * rows * 150)))}
+                os.remove(got)
                 continue
             metrics = {k: v for k, v in got.items() if isinstance(v, float)}
             if name == "sweep":
@@ -1538,6 +1602,213 @@ def run_cli_eval():
             check(bool(metrics) and all(math.isfinite(v) for v in metrics.values()),
                   f"{name}: metrics {got}")
             out[name] = {"seconds": secs, "metrics": metrics}
+            if name.endswith("test_reconstruct"):
+                out[name]["png"] = {"reconstruct": check_png(figures / "reconstruct_synthetic2.png",
+                                                             (1650, 690))}
+                latent = figures / "latent_synthetic2.png"
+                check(latent.exists() == (name == "test_reconstruct"),
+                      f"{name}: latent figure {'missing' if not latent.exists() else 'drawn'}")
+                if latent.exists():
+                    out[name]["png"]["latent"] = check_png(latent,
+                                                           (int(3.2 * n_factors * 150), 450))
+                    os.remove(latent)
+                os.remove(figures / "reconstruct_synthetic2.png")
+
+
+NATIVE_SAMPLES = 10      # trees per graph in the native phase
+PROFILE_EPOCHS = 2       # cli_profile: --epochs 2 --profile traces epoch 1
+# the kernel events of each wrapper in a torch.profiler trace, by the
+# substring their kernels' names share
+TRACE_KERNEL_NAMES = {"motif_level3": "motif_level3_kernel",
+                      "motif_combine": "motif_combine_kernel",
+                      "adj_matmul": "adj_matmul_"}
+
+
+def component_labels(adj):
+    """Each node's component label (the least node index it reaches) for
+    every graph of ``adj`` [..., N, N], by min-label propagation."""
+    import numpy as np
+
+    a = adj > 0.5
+    lab = np.broadcast_to(np.arange(a.shape[-1], dtype=np.float64), a.shape[:-1]).copy()
+    for _ in range(a.shape[-1]):
+        new = np.minimum(lab, np.where(a, lab[..., None, :], np.inf).min(-1))
+        if np.array_equal(new, lab):
+            break
+        lab = new
+    return lab
+
+
+def run_native():
+    """The port's native library (``utils/native.py``): built from the
+    checkout with the host's C++ compiler; S = 10 trees per graph of the
+    synthetic2 and protein train splits (N = 25, 50), each tree inside A,
+    symmetric, with N - c undirected edges for A's c components and
+    spanning each of them (a forest where A is disconnected); two calls
+    bit-equal; host ms of the native and numpy samplers;
+    ``pairwise_distances`` on protein's coordinates within 1e-12 of numpy
+    in float64."""
+    import numpy as np
+
+    from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.data.spanning_tree import sample_spanning_trees
+    from snd_vae_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.load()
+    out = {"compiler": native.build_info.get("compiler", " ".join(native.compiler())),
+           "compiler_version": subprocess.run(
+               native.compiler() + ["--version"], capture_output=True, text=True,
+               timeout=60).stdout.splitlines()[0],
+           "build_seconds": native.build_info.get("seconds", 0.0),
+           "load_seconds": time.perf_counter() - t0,
+           "library": str(native.library_path().relative_to(ROOT))}
+    coords = None
+    for name, preset in (("synthetic2", synthetic2_preset), ("protein", protein_preset)):
+        batch = load_dataset(preset(dataset_path=str(ROOT / "dataset")), "train", device="cpu")
+        adj = batch.adj.numpy().astype(np.float64)
+        G, N = adj.shape[:2]
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            trees = sample_spanning_trees(adj, NATIVE_SAMPLES, seed=1)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(trees, sample_spanning_trees(adj, NATIVE_SAMPLES, seed=1)),
+              f"native {name}: two calls differ")
+        t0 = time.perf_counter()
+        sample_spanning_trees(adj, NATIVE_SAMPLES, seed=1, use_native=False)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        check(trees.shape == (G, NATIVE_SAMPLES, N, N) and trees.dtype == np.float64,
+              f"native {name}: trees {trees.shape} {trees.dtype}")
+        check(bool(np.all(trees <= adj[:, None])) and
+              np.array_equal(trees, np.swapaxes(trees, -1, -2)),
+              f"native {name}: a tree leaves A or is not symmetric")
+        comps = component_labels(adj)
+        n_comps = (comps == np.arange(N)).sum(-1)
+        check(np.array_equal(component_labels(trees), np.broadcast_to(
+            comps[:, None], trees.shape[:-1])), f"native {name}: a tree does not span A")
+        check(np.array_equal(trees.sum((-1, -2)) / 2, np.broadcast_to(
+            (N - n_comps)[:, None], trees.shape[:2]).astype(np.float64)),
+            f"native {name}: edge counts")
+        out[name] = {"graphs": G, "nodes": N, "samples": NATIVE_SAMPLES,
+                     "disconnected_graphs": int((n_comps > 1).sum()),
+                     "native_ms": statistics.median(ms), "numpy_ms": numpy_ms}
+        coords = batch.coords.numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    dist = native.pairwise_distances(coords)
+    pd_ms = (time.perf_counter() - t0) * 1e3
+    want = np.linalg.norm(coords[:, :, None] - coords[:, None, :], axis=-1)
+    err = float(np.abs(dist - want).max())
+    check(err <= 1e-12, f"native pairwise_distances off numpy by {err}")
+    out["pairwise_distances"] = {"shape": list(coords.shape), "max_abs_err": err,
+                                 "native_ms": pd_ms}
+    return out
+
+
+def decode_png(path):
+    """An 8-bit RGB PNG as ``raster.write_png`` writes it, decoded with
+    zlib: the signature, every chunk's CRC, IHDR first, IDAT, IEND last,
+    and every row unfiltered (filter type 0).  Returns the [H, W, 3]
+    pixels."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: no PNG signature")
+    pos, kinds, idat, ihdr = 8, [], b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(crc == zlib.crc32(kind + body) & 0xFFFFFFFF, f"{path}: bad CRC in {kind}")
+        kinds.append(kind)
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    check(kinds[0] == b"IHDR" and kinds[-1] == b"IEND" and b"IDAT" in kinds,
+          f"{path}: chunks {kinds}")
+    w, h, depth, color = ihdr[:4]
+    check((depth, color) == (8, 2), f"{path}: depth {depth}, colour type {color}")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not raw[:, 0].any(), f"{path}: filtered rows")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def check_png(path, size) -> dict:
+    """The PNG at ``path`` decodes, has ``size`` (width, height) and more
+    than its background colour."""
+    import numpy as np
+
+    pixels = decode_png(path)
+    h, w = pixels.shape[:2]
+    check((w, h) == tuple(size), f"{path}: {w}x{h}, expected {size[0]}x{size[1]}")
+    background = pixels[0, 0]
+    drawn = float((pixels != background).any(-1).mean())
+    check(drawn > 0.005, f"{path}: {drawn:.4f} of the pixels differ from the background")
+    return {"size": [w, h], "drawn_share": drawn, "bytes": Path(path).stat().st_size}
+
+
+def run_cli_profile(untraced_epoch_s: float):
+    """``python -m snd_vae_tpu_torch.cli --type train --epochs 2 --profile``
+    at synthetic2 full width, in a process of its own as a user runs it
+    (timeout 600 s): the trace ``<workdir>/profile/trace_rank0.json`` holds
+    one ``train_epoch`` range over epoch 1's 20 steps and their kernel
+    events alone: 40 ``motif_level3``, 40 ``adj_matmul``, no
+    ``motif_combine``.  The traced epoch's wall time (the profiler's start
+    and stop included) and its ``train_epoch`` range, each against
+    ``untraced_epoch_s``, an untraced f32 epoch's seconds from the train
+    phase.  (In a process that has traced before, torch's profiler was
+    seen to drop a few of the first kernel records of a later trace:
+    hence a fresh process.)"""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        cmd = [sys.executable, "-m", "snd_vae_tpu_torch.cli", "--type", "train", "--epochs",
+               str(PROFILE_EPOCHS), "--profile", "--workdir", workdir,
+               "--dataset-path", str(ROOT / "dataset")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        out = {"command_seconds": time.perf_counter() - t0}
+        check(proc.returncode == 0, f"cli_profile exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        got = json.loads(proc.stdout.splitlines()[-1])
+        check(math.isfinite(got["loss"]), f"cli_profile loss {got['loss']}")
+        secs = [float(v) for v in re.findall(r"^epoch time= (\S+)$", proc.stdout, re.M)]
+        check(len(secs) == PROFILE_EPOCHS, f"cli_profile epoch times {secs}")
+        written = re.findall(r"^profile: (\S+) written in (\S+) s$", proc.stdout, re.M)
+        path = Path(workdir) / "profile" / "trace_rank0.json"
+        check(len(written) == 1 and Path(written[0][0]) == path and path.exists(),
+              f"cli_profile trace {written}")
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        trace_counts = {k: sum(sub in e.get("name", "") for e in kernels)
+                        for k, sub in TRACE_KERNEL_NAMES.items()}
+        # a host range appears once as "user_annotation"; the device's
+        # projection of it ("gpu_user_annotation") is left out
+        host_ranges = lambda name: [e for e in events
+                                    if e.get("name") == name and e.get("cat") == "user_annotation"]
+        epoch_ranges, steps = host_ranges("train_epoch"), host_ranges("train_step.forward")
+        check(len(epoch_ranges) == 1 and len(steps) == 20,
+              f"cli_profile: {len(epoch_ranges)} train_epoch ranges, {len(steps)} "
+              "train_step.forward ranges, expected 1 and 20")
+        check(trace_counts == per(20, 2, 2),
+              f"cli_profile trace kernels {trace_counts}, expected 40 / 40 / 0")
+        range_s = epoch_ranges[0]["dur"] / 1e6
+        out.update(
+            epoch_seconds=secs, traced_epoch_range_seconds=range_s,
+            untraced_epoch_seconds=untraced_epoch_s,
+            traced_wall_over_untraced=secs[1] / untraced_epoch_s,
+            traced_range_over_untraced=range_s / untraced_epoch_s,
+            trace_write_seconds=float(written[0][1]), trace_mb=path.stat().st_size / 2 ** 20,
+            trace_kernel_events=trace_counts, trace_all_kernels=len(kernels),
+            trace_device_ms=sum(e.get("dur", 0) for e in kernels) / 1e3)
     return out
 
 
@@ -2021,6 +2292,9 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln] for k, log in build.build_log.items()}
     emit("build", {"seconds": secs, "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
 
+    # 2b. the native data-path library, which every loader below samples with
+    emit("native", run_native())
+
     # 3. kernels against their plain versions, beside the timing floor: a
     # one-element fill_ timed as the kernels are
     one = torch.ones(1, device="cuda")
@@ -2073,12 +2347,15 @@ def main() -> int:
                          {"k3": 2})
     emit("mnist", mnist)
 
-    # 14.-16. held-out evaluation, rematerialization, the evaluation CLI
+    # 14.-16b. held-out evaluation, rematerialization, the evaluation CLI
+    # with its figures, and the CLI's --profile
     evaluation = run_eval(ml, mc, am)
     emit("eval", evaluation)
     remat = run_remat(ml, mc, am)
     emit("remat", remat)
     emit("cli_eval", run_cli_eval())
+    cli_profile = run_cli_profile(20 / training["float32"]["steps_per_s"])
+    emit("cli_profile", cli_profile)
 
     # 17.-19. the parallel layer: the large-graph encoder and the
     # data-parallel Trainer in an NCCL process group of one, then the CLI
@@ -2133,7 +2410,8 @@ def main() -> int:
                "large_graph": {"motif_level3": 0, "motif_combine": 0,
                                "adj_matmul": large_graph["launches"]},
                "dp_train": dp["mesh"]["launches"],
-               "tp_train": tp["tp"]["launches"]}
+               "tp_train": tp["tp"]["launches"],
+               "profile_train": cli_profile["trace_kernel_events"]}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})

@@ -2,6 +2,7 @@
 
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 100
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --eval-every 10
+  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 2 --profile
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_reconstruct
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_generation
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_disentangle --traverse-mode single
@@ -22,7 +23,7 @@ type the dataset's inputs allow (scene has no spanning trees: its preset is
 the joint model "base"; geoGCN and posGCN read the truth graph; protein and
 mnist run the fourth-order motif conv, and mnist, like scene, has no
 factors), runs on the CUDA card unless ``--device cpu`` is given and
-prints one JSON dict (``test_disentangle``: the directory it wrote).
+prints one JSON dict (``test_disentangle``: the path of the figure it drew).
 
   * ``train`` trains on the train split (``train.Trainer``), logging under
     ``<workdir>/logs`` (with the resolved config as
@@ -30,17 +31,25 @@ prints one JSON dict (``test_disentangle``: the directory it wrote).
     ``<workdir>/checkpoints/<dataset>_<model_type>``; it resumes from the
     latest checkpoint there.  ``--eval-every k`` scores the test split every
     k epochs and keeps the best checkpoint by ``--best-metric``.
+    ``--profile`` writes a ``torch.profiler`` trace of the second epoch to
+    ``<workdir>/profile/trace_rank<r>.json`` (``Trainer.run``).
   * The other types restore that checkpoint (the latest, or
     ``train.restore_epoch``), as ``snd_vae_tpu/cli.py:145-160`` does; with
     none they warn and use the weights drawn from the seed.
     ``test_reconstruct`` decodes the test split (scene: val), writes the
     decoded arrays and the latent means, and returns
     ``evaluate.reconstruct_evaluation`` (and ``disentangle_evaluation``
-    where the split has factors).  ``test_generation`` decodes 100 graphs
-    from the prior and returns ``generation_evaluation`` against the test
-    split.  ``test_disentangle`` decodes a latent-traversal grid
-    (``models/traversal.py``) from the latents ``test_reconstruct`` wrote
-    and saves it as ``.npy`` (adj, node_feat × 120, coords × 600).
+    where the split has factors), and draws
+    ``<workdir>/figures/reconstruct_<dataset>.png`` (5 graphs above their
+    reconstructions) and, for a disentangled model on a split with factors,
+    ``figures/latent_<dataset>.png`` (the latents' PCA per factor), as
+    ``snd_vae_tpu/cli.py:203-223`` does.  ``test_generation`` decodes 100
+    graphs from the prior and returns ``generation_evaluation`` against the
+    test split.  ``test_disentangle`` decodes a latent-traversal grid
+    (``models/traversal.py``) from the latents ``test_reconstruct`` wrote,
+    saves it as ``.npy`` (adj, node_feat × 120, coords × 600) under
+    ``<workdir>/traverse/<dataset>_<model_type>``, draws it as
+    ``figures/traverse_<dataset>.png`` and returns that path.
     ``sweep`` trains, then runs test_reconstruct and test_generation.
     ``sample`` writes decoded prior samples.
 
@@ -53,7 +62,8 @@ process i/n``.  ``--dp k`` then trains data parallel over k processes
 parameters, node-sharded activations; ``--dp d --tp m`` needs a world of
 d·m).  The serving and evaluation types run in each process alone.
 
-The figures of the JAX CLI (``visualize.py``, matplotlib) are not ported.
+The figures are drawn by ``visualize.py`` (the JAX module's functions on a
+numpy raster, no matplotlib).
 """
 
 from __future__ import annotations
@@ -83,6 +93,7 @@ from .models import traversal as trav
 from .parallel import initialize_distributed
 from .serve import reconstruct, sample
 from .train import Trainer
+from .visualize import visualize_latent_embedding, visualize_reconstruct, visualize_traverse
 
 
 def _save(dirpath: str, arrays: Dict[str, torch.Tensor]) -> None:
@@ -162,9 +173,10 @@ def restore_for_serving(cfg, workdir: str, device) -> torch.nn.Module:
     return model
 
 
-def run_train(cfg, workdir: str, device, epochs=None) -> Dict:
+def run_train(cfg, workdir: str, device, epochs=None, profile: bool = False) -> Dict:
     """Train, after writing the resolved config as JSON beside the logs;
-    with ``eval_every`` > 0 the test split is the held-out batch."""
+    with ``eval_every`` > 0 the test split is the held-out batch; with
+    ``profile``, a trace of the second epoch under ``<workdir>/profile``."""
     cfg_path = os.path.join(workdir, cfg.train.log_dir,
                             f"config_{cfg.dataset}_{cfg.model_type}.json")
     os.makedirs(os.path.dirname(cfg_path), exist_ok=True)
@@ -173,15 +185,15 @@ def run_train(cfg, workdir: str, device, epochs=None) -> Dict:
     eval_batch = load_dataset(cfg, "test", device=device) if cfg.train.eval_every > 0 else None
     trainer = Trainer(cfg, load_dataset(cfg, "train", device=device), device=device,
                       workdir=workdir, eval_batch=eval_batch)
-    return trainer.run(epochs)
+    return trainer.run(epochs, profile_dir=os.path.join(workdir, "profile") if profile else None)
 
 
 def run_test_reconstruct(cfg, model, workdir: str) -> Tuple[Dict[str, float], Dict]:
     """Posterior-mean reconstruction of the test split (scene: val) in
     batches of ``cfg.train.batch_size``; writes the decoded graphs and the
     latent means (z_sg averaged over the trees, as the reference does; the
-    joint model has z_sg only).  Returns the metrics (the JAX CLI's keys)
-    and what was written."""
+    joint model has z_sg only) and draws the figures.  Returns the metrics
+    (the JAX CLI's keys) and what was written."""
     batch = load_dataset(cfg, "test", device=model.device)
     B = cfg.train.batch_size
     outs, stats = [], []
@@ -207,10 +219,19 @@ def run_test_reconstruct(cfg, model, workdir: str) -> Tuple[Dict[str, float], Di
         _host(batch.features)[:n], _host(batch.coords)[:n], cfg.dataset,
         adj_scores=edge_presence_scores(_host(cat("adj_prob").double())),
         node_categorical=outs[0].node_feat_prob is not None)
+    figures = os.path.join(workdir, "figures")
     if batch.factors is not None and "z_s" in z:
         results.update(disentangle_evaluation(
             _host(z["z_s"]), _host(z["z_g"]), _host(z["z_sg"]), _host(batch.factors)[:n],
             cfg.dataset))
+        z_all = np.concatenate([_host(z[k]) for k in ("z_s", "z_g", "z_sg")], axis=1)
+        visualize_latent_embedding(
+            z_all, _host(batch.factors)[:len(z_all)],
+            save_path=os.path.join(figures, f"latent_{cfg.dataset}.png"))
+    visualize_reconstruct(
+        5, _host(batch.adj), _host(batch.features), _host(batch.coords), gen_adj,
+        _host(cat("node_feat")), _host(cat("coords")),
+        save_path=os.path.join(figures, f"reconstruct_{cfg.dataset}.png"))
     return results, {"num_reconstructed": n, "dir": rec_dir,
                      "adj_shape": list(gen_adj.shape)}
 
@@ -234,8 +255,9 @@ def run_test_generation(cfg, model, num_generate: Optional[int] = None) -> Dict[
 def run_test_disentangle(cfg, model, workdir: str, mode: str = "generation",
                          group: str = "sg", dim: int = 0) -> str:
     """Decode a latent-traversal grid from the latents test_reconstruct
-    saved (``snd_vae_tpu/cli.py:247-311``) and save it under
-    ``<workdir>/traverse/<dataset>_<model_type>``; returns that directory.
+    saved (``snd_vae_tpu/cli.py:247-311``), save it under
+    ``<workdir>/traverse/<dataset>_<model_type>`` and draw it as
+    ``<workdir>/figures/traverse_<dataset>.png``; returns the figure's path.
     ``mode``: ``generation`` (the three-group sweep), ``single`` (dimension
     ``dim`` of ``group``) or ``latent`` (every dimension); the joint model
     always sweeps dimension ``dim`` of its one latent."""
@@ -267,12 +289,16 @@ def run_test_disentangle(cfg, model, workdir: str, mode: str = "generation",
     out_dir = os.path.join(workdir, "traverse", f"{cfg.dataset}_{cfg.model_type}")
     # denormalized as the reference's figure is (main.py:492-497); grid.json
     # holds the rows and V that lay the grid out as that figure does
-    _save(out_dir, {"adj": decoded.adj, "node_feat": decoded.node_feat * 120,
-                    "coords": decoded.coords * 600})
+    grid = {"adj": decoded.adj, "node_feat": decoded.node_feat * 120,
+            "coords": decoded.coords * 600}
+    _save(out_dir, grid)
     with open(os.path.join(out_dir, "grid.json"), "w") as f:
         json.dump({"mode": mode if cfg.is_disentangled else "joint", "rows": rows,
                    "visualize_length": V}, f)
-    return out_dir
+    path = os.path.join(workdir, "figures", f"traverse_{cfg.dataset}.png")
+    visualize_traverse(*(_host(grid[k].float()) for k in ("adj", "node_feat", "coords")),
+                       rows, V, cfg.dataset, save_path=path)
+    return path
 
 
 def run_sample(cfg, model, workdir: str, num: int) -> Dict:
@@ -360,6 +386,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel mesh size: shard the big parameters and the node "
                         "axis of the big activations over this many processes (needs "
                         "--distributed; --dp d --tp m needs d*m processes)")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the second epoch of --type train "
+                        "to <workdir>/profile/trace_rank<r>.json")
     p.add_argument("--distributed", action="store_true",
                    help="join the processes torchrun started into one process group "
                         "(NCCL on the card, gloo with --device cpu)")
@@ -388,7 +417,8 @@ def main(argv=None):
 
 def _run(args, cfg, device):
     if args.type == "train":
-        out = dict(run_train(cfg, args.workdir, device, args.epochs), device=str(device))
+        out = dict(run_train(cfg, args.workdir, device, args.epochs, args.profile),
+                   device=str(device))
     elif args.type == "sweep":
         out = run_sweep(cfg, args.workdir, device, args.epochs)
     else:

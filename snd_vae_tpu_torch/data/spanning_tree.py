@@ -1,7 +1,10 @@
-"""Random spanning-tree sampling for the sg-branch augmentation — the numpy
-Kruskal of ``snd_vae_tpu/data/spanning_tree.py:25-101``.  The port keeps only
-this sampler: its random stream is numpy's, the same in both packages for
-the same seed.
+"""Random spanning-tree sampling for the sg-branch augmentation, as
+``snd_vae_tpu/data/spanning_tree.py:25-101`` samples: by default with the
+native library (``utils/native.py``, the JAX package's C++ sampler, which
+draws the JAX package's trees for the same seed), or with
+``use_native=False`` by the numpy Kruskal, whose stream is numpy's and so
+also the same in both packages.  Where the library cannot be built or
+loaded, the default raises; it never falls back to numpy.
 """
 
 from __future__ import annotations
@@ -52,9 +55,17 @@ def sample_spanning_tree_adj(adj: np.ndarray, rng: np.random.Generator) -> np.nd
     return out
 
 
-def sample_spanning_trees(adj_batch: np.ndarray, num_samples: int,
-                          seed: int = 0) -> np.ndarray:
-    """[G, N, N] adjacencies -> [G, S, N, N] spanning-tree samples."""
+def sample_spanning_trees(adj_batch: np.ndarray, num_samples: int, seed: int = 0,
+                          use_native: bool = True) -> np.ndarray:
+    """[G, N, N] adjacencies -> [G, S, N, N] spanning-tree samples: float64
+    from the native library, the input's dtype from the numpy Kruskal.  The
+    library refuses no nodes or no samples; for those the JAX package's
+    default path takes the numpy route, whose result is empty, and so does
+    this one."""
+    if use_native and num_samples > 0 and adj_batch.shape[1] > 0:
+        from ..utils import native
+
+        return native.sample_spanning_trees(adj_batch, num_samples, seed)
     rng = np.random.default_rng(seed)
     G = adj_batch.shape[0]
     out = np.zeros((G, num_samples) + adj_batch.shape[1:], dtype=adj_batch.dtype)

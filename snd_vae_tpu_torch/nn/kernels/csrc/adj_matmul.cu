@@ -174,9 +174,9 @@ __device__ const T* stage_flat(T* dst, const T* src, int count) {
 
 template <typename T, bool kW>
 __global__ void __launch_bounds__(kSmallThreads)
-small_kernel(const T* __restrict__ a, const T* __restrict__ x, const T* __restrict__ w,
-             T* __restrict__ out, int n, int m, int h, int f, int col_tiles, float leak,
-             int has_leak) {
+adj_matmul_small_kernel(const T* __restrict__ a, const T* __restrict__ x,
+                        const T* __restrict__ w, T* __restrict__ out, int n, int m, int h, int f,
+                        int col_tiles, float leak, int has_leak) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.x / col_tiles;
@@ -358,8 +358,9 @@ __device__ __forceinline__ int a_off(int r, int k) {
 // copies 4-byte pieces into the same layout with cp.async.
 template <bool kW>
 __global__ void __launch_bounds__(kFThreads, 1)
-simt_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_x,
-            const __grid_constant__ TileArgs p, int tma_a, int tma_x) {
+adj_matmul_simt_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ TileArgs p, int tma_a, int tma_x) {
   // the partial tiles go into other blocks' shared memory: they must have
   // started, which the wait before the first push makes sure of
   hk::cluster_arrive_relaxed();
@@ -603,8 +604,9 @@ __device__ void load_x_manual(unsigned char* b_s, const bf16* xb, const TileArgs
 
 template <bool kW>
 __global__ void __launch_bounds__(kTThreads, 2)   // two blocks per SM
-tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_x,
-          const __grid_constant__ TileArgs p, int tma_a, int tma_x) {
+adj_matmul_tc_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ TileArgs p, int tma_a, int tma_x) {
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start 1024-aligned
   unsigned char* smem = smem_raw + ((1024 - (hk::smem_u32(smem_raw) & 1023)) & 1023);
@@ -922,10 +924,10 @@ int launch_small(const void* a, const void* x, const void* w, void* out, int bat
   const T* tw = static_cast<const T*>(w);
   T* to = static_cast<T*>(out);
   if (w)
-    small_kernel<T, true><<<lp.grid[0], lp.threads, lp.smem, stream>>>(
+    adj_matmul_small_kernel<T, true><<<lp.grid[0], lp.threads, lp.smem, stream>>>(
         ta, tx, tw, to, n, m, h, f, col_tiles, leak, has_leak);
   else
-    small_kernel<T, false><<<lp.grid[0], lp.threads, lp.smem, stream>>>(
+    adj_matmul_small_kernel<T, false><<<lp.grid[0], lp.threads, lp.smem, stream>>>(
         ta, tx, tw, to, n, m, h, f, col_tiles, leak, has_leak);
   return static_cast<int>(cudaGetLastError());
 }
@@ -977,10 +979,10 @@ extern "C" int adj_matmul_launch(const void* a, const void* x, const void* w, vo
       return bad;
     if (lp.tma_x && !tensor_map(&map_x, x, 0, h, m, batch, kFn, kFKs, CU_TENSOR_MAP_SWIZZLE_NONE))
       return bad;
-    return fused ? launch_cluster(simt_kernel<true>, grid, lp.threads, lp.smem, lp.split, st,
-                                  map_a, map_x, p, lp.tma_a, 0)
-                 : launch_cluster(simt_kernel<false>, grid, lp.threads, lp.smem, lp.split, st,
-                                  map_a, map_x, p, lp.tma_a, lp.tma_x);
+    return fused ? launch_cluster(adj_matmul_simt_kernel<true>, grid, lp.threads, lp.smem,
+                                  lp.split, st, map_a, map_x, p, lp.tma_a, 0)
+                 : launch_cluster(adj_matmul_simt_kernel<false>, grid, lp.threads, lp.smem,
+                                  lp.split, st, map_a, map_x, p, lp.tma_a, lp.tma_x);
   }
   p.pair_a = m % 2 == 0 && reinterpret_cast<uintptr_t>(a) % 4 == 0;
   p.pair_x = h % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
@@ -988,10 +990,10 @@ extern "C" int adj_matmul_launch(const void* a, const void* x, const void* w, vo
     return bad;
   if (lp.tma_x && !tensor_map(&map_x, x, 1, h, m, batch, 64, kTk, CU_TENSOR_MAP_SWIZZLE_128B))
     return bad;
-  return fused ? launch_cluster(tc_kernel<true>, grid, lp.threads, lp.smem, lp.split, st, map_a,
-                                map_x, p, lp.tma_a, 0)
-               : launch_cluster(tc_kernel<false>, grid, lp.threads, lp.smem, lp.split, st, map_a,
-                                map_x, p, lp.tma_a, lp.tma_x);
+  return fused ? launch_cluster(adj_matmul_tc_kernel<true>, grid, lp.threads, lp.smem, lp.split,
+                                st, map_a, map_x, p, lp.tma_a, 0)
+               : launch_cluster(adj_matmul_tc_kernel<false>, grid, lp.threads, lp.smem, lp.split,
+                                st, map_a, map_x, p, lp.tma_a, lp.tma_x);
 }
 
 // How many clusters of `split` blocks of the tiled kernel for `dtype`
@@ -1011,15 +1013,19 @@ extern "C" int adj_matmul_max_clusters(int dtype, int split, int* clusters) {
   if (dtype == 0) {
     cfg.blockDim = dim3(kFThreads);
     cfg.dynamicSmemBytes = simt_smem(false, 0);
-    e = cudaFuncSetAttribute(simt_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(adj_matmul_simt_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(cfg.dynamicSmemBytes));
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(clusters, simt_kernel<false>, &cfg);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(clusters, adj_matmul_simt_kernel<false>, &cfg);
   } else {
     cfg.blockDim = dim3(kTThreads);
     cfg.dynamicSmemBytes = tc_smem(false, 0);
-    e = cudaFuncSetAttribute(tc_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(adj_matmul_tc_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(cfg.dynamicSmemBytes));
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(clusters, tc_kernel<false>, &cfg);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(clusters, adj_matmul_tc_kernel<false>, &cfg);
   }
   return static_cast<int>(e);
 }

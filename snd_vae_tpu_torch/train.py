@@ -20,7 +20,8 @@ of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
     stay on the device until the epoch ends), checkpoints every
     ``checkpoint_every`` epochs and resume at the saved epoch + 1, a
     SIGTERM/SIGINT trap that checkpoints and stops, the spanning-tree
-    resampling and the per-epoch reshuffle of corrected mode.
+    resampling and the per-epoch reshuffle of corrected mode; with
+    ``profile_dir``, a ``torch.profiler`` trace of the second epoch.
 
   * With ``eval_every = k`` > 0 and an ``eval_batch``, every k-th epoch
     ``evaluate_heldout`` scores the held-out split (posterior-mean
@@ -80,7 +81,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.func import functional_call
 from torch.nn.utils import parametrize
-from torch.profiler import record_function
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .checkpoint import Checkpointer, checkpoint_dir, checkpoint_payload
 from .config import Config
@@ -342,8 +343,11 @@ class Trainer:
     def _maybe_resample_trees(self, epoch: int) -> None:
         """Corrected mode (``cfg.train.resample_trees_every = k``): at the
         k-th epoch boundaries, draw new spanning trees of the original
-        adjacencies with the numpy Kruskal seeded by seed + boundary, the
-        JAX trainer's draw bit for bit.  Keyed by the boundary epoch
+        adjacencies seeded by seed + boundary with the default sampler (the
+        native library), the JAX trainer's draw bit for bit where its
+        default sampler is the native library too (any host with a C++
+        compiler; JAX falls back to numpy without one, the port raises).
+        Keyed by the boundary epoch
         (epoch // k)·k, so a run resumed mid-interval draws that boundary's
         trees again."""
         k = self.cfg.train.resample_trees_every
@@ -453,6 +457,22 @@ class Trainer:
                               for a in auxes]).cpu().numpy()
         return {k: values[:, j].tolist() for j, k in enumerate(keys)}
 
+    def _profiled_epoch(self, epoch: int):
+        """``run_epoch`` under ``torch.profiler`` (the CPU, and the card's
+        kernels on a CUDA device) in a ``train_epoch`` range; the device
+        is synchronized before the trace stops.  Returns the epoch's aux
+        values and the profile."""
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        # one cycle: keeping its events (acc_events) spares torch's warning
+        # that a new cycle would clear them
+        with profile(activities=activities, acc_events=True) as prof:
+            with record_function("train_epoch"):
+                storer = self.run_epoch(epoch)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        return storer, prof
+
     def _save(self, epoch: int) -> None:
         """Every rank gathers the state's whole tensors (collectives under a
         model axis); rank 0 writes them."""
@@ -460,23 +480,43 @@ class Trainer:
         if self.primary:
             self.checkpointer.save(epoch, self.state, payload)
 
-    def run(self, epochs: Optional[int] = None, verbose: bool = True) -> Dict[str, float]:
+    def run(self, epochs: Optional[int] = None, verbose: bool = True,
+            profile_dir: Optional[str] = None) -> Dict[str, float]:
         """Train up to ``epochs`` (``cfg.train.epochs`` when None); returns
         the last epoch's means (on every rank: the global batch's).  Under a
         mesh the ranks meet once more at the end, so that every checkpoint
-        is on disk when any rank returns."""
+        is on disk when any rank returns.
+
+        ``profile_dir`` traces epoch 1 (the second; epoch 0 when only one
+        is asked for, as the JAX trainer's ``prof_epoch``) with
+        ``torch.profiler`` if this run reaches it, and writes the trace as
+        ``<profile_dir>/trace_rank<r>.json`` (Chrome's trace format), one
+        per process under a mesh."""
         cfg = self.cfg
         epochs = cfg.train.epochs if epochs is None else epochs
+        prof_epoch = 1 if epochs > 1 else 0
         verbose = verbose and self.primary
         last_means: Dict[str, float] = {}
         start = self.maybe_restore()
         with _GracefulStop() as stopper:
             for epoch in range(start, epochs):
                 t0 = time.time()
-                storer = self.run_epoch(epoch)
+                prof = None
+                if profile_dir is not None and epoch == prof_epoch:
+                    storer, prof = self._profiled_epoch(epoch)
+                else:
+                    storer = self.run_epoch(epoch)
                 if verbose:
                     print(f"Epoch: {epoch + 1:04d} loss= {np.mean(storer['loss']):.5f}")
                     print(f"epoch time= {time.time() - t0:.5f}")
+                if prof is not None:
+                    t0 = time.time()
+                    os.makedirs(profile_dir, exist_ok=True)
+                    rank = dist.get_rank() if dist.is_initialized() else 0
+                    path = os.path.join(profile_dir, f"trace_rank{rank}.json")
+                    prof.export_chrome_trace(path)
+                    if verbose:
+                        print(f"profile: {path} written in {time.time() - t0:.5f} s")
                 if epoch % cfg.train.checkpoint_every == 0:
                     self._save(epoch)
                 self._maybe_eval(epoch, verbose)

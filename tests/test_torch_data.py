@@ -1,21 +1,26 @@
 """The port's data pipeline (the synthetic datasets, protein, mnist) is
 bit-equal to the JAX package's for the same cfg and seed.
 
-The JAX loader takes the ctypes spanning-tree sampler whenever
-``native/libsndkern.so`` is built (``snd_vae_tpu/data/spanning_tree.py:87``);
-its random stream differs from the numpy Kruskal, which is the only sampler
-the port keeps.  So the JAX side runs with the native sampler disabled."""
+Both packages sample spanning trees with their native library by default
+(``snd_vae_tpu/data/spanning_tree.py:75-101``); the JAX side's library is
+built privately for the test (``jax_native``), so its default path runs
+here and not its numpy fallback.  With ``use_native=False`` on both sides
+(the numpy Kruskal) the loaders are bit-equal too."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
+from torch_parity import jax_native  # noqa: F401  (fixture)
 
-import snd_vae_tpu.utils.native
+import snd_vae_tpu.data.spanning_tree as jax_spanning_tree
 from snd_vae_tpu import config as jcfg
 from snd_vae_tpu.data import loaders as jax_loaders
 from snd_vae_tpu.data.loaders import load_dataset as jax_load_dataset
 from snd_vae_tpu_torch import config as tcfg
 from snd_vae_tpu_torch.data import loaders
+from snd_vae_tpu_torch.data import spanning_tree
 from snd_vae_tpu_torch.data.graphbatch import GraphBatch
 from snd_vae_tpu_torch.data.loaders import load_dataset
 
@@ -24,11 +29,14 @@ FIELDS = ("adj", "features", "coords", "rel", "adj_samples", "factors",
 
 
 @pytest.fixture
-def numpy_sampler(monkeypatch):
-    monkeypatch.setattr(snd_vae_tpu.utils.native, "available", lambda: False)
+def numpy_route(jax_native, monkeypatch):
+    """Both packages' loaders on the numpy Kruskal (``use_native=False``)."""
+    for mod, fn in ((jax_loaders, jax_spanning_tree.sample_spanning_trees),
+                    (loaders, spanning_tree.sample_spanning_trees)):
+        monkeypatch.setattr(mod, "sample_spanning_trees", functools.partial(fn, use_native=False))
 
 
-@pytest.mark.parametrize("dataset,split,over", [
+LOADER_CASES = [
     ("synthetic2", "test", {}),
     ("synthetic2", "train", {}),
     ("synthetic1", "test", {"sampling_num": 3}),
@@ -39,11 +47,22 @@ def numpy_sampler(monkeypatch):
     ("mnist", "test", {}),
     ("mnist", "train", {"reproduce_pairing_skew": True, "sampling_num": 2}),
     ("mnist", "test", {"normalize_coords": True, "num_nodes": 30}),
-])
-def test_load_dataset_bit_equal(numpy_sampler, tmp_path, dataset, split, over):
+]
+
+
+@pytest.mark.parametrize("dataset,split,over", LOADER_CASES)
+def test_load_dataset_bit_equal(jax_native, tmp_path, dataset, split, over):
     """Both generate from the seed: the dataset path holds no files
     (protein: seeded 3-D Waxman graphs; mnist: noisy 3-D curves and their
-    convex hulls)."""
+    convex hulls).  Each package samples with its default, the native
+    library."""
+    over = dict(over, dataset_path=str(tmp_path))
+    _assert_bit_equal(jcfg.preset(dataset, **over), tcfg.preset(dataset, **over), split)
+
+
+@pytest.mark.parametrize("dataset,split,over", LOADER_CASES)
+def test_load_dataset_bit_equal_numpy_route(numpy_route, tmp_path, dataset, split, over):
+    """The same cases with ``use_native=False`` on both sides."""
     over = dict(over, dataset_path=str(tmp_path))
     _assert_bit_equal(jcfg.preset(dataset, **over), tcfg.preset(dataset, **over), split)
 
@@ -78,7 +97,7 @@ def test_spanning_trees_are_trees():
     assert np.array_equal(trees, np.swapaxes(trees, -1, -2))
 
 
-def test_unported_dataset_raises(numpy_sampler, tmp_path):
+def test_unported_dataset_raises(jax_native, tmp_path):
     """protein is ported: its on-disk layout (``edge_<split>.npy`` and
     ``node_<split>.npy`` under ``<dataset_path>/protein``), a few graphs of
     10 nodes written to tmp_path, loads bit-equal to JAX's, each split from
@@ -110,7 +129,7 @@ def test_convex_hull_adj_matches_jax():
 
 
 @pytest.mark.parametrize("dataset", ["protein", "mnist"])
-def test_train_coord_bounds_match_jax(numpy_sampler, tmp_path, dataset):
+def test_train_coord_bounds_match_jax(jax_native, tmp_path, dataset):
     """normalize_coords' affine map: the train split's scalar bounds."""
     over = dict(dataset_path=str(tmp_path), normalize_coords=True)
     want = jax_loaders.train_coord_bounds(jcfg.preset(dataset, **over))

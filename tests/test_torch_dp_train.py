@@ -238,14 +238,15 @@ def _write_dataset(root, graphs=20):
 
 def test_cli_trains_data_parallel_under_torchrun(tmp_path):
     """``torchrun --nproc_per_node 2 -m snd_vae_tpu_torch.cli --type train
-    --dp 2 --distributed --device cpu``: both processes join, print the
-    same finite loss, and one checkpoint is written."""
+    --dp 2 --distributed --device cpu --profile``: both processes join,
+    print the same finite loss, one checkpoint is written, and each
+    process writes its own trace of the (one) epoch."""
     _write_dataset(tmp_path / "data")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            "2", "--log-dir", str(tmp_path / "logs"), "--redirects", "3",
            "-m", "snd_vae_tpu_torch.cli", "--type", "train", "--epochs", "1",
-           "--dp", "2", "--distributed", "--device", "cpu", "--workdir", str(tmp_path),
-           "--dataset-path", str(tmp_path / "data")]
+           "--dp", "2", "--distributed", "--device", "cpu", "--profile",
+           "--workdir", str(tmp_path), "--dataset-path", str(tmp_path / "data")]
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     # torchrun writes each rank's output to <log-dir>/<run>/attempt_0/<rank>/stdout.log
@@ -259,3 +260,7 @@ def test_cli_trains_data_parallel_under_torchrun(tmp_path):
     assert results[0]["loss"] == results[1]["loss"] and np.isfinite(results[0]["loss"])
     ckpt = tmp_path / "checkpoints" / "synthetic2_disentangled"
     assert sorted(os.listdir(ckpt)) == ["ckpt_0.pt"]
+    assert sorted(os.listdir(tmp_path / "profile")) == ["trace_rank0.json", "trace_rank1.json"]
+    for rank in (0, 1):
+        trace = json.loads((tmp_path / "profile" / f"trace_rank{rank}.json").read_text())
+        assert sum(e.get("name") == "train_epoch" for e in trace["traceEvents"]) == 1

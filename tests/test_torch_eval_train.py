@@ -8,10 +8,14 @@
   * the CLI with ``--device cpu`` at a small config: train with
     ``--eval-every``, then test_reconstruct, test_generation,
     test_disentangle (three modes, and the joint model) and sweep, each
-    printing the JAX CLI's keys."""
+    printing the JAX CLI's keys and writing the JAX CLI's figures
+    (``figures/reconstruct_<ds>.png``, ``latent_<ds>.png``,
+    ``traverse_<ds>.png``, whose path test_disentangle returns), and
+    ``--profile``'s trace of the second epoch."""
 
 import dataclasses
 import json
+import struct
 import types
 
 import numpy as np
@@ -188,14 +192,20 @@ def test_cli_train_with_eval_then_every_evaluation_type(tmp_path, small_cli, cap
             "latent": enc.s_latent_size + enc.g_latent_size + enc.sg_latent_size}
     model = cli.restore_for_serving(tc.with_(dataset_path=str(tmp_path / "data")),
                                     str(tmp_path), "cpu")
+    figures = tmp_path / "figures"
+    assert _png_size(figures / "reconstruct_synthetic2.png") == (1650, 690)
+    assert _png_size(figures / "latent_synthetic2.png") == (1440, 450)   # 3 factors
+    grid_dir = tmp_path / "traverse" / "synthetic2_disentangled"
     for mode, n in rows.items():
         path = cli.main(["--type", "test_disentangle", "--traverse-mode", mode,
                          "--traverse-group", "g", "--traverse-dim", "1", *common])
         assert capsys.readouterr().out.strip().endswith(path)
-        grid = {k: np.load(f"{path}/{k}.npy") for k in ("adj", "node_feat", "coords")}
+        assert path == str(figures / "traverse_synthetic2.png")
+        assert _png_size(path) == (int(2.0 * V * 150), int(2.0 * n * 150))
+        grid = {k: np.load(grid_dir / f"{k}.npy") for k in ("adj", "node_feat", "coords")}
         assert grid["adj"].shape == (n * V, 8, 8)
         assert grid["coords"].shape == (n * V, 8, 2) and np.isfinite(grid["coords"]).all()
-        assert json.loads(open(f"{path}/grid.json").read())["rows"] == n
+        assert json.loads((grid_dir / "grid.json").read_text())["rows"] == n
     # the last grid (latent) is the decode of the traversal of the saved latents
     z = ttrav.load_saved_latents(tc, str(tmp_path / "qualitative_evaluation"))
     with torch.inference_mode():
@@ -213,8 +223,43 @@ def test_cli_joint_model_disentangle_and_sweep(tmp_path, small_cli):
     assert set(out["reconstruct"]["base"]) == _jax_keys("reconstruct", factors=False)
     path = cli.main(["--type", "test_disentangle", "--model-type", "base", "--traverse-dim",
                      "2", *common])
-    adj = np.load(f"{path}/adj.npy")
-    assert adj.shape == (tc.visualize_length, 8, 8) and path.endswith("synthetic2_base")
+    adj = np.load(tmp_path / "traverse" / "synthetic2_base" / "adj.npy")
+    assert adj.shape == (tc.visualize_length, 8, 8)
+    assert path == str(tmp_path / "figures" / "traverse_synthetic2.png")
+    assert _png_size(path) == (int(2.0 * tc.visualize_length * 150), 300)
+    # the joint model has no z_s: test_reconstruct draws no latent figure
+    assert not (tmp_path / "figures" / "latent_synthetic2.png").exists()
+    assert (tmp_path / "figures" / "reconstruct_synthetic2.png").exists()
+
+
+@pytest.mark.parametrize("epochs,traced", [(3, 1), (1, 0)])
+def test_cli_profile_traces_the_second_epoch(tmp_path, small_cli, monkeypatch, epochs, traced):
+    """``--profile``: a Chrome trace of epoch 1 alone (epoch 0 when one
+    epoch is asked for) at ``<workdir>/profile/trace_rank0.json``, holding
+    one ``train_epoch`` range over that epoch's 2 steps."""
+    _, common = small_cli
+    under_profiler = []
+    run_epoch = ttrain.Trainer.run_epoch
+
+    def recording(self, epoch):
+        if torch.autograd.profiler._is_profiler_enabled:
+            under_profiler.append(epoch)
+        return run_epoch(self, epoch)
+
+    monkeypatch.setattr(ttrain.Trainer, "run_epoch", recording)
+    out = cli.main(["--type", "train", "--epochs", str(epochs), "--profile", *common])
+    assert np.isfinite(out["loss"]) and under_profiler == [traced]
+    trace = json.loads((tmp_path / "profile" / "trace_rank0.json").read_text())
+    names = [e.get("name") for e in trace["traceEvents"]]
+    assert names.count("train_epoch") == 1 and names.count("train_step.forward") == 2
+    assert sorted(p.name for p in (tmp_path / "profile").iterdir()) == ["trace_rank0.json"]
+
+
+def _png_size(path):
+    with open(path, "rb") as f:
+        head = f.read(24)
+    assert head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+    return struct.unpack(">II", head[16:24])
 
 
 @pytest.mark.parametrize("dataset", list(tcfg.PRESETS))

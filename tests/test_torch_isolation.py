@@ -3,7 +3,8 @@
 ``chip_smoke.py``, nor the test helpers that run where JAX is absent
 (``tests/torch_dist_workers.py``, the ranks of the multi-process tests, and
 ``tests/test_torch_cuda.py``, the card's tests) imports JAX, flax, optax,
-sklearn or the JAX package, and its entry points refuse to run on a missing
+sklearn, matplotlib (the card's machine has none: the figures draw on a
+numpy raster) or the JAX package, and its entry points refuse to run on a missing
 card instead of falling back."""
 
 import ast
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "snd_vae_tpu", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "snd_vae_tpu", "sklearn", "matplotlib")
 
 
 def _port_files():
@@ -39,7 +40,8 @@ def test_port_files_import_no_jax():
     assert len(files) > 10 and all(f.exists() for f in files)
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"snd_vae_tpu_torch/parallel/large_graph.py", "snd_vae_tpu_torch/parallel/batch.py",
-            "snd_vae_tpu_torch/data/transforms.py"} <= names
+            "snd_vae_tpu_torch/data/transforms.py", "snd_vae_tpu_torch/visualize.py",
+            "snd_vae_tpu_torch/utils/raster.py", "snd_vae_tpu_torch/utils/native.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN]
     assert not bad, bad
@@ -53,9 +55,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "snd_vae_tpu_torch.nn.decoders, snd_vae_tpu_torch.evaluate, "
             "snd_vae_tpu_torch.models.traversal, snd_vae_tpu_torch.nn.ckpt, "
             "snd_vae_tpu_torch.parallel, snd_vae_tpu_torch.parallel.large_graph, "
-            "snd_vae_tpu_torch.data.transforms, torch_dist_workers, test_torch_cuda, sys; "
+            "snd_vae_tpu_torch.data.transforms, snd_vae_tpu_torch.visualize, "
+            "snd_vae_tpu_torch.utils.native, torch_dist_workers, test_torch_cuda, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'snd_vae_tpu', 'sklearn')]; assert not bad, bad")
+            "('jax', 'flax', 'optax', 'snd_vae_tpu', 'sklearn', 'matplotlib')]; "
+            "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)

@@ -6,6 +6,7 @@ within the 2e-3 relative cost gap, a bf16 step against JAX's compute cast;
 and the trainer's epoch loop, logs, checkpoints and bit-exact resume."""
 
 import dataclasses
+import functools
 import json
 import signal
 import types
@@ -18,9 +19,9 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 from torch_parity import configs, init_like, random_params
-from torch_parity import exact_f64, one_thread  # noqa: F401  (fixtures)
+from torch_parity import exact_f64, jax_native, one_thread  # noqa: F401  (fixtures)
 
-import snd_vae_tpu.utils.native
+import snd_vae_tpu.data.spanning_tree as jax_spanning_tree
 from snd_vae_tpu import train as jtrain
 from snd_vae_tpu.compat.lockstep import (
     _make_jax_lockstep_step, make_noise_stream, run_jax_trajectory,
@@ -326,10 +327,23 @@ def test_sigterm_checkpoints_and_stops(tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-def test_resampled_trees_equal_jax(tmp_path, monkeypatch):
+def test_resampled_trees_equal_jax(tmp_path, jax_native):
     """resample_trees_every = 2: at epoch 3 the trainer holds the boundary-2
-    draw, the JAX trainer's bit for bit (its numpy sampler)."""
-    monkeypatch.setattr(snd_vae_tpu.utils.native, "available", lambda: False)
+    draw, the JAX trainer's bit for bit, each with its default sampler (the
+    native library; JAX's built privately for the test)."""
+    _assert_resampled_trees_equal_jax(tmp_path)
+
+
+def test_resampled_trees_equal_jax_numpy_route(tmp_path, jax_native, monkeypatch):
+    """The same with ``use_native=False`` on both sides (numpy Kruskal)."""
+    monkeypatch.setattr(ttrain, "sample_spanning_trees", functools.partial(
+        ttrain.sample_spanning_trees, use_native=False))
+    monkeypatch.setattr(jax_spanning_tree, "sample_spanning_trees", functools.partial(
+        jax_spanning_tree.sample_spanning_trees, use_native=False))
+    _assert_resampled_trees_equal_jax(tmp_path)
+
+
+def _assert_resampled_trees_equal_jax(tmp_path):
     tr = _small_trainer(tmp_path, resample_trees_every=2)
     before = tr.data.adj_samples.clone()
     tr._maybe_resample_trees(3)

@@ -1,7 +1,7 @@
 """Shared helpers of the port's parity tests (``tests/test_torch_*.py``):
 the same Config in both packages, seeded flax parameters, the same model in
 both packages (``setup_models``), and the ``exact_f64`` and ``one_thread``
-fixtures.
+fixtures, and ``jax_native``.
 
 ``exact_f64`` enables float64 in JAX and lifts the places where the JAX
 package rounds float64 operands to f32: its Dense and GraphConv ask for
@@ -115,6 +115,24 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="session")
+def jax_native(tmp_path_factory):
+    """The JAX package's native library, built privately for this test
+    process: its module builds ``native/libsndkern.so`` in place on first
+    use, which parallel test processes would race.  A failed build fails
+    the test instead of letting JAX fall back to its numpy sampler."""
+    import snd_vae_tpu.utils.native as jnative
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB_PATH",
+                   str(tmp_path_factory.mktemp("jax_native") / "libsndkern.so"))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_load_failed", False)
+        assert jnative.build(), "the JAX package's native library did not build"
+        assert jnative.available()
+        yield jnative
 
 
 def random_params(shapes, rng):
