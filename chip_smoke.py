@@ -24,26 +24,33 @@ Phases, one output line each:
                motif_level3 the projections, motif_combine, lrelu and j-sum;
                for K3 with W the separate x @ W and K3.  motif_level3 also
                at the joint model's shapes over synthetic2 truth graphs and
-               at scene's over a directed A of integer weights 0..4;
+               at scene's over a directed A of integer weights 0..4; the
+               level-3 backward pair against its closed-form plain version
+               and the autograd chain it replaced, all eight gradients, at
+               those shapes, the mesh's row windows and larger ones;
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
                kernel launches (motif_level3 and adj_matmul twice per
-               batch, motif_combine never); one batch against the same
+               batch, motif_combine and the backward pair never), each
+               entry point turning TF32 off itself; one batch against the same
                weights on the CPU (plain versions); graphs/s in float32
                and bfloat16;
   5. train   — synthetic2 at full width on the generated train split (200
                graphs, 20 steps an epoch), f32 and bf16 with f32 masters:
                Trainer.run for 2 epochs with Adam from the seed weights,
-               counting the launches (motif_level3 and adj_matmul twice per
-               step, motif_combine never), finite losses falling from the
+               counting the launches (motif_level3, its backward pair and
+               adj_matmul twice per step, motif_combine never), finite
+               losses falling from the
                first epoch to the second; in f32 one step on the card
                against the same step on the CPU (loss, every gradient and
                updated parameter); steps/s and graphs/s over 2 epochs after
                a warm-up epoch, the peak of allocated memory, and a profile
                of 5 steps: kernels and device-busy ms per step, device ms of
                the forward, backward and optimizer ranges, the device
-               events no host op launched, the level-3 backward (K2: the
-               plain recompute) and the top backward kernels;
+               events no host op launched, the level-3 backward (K2's
+               pair) and the top backward kernels; then the pair against
+               the autograd chain it replaced, in turns: kernels,
+               device-busy and level-3 backward ms per step;
   6. joint_serve — the joint model ("base") at synthetic2 width, as 4. (2
                motif_level3 per batch, no adj_matmul, no motif_combine);
   7. joint_train — the joint model: Trainer.run for 2 epochs in f32 (2
@@ -70,7 +77,8 @@ Phases, one output line each:
                block_rows=10, and the third-order layer 2 at synthetic2
                against block_rows=5: outputs equal, gradients as close to
                float64 as the unblocked ones, peak memory (the blocked one
-               lower) and device ms of each;
+               lower; the third order's pair keeps no [B,n,N,h] tensor,
+               below the replaced backward's peaks) and device ms of each;
  13. protein_joint, mnist — the joint model on protein (no kernel) and the
                disentangled model at the mnist preset (adj_matmul twice):
                one batch against the CPU, 3 train steps, the card's step
@@ -104,6 +112,14 @@ Phases, one output line each:
                motif_combine kernel events; the traced epoch's wall time
                and its train_epoch range against an untraced f32 epoch of
                phase 5;
+ 16c. trace_twice — in this process, which has traced before: two
+               Trainers' Trainer.run(profile_dir=...) on 40 graphs, each
+               trace's kernel events equal to the wrappers' launches in
+               the traced epoch (the profiler warms up on a discarded
+               step of 20 ms of tiny kernels); a bare profiler (no
+               warm-up) and one warmed up on four tiny kernels
+               beside them, reported; host launches without a kernel
+               record;
  17. large_graph — in an NCCL process group of one (a FileStore in a
                temporary directory) and ``make_mesh(1, 1)``: the
                node-sharded GCN encoder (hidden 128, 128) on symmetric
@@ -160,6 +176,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -177,9 +194,14 @@ SEPARABLE_NODES = 128
 TRAIN_EPOCHS = 2          # the counted run; then 1 warm-up and 2 timed epochs
 PROFILE_STEPS = 5
 L3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3.cu"
+L3B_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3_backward.cu"
 K1_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_combine.cu"
 K3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul.cu"
 K1_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:204"
+K2_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:295"
+BACKWARD_KERNELS = 2      # kernels per launch of the level-3 backward pair
+# the level-3 backward's gradients on the model's path: a_i, v_j, M1d, M1f, bias
+MODEL_NEEDS = (False, False, True, True, False, True, True, True)
 K3_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:89"
 
 
@@ -194,19 +216,22 @@ def check(ok: bool, what: str) -> None:
 
 def zero_counts(ml, mc, am) -> None:
     ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
-    am.blocked_adj_matmul.launches = 0
+    ml.fused_motif_level3_backward.launches = am.blocked_adj_matmul.launches = 0
 
 
 def read_counts(ml, mc, am) -> dict:
     torch.cuda.synchronize()
     return {"motif_level3": ml.fused_motif_level3.launches,
+            "motif_level3_backward": ml.fused_motif_level3_backward.launches,
             "motif_combine": mc.fused_motif_combine.launches,
             "adj_matmul": am.blocked_adj_matmul.launches}
 
 
-def per(n: int, ml3: int = 0, k3: int = 0) -> dict:
-    """The launches n batches or steps should count."""
-    return {"motif_level3": n * ml3, "motif_combine": 0, "adj_matmul": n * k3}
+def per(n: int, ml3: int = 0, k3: int = 0, bwd: int = 0) -> dict:
+    """The launches n batches or steps should count (``bwd``: launches of
+    the level-3 backward pair)."""
+    return {"motif_level3": n * ml3, "motif_level3_backward": n * bwd, "motif_combine": 0,
+            "adj_matmul": n * k3}
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -332,6 +357,62 @@ def replaced_chain(mc, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias):
     return torch.einsum("bij,bijh->bih", adj, torch.maximum(m3, 0.2 * m3))
 
 
+class _MotifLevel3Autograd(torch.autograd.Function):
+    """The level-3 backward that the kernel pair replaced, for the measurements
+    that compare it with the kernel pair and for nothing else: the forward
+    is the package's (one ``motif_level3`` launch), the backward autograd
+    through the plain level 3 (``_level3_rows``), recomputed one i-row block
+    of ``block_rows`` at a time."""
+
+    @staticmethod
+    def forward(ctx, block_rows, row0, *inputs):
+        from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml
+
+        ctx.block_rows, ctx.row0 = block_rows, row0
+        ctx.save_for_backward(*inputs)
+        return ml.fused_motif_level3(*inputs, row0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml
+
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not wanted:
+            return (None,) * (2 + len(inputs))
+        adj, phi_r, a_i, *shared = inputs
+        n, r0 = phi_r.shape[1], ctx.row0
+        step = ctx.block_rows or n
+        got = None
+        for s in range(0, n, step):
+            e = min(s + step, n)
+            with torch.enable_grad():
+                out = ml._level3_rows(adj, adj[:, r0 + s:r0 + e], phi_r[:, s:e], a_i[:, s:e],
+                                      *shared)
+            part = torch.autograd.grad(out, wanted, grad[:, s:e])
+            got = part if got is None else [g + p for g, p in zip(got, part)]
+        got = iter(got)
+        return (None, None) + tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+class replaced_backward:
+    """A context in which the third-order conv's level 3 runs the replaced
+    backward (``_MotifLevel3Autograd``), for measurements in turns."""
+
+    def __enter__(self):
+        import snd_vae_tpu_torch.nn.spatial_conv as sc
+
+        self.saved = sc.motif_level3
+        sc.motif_level3 = lambda *x, block_rows=None, row0=0: _MotifLevel3Autograd.apply(
+            block_rows, row0, *x)
+
+    def __exit__(self, *exc):
+        import snd_vae_tpu_torch.nn.spatial_conv as sc
+
+        sc.motif_level3 = self.saved
+
+
 def level3_bound(x, dtype, row0: int = 0):
     """Bytes: every input once, nt once.  Operations: what these inputs
     need, i.e. rf only at pairs with A[i,j] != 0 and over k with
@@ -387,6 +468,7 @@ def check_kernels(ml, mc, am):
                          replaced_ms=device_ms(lambda: replaced_chain(mc, *x)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
     rows += check_level3_new_inputs(ml, mc, gen)
+    rows += check_level3_backward(ml, gen)
     # K1, off the served path since motif_level3: the shapes the served
     # layers would give it (h = 20, 50 at B·S = 100 trees of N = 25), bf16,
     # and a dense large graph held against float64
@@ -455,6 +537,157 @@ def check_level3_new_inputs(ml, mc, gen):
                          plain_ms=device_ms(lambda: ml.motif_level3_plain(*x)),
                          replaced_ms=device_ms(lambda: replaced_chain(mc, *x)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
+    return rows
+
+
+GRAD_NAMES = ("adj", "phi_r", "a_i", "v_j", "deg", "m1d", "m1f", "bias")
+
+
+def grad_terms(name, B, n, N, R, h) -> int:
+    """The longest f32 sum behind one element of a level-3 gradient: rf's N
+    terms and m3's 2R + 2 feed every P; then ∂a_i sums N, ∂v_j n, ∂deg
+    n·h, the parameters B·n·N, ∂φ N (over j) beside grf's h, ∂A n·R beside
+    the local terms' h."""
+    depth = N + 2 * R + 8
+    return depth + {"adj": n * R + h, "phi_r": N + h, "a_i": N, "v_j": n, "deg": n * h,
+                    "m1d": B * n * N, "m1f": B * n * N, "bias": B * n * N}[name]
+
+
+def replaced_grads(ml, g, x, row0, needs):
+    """The replaced chain: autograd through the plain level 3 of the
+    window's rows, for the inputs ``needs`` asks for."""
+    xs = [t.detach().requires_grad_(nd) for t, nd in zip(x, needs)]
+    n = x[1].shape[1]
+    with torch.enable_grad():
+        out = ml._level3_rows(xs[0], xs[0][:, row0:row0 + n], *xs[1:])
+    got = iter(torch.autograd.grad(out, [t for t in xs if t.requires_grad], g))
+    return [next(got) if nd else None for nd in needs]
+
+
+def level3_peaks(ml, x, g) -> dict:
+    """Peak allocated bytes above the inputs of level 3's forward plus
+    backward (the model's gradients) with the kernel pair and with the
+    replaced backward (``_MotifLevel3Autograd``), unblocked and at
+    block_rows=5."""
+    out = {}
+    for name, fn in (("pair", ml.motif_level3),
+                     ("replaced", lambda *a, block_rows: _MotifLevel3Autograd.apply(
+                         block_rows, 0, *a))):
+        for block in (None, 5):
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(x, MODEL_NEEDS)]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.autograd.grad(fn(*leaves, block_rows=block),
+                                [t for t in leaves if t.requires_grad], g)
+            torch.cuda.synchronize()
+            out[f"{name}_block_{block}"] = torch.cuda.max_memory_allocated() - base
+    check(max(out["pair_block_None"], out["pair_block_5"]) < out["replaced_block_None"],
+          f"level-3 forward + backward peaks {out}")
+    return out
+
+
+def check_level3_backward(ml, gen):
+    """The level-3 backward pair (``fused_motif_level3_backward``) against
+    its closed-form plain version and against the autograd chain it
+    replaced, for all eight gradients: f32 within the float64 summation
+    bound of each gradient's longest sum (``grad_terms``) against the plain
+    version in float64, and within twice that against the chain; bf16
+    within 2e-2 of the largest magnitude of the f32 plain version on the
+    same inputs, and the chain within 4e-2 of it.  Shapes: synthetic2's two
+    layers at [100,25,25] (R = 1, h = 20, 50; f32 and bf16), the joint
+    model's at [10,25,25] over synthetic2 truth graphs, scene's [2,10,10]
+    over a directed A of weights 0..4, the mesh's row windows (m = 2, 4) at
+    [100,25,25,50], and off the path [4,256,256,50] at density 0.4, a
+    ragged weighted R = 2 case, several j-tiles and h chunks at R = 2, and
+    R = 5 (two channel groups).  Each row: kernel ms for the model's
+    gradients and for all eight, the plain version's and the chain's ms for
+    the model's gradients, the bound of the model's gradients, and the
+    launches of the pair per train step (one per layer) and per served
+    batch (none); at synthetic2's shapes the peak memory of level 3's
+    forward plus backward (``level3_peaks``)."""
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.parallel.mesh import node_block
+
+    truth = load_dataset(synthetic2_preset(dataset_path=str(ROOT / "dataset")), "test",
+                         num_graphs=10, device="cuda")
+    scene_adj = torch.randint(0, 5, (2, 10, 10), generator=gen, device="cuda").float()
+    scene_adj *= 1.0 - torch.eye(10, device="cuda")
+    scene_rel = 10.0 * torch.rand(2, 10, 10, 1, generator=gen, device="cuda")
+    cases = [("synthetic2", 100, 25, 20, 1, torch.float32, True, None, None),
+             ("synthetic2", 100, 25, 50, 1, torch.float32, True, None, None),
+             ("synthetic2", 100, 25, 50, 1, torch.bfloat16, False, None, None),
+             ("joint", 10, 25, 20, 1, torch.float32, False, truth.adj, truth.rel),
+             ("joint", 10, 25, 50, 1, torch.float32, False, truth.adj, truth.rel),
+             ("scene", 2, 10, 20, 1, torch.float32, False, scene_adj, scene_rel),
+             ("scene", 2, 10, 50, 1, torch.float32, False, scene_adj, scene_rel),
+             ("scene", 2, 10, 50, 1, torch.bfloat16, False, scene_adj, scene_rel)]
+    cases += [(f"tp_window_m{m}", 100, 25, 50, 1, torch.float32, False, None, None, m)
+              for m in (2, 4)]
+    cases += [("large", 4, 256, 50, 1, torch.float32, False, None, None),
+              ("ragged_weighted", 3, 29, 37, 2, torch.float32, False, "weighted", None),
+              ("tiles", 2, 72, 75, 2, torch.float32, False, None, None),
+              ("channel_groups", 2, 40, 70, 5, torch.float32, False, None, None)]
+    rows = []
+    for path, B, N, h, R, dt, served, adj, rel, *m in cases:
+        weighted = isinstance(adj, str)
+        full = level3_inputs(B, N, h, R, dt, gen, 0.4, weighted,
+                             adj=None if weighted else adj, rel=rel)
+        windows = [node_block(N, m[0], k) for k in range(m[0])] if m else [(0, N)]
+        for row0, n in windows:
+            x = [full[0], full[1][:, row0:row0 + n].contiguous(),
+                 full[2][:, row0:row0 + n].contiguous(), *full[3:]]
+            g = torch.randn(B, n, h, generator=gen, device="cuda").to(dt)
+            got = ml.fused_motif_level3_backward(g, *x, row0=row0)
+            chain = replaced_grads(ml, g, x, row0, (True,) * 8)
+            errs = {}
+            if dt == torch.float32:
+                x64, g64 = [t.double() for t in x], g.double()
+                want = ml.motif_level3_backward_plain(g64, *x64, row0=row0)
+                mag = ml.motif_level3_backward_plain(g64.abs(), *[t.abs() for t in x64],
+                                                     row0=row0)
+                plain32 = ml.motif_level3_backward_plain(g, *x, row0=row0)
+                for name, k, w, mg, c, p32 in zip(GRAD_NAMES, got, want, mag, chain, plain32):
+                    lim = (grad_terms(name, B, n, N, R, h) + 8) * 2.0 ** -24 * mg
+                    err = (k.double() - w).abs()
+                    check(bool((err <= lim).all()),
+                          f"backward {path} {[B, N, h]} {name}: f32 error {err.max().item()} "
+                          "beyond the summation bound")
+                    diff = (k.double() - c.double()).abs()
+                    check(bool((diff <= 2 * lim).all()),
+                          f"backward {path} {[B, N, h]} {name}: {diff.max().item()} from the "
+                          "replaced chain")
+                    errs[name] = {"vs_f64": err.max().item(),
+                                  "plain_f32_vs_f64": (p32.double() - w).abs().max().item(),
+                                  "vs_replaced": diff.max().item()}
+            else:
+                want = ml.motif_level3_backward_plain(g.float(), *[t.float() for t in x],
+                                                      row0=row0)
+                for name, k, w, c in zip(GRAD_NAMES, got, want, chain):
+                    top = w.abs().max().item()
+                    err = (k.float() - w).abs().max().item()
+                    diff = (k.float() - c.float()).abs().max().item()
+                    check(err <= 2e-2 * top, f"backward {path} bf16 {name}: error {err}")
+                    check(diff <= 4e-2 * top, f"backward {path} bf16 {name}: {diff} from the "
+                          "replaced chain")
+                    errs[name] = {"vs_f32_plain": err, "vs_replaced": diff}
+            b = level3_backward_bound(x[0], R, h, MODEL_NEEDS, dt, row0, n)
+            on_path = path in ("synthetic2", "joint", "scene") or path.startswith("tp_")
+            rows.append(dict(
+                kernel="motif_level3_backward", path=path, shape=[B, N, h], window=[row0, n],
+                dtype=str(dt)[6:], R=R, served=served, batch_shape=served,
+                max_abs_err=max(e["vs_f64" if dt == torch.float32 else "vs_f32_plain"]
+                                for e in errs.values()), errors=errs,
+                ms=device_ms(lambda: ml.fused_motif_level3_backward(
+                    g, *x, row0=row0, needs=MODEL_NEEDS)),
+                ms_all_eight=device_ms(lambda: ml.fused_motif_level3_backward(g, *x, row0=row0)),
+                plain_ms=device_ms(lambda: ml.motif_level3_backward_plain(
+                    g, *x, row0=row0, needs=MODEL_NEEDS)),
+                replaced_ms=device_ms(lambda: replaced_grads(ml, g, x, row0, MODEL_NEEDS)),
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
+                launches_per_step=1 if on_path else 0, launches_per_served_batch=0,
+                **({"peak_bytes": level3_peaks(ml, x, g)} if path == "synthetic2" else {})))
     return rows
 
 
@@ -654,9 +887,16 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
     for dtype_name in dtypes:
         model = build_model(cfg.with_(compute_dtype=dtype_name), device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
-        reconstruct(model, batches[0])               # warm-up: cuDNN plans, caches
+        # warm-up (cuDNN plans, caches), each entry point from TF32 on: it
+        # must turn TF32 off itself
+        warm = [lambda: reconstruct(model, batches[0])]
         if sample_graphs:
-            sample(model, sample_graphs, gen)
+            warm.append(lambda: sample(model, sample_graphs, gen))
+        for fn in warm:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            fn()
+            check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
+                  "a serving entry point left TF32 on")
         torch.cuda.synchronize()
 
         # the path, counted: the reconstructed batches and the samples
@@ -748,11 +988,16 @@ def step_phase(event) -> str:
 
 
 def autograd_node(event):
+    """The autograd node whose backward an event ran under: the outermost
+    one, so that a backward which runs autograd itself (a nested
+    ``torch.autograd.grad``, as the replaced level-3 backward and K3's
+    backward through its plain version do) is charged with all of it."""
+    node = None
     while event is not None:
         if event.name.startswith("autograd::engine::evaluate_function: "):
-            return event.name.split(": ", 1)[1]
+            node = event.name.split(": ", 1)[1]
         event = event.cpu_parent
-    return None
+    return node
 
 
 def profile_steps(step, batches) -> dict:
@@ -777,7 +1022,7 @@ def profile_steps(step, batches) -> dict:
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("train_step.")]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    phase_us, node_us, bwd, attributed = {}, {}, {}, {}
+    phase_us, node_us, node_kernels, bwd, attributed = {}, {}, {}, {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CPU or not e.kernels:
             continue
@@ -787,6 +1032,7 @@ def profile_steps(step, batches) -> dict:
         node = autograd_node(e)
         if node is not None:
             node_us[node] = node_us.get(node, 0.0) + us
+            node_kernels[node] = node_kernels.get(node, 0) + len(e.kernels)
         for k in e.kernels:
             attributed[k.name] = attributed.get(k.name, 0.0) + k.duration
             if phase == "backward":
@@ -805,29 +1051,61 @@ def profile_steps(step, batches) -> dict:
         "device_ms_per_step_by_range": {k: per(v) for k, v in sorted(phase_us.items())},
         "unattributed_device_ms_per_step": per(busy_us - sum(phase_us.values())),
         "unattributed_top": [[k[:70], per(us), c / n] for k, us, c in loose],
-        "level3_backward_ms_per_step": per(node_us.get("_MotifLevel3Backward", 0.0)),
+        "level3_backward_ms_per_step": per(sum(us for k, us in node_us.items()
+                                               if k.startswith("_MotifLevel3"))),
+        "level3_backward_kernels_per_step": sum(c for k, c in node_kernels.items()
+                                                if k.startswith("_MotifLevel3")) / n,
         "adj_matmul_backward_ms_per_step": per(node_us.get("_AdjMatmulBackward", 0.0)),
         "top_backward_kernels": [[name[:70], per(t), c / n] for name, (t, c) in top],
     }
 
 
-def level3_backward_bound(cfg, B, dtype) -> dict:
-    """The least time of the level-3 backward of one step (both motif
-    convs): bytes of adj, φ(rel), a_i, v_j, deg and the gradient of nt read,
-    the gradients of a_i, v_j, M1d, M1f and bias written; operations three
-    times the forward's dense count (the recompute, then the two products
-    of each contraction's backward)."""
-    N, R, S = cfg.num_nodes, cfg.rel_dim, cfg.sampling_num
-    T = B * S
-    nbytes = ops = 0
-    for hidden in cfg.encoder.sg_conv_hidden:
-        h = hidden[0]
-        inputs = T * N * N + T * N * N * R + 2 * T * N * h + T * N + T * N * h
-        outputs = 2 * T * N * h + 2 * R * h + h
-        nbytes += (inputs + outputs) * (2 if dtype == torch.bfloat16 else 4)
-        ops += 3 * (2 * T * N ** 3 * R + T * N * N * h * (4 * R + 7))
+def level3_backward_bound(adj, R: int, h: int, needs, dtype, row0: int = 0,
+                          n: Optional[int] = None) -> dict:
+    """The least time of one level-3 backward over the trees ``adj``
+    [T,N,N] for the window of rows [row0, row0 + n) and the gradients
+    ``needs`` asks for.  Bytes: every input (adj, φ(rel), a_i, v_j, deg,
+    M1d, M1f, bias) and the gradient of nt read once, the asked-for
+    gradients written once.  Operations, what these trees need: rf's
+    recompute (2R per (i,j,k) with A[i,j] != 0 and A[j,k] != 0), per
+    (i,j,h) with A[i,j] != 0 the recompute of m3 (4R + 7, as the forward)
+    and the asked-for sums (∂a_i 2, ∂v_j 1, ∂deg 2, ∂M1d 2R + 1, ∂M1f 2R,
+    ∂bias 1, gd 2R + 1, grf 2R, the local ∂A 4), and the contractions
+    with grf (∂φ: 2R per (i,j,k) with A[j,k] != 0; ∂A: 2R per (i,j,k))."""
+    T, N = adj.shape[:2]
+    n = N - row0 if n is None else n
+    need = dict(zip(("adj", "phi_r", "a_i", "v_j", "deg", "m1d", "m1f", "bias"), needs))
+    nz = (adj != 0).double()
+    rows = nz[:, row0:row0 + n]
+    live = rows.sum().item()
+    per_live = 4 * R + 7 + sum(c for k, c in (("a_i", 2), ("v_j", 1), ("deg", 2),
+                                               ("m1d", 2 * R + 1), ("m1f", 2 * R),
+                                               ("bias", 1), ("phi_r", 2 * R + 1),
+                                               ("adj", 4)) if need[k])
+    per_live += 2 * R if need["phi_r"] or need["adj"] else 0
+    ops = 2 * R * (rows.sum(1) * nz.sum(2)).sum().item() + live * h * per_live
+    ops += 2 * R * n * nz.sum().item() if need["phi_r"] else 0
+    ops += 2 * R * n * N * N * T if need["adj"] else 0
+    sizes = {"adj": T * N * N, "phi_r": T * n * N * R, "a_i": T * n * h, "v_j": T * N * h,
+             "deg": T * N, "m1d": R * h, "m1f": R * h, "bias": h}
+    isz = 2 if dtype == torch.bfloat16 else 4
+    nbytes = isz * (sum(sizes.values()) + T * n * h + sum(v for k, v in sizes.items()
+                                                           if need[k]))
     ms, by = bound(nbytes, ops, dtype)
     return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "operations": ops}
+
+
+def step_level3_backward_bound(cfg, batch, dtype) -> dict:
+    """``level3_backward_bound`` of one train step: both motif convs over
+    the batch's B·S trees (the joint model: its B graphs), the model's
+    gradients (a_i, v_j, M1d, M1f, bias)."""
+    N = cfg.num_nodes
+    adj = (batch.adj if cfg.model_type == "base" else batch.adj_samples).reshape(-1, N, N)
+    parts = [level3_backward_bound(adj, cfg.rel_dim, hidden[0], MODEL_NEEDS, dtype)
+             for hidden in cfg.encoder.sg_conv_hidden]
+    ms, by = bound(sum(p["bytes"] for p in parts), sum(p["operations"] for p in parts), dtype)
+    return {"bound_ms": ms, "bound_by": by, "bytes": sum(p["bytes"] for p in parts),
+            "operations": sum(p["operations"] for p in parts)}
 
 
 def adj_matmul_backward_bound(cfg, B, dtype) -> dict:
@@ -925,9 +1203,9 @@ def run_training(ml, mc, am):
             trainer.run(TRAIN_EPOCHS, verbose=False)
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == per(steps, ml3=2, k3=2),
+            check(launches == per(steps, ml3=2, k3=2, bwd=2),
                   f"{dtype_name}: launches {launches} over {steps} steps, expected 2 of "
-                  "motif_level3 and adj_matmul per step and no motif_combine")
+                  "motif_level3, its backward and adj_matmul per step and no motif_combine")
             with open(trainer.logger.jsonl_path) as f:
                 means = [json.loads(line)["loss"] for line in f]
             check(len(means) == TRAIN_EPOCHS and all(math.isfinite(m) for m in means),
@@ -952,9 +1230,24 @@ def run_training(ml, mc, am):
 
             gi = torch.zeros((), device="cuda")
             batches = [trainer.batched._map(lambda t, i=i: t[i]) for i in range(PROFILE_STEPS)]
-            res["profile"] = profile_steps(lambda b: tt.train_step(trainer.state, b, gi),
-                                           batches)
-        res["level3_backward_bound"] = level3_backward_bound(cfg, B, getattr(torch, dtype_name))
+            step = lambda b: tt.train_step(trainer.state, b, gi)
+            res["profile"] = profile_steps(step, batches)
+            # the level-3 backward: the kernel pair against the autograd
+            # chain it replaced, in turns (pair, chain, chain, pair)
+            keys = ("wall_ms_per_step", "kernels_per_step", "device_busy_ms_per_step",
+                    "level3_backward_ms_per_step", "level3_backward_kernels_per_step")
+            turns = {"pair": [], "replaced": []}
+            for name in ("pair", "replaced", "replaced", "pair"):
+                if name == "pair":
+                    prof = profile_steps(step, batches)
+                else:
+                    with replaced_backward():
+                        prof = profile_steps(step, batches)
+                turns[name].append({k: prof[k] for k in keys})
+            res["backward_turns"] = {name: {k: statistics.mean(t[k] for t in ts) for k in keys}
+                                     | {"runs": ts} for name, ts in turns.items()}
+        res["level3_backward_bound"] = step_level3_backward_bound(
+            cfg, data.slice_batch(0, B), getattr(torch, dtype_name))
         res["adj_matmul_backward_bound"] = adj_matmul_backward_bound(
             cfg, B, getattr(torch, dtype_name))
         if dtype_name == "float32":
@@ -986,9 +1279,9 @@ def run_joint_training(ml, mc, am):
         trainer.run(TRAIN_EPOCHS, verbose=False)
         launches = read_counts(ml, mc, am)
         steps = TRAIN_EPOCHS * nb
-        check(launches == per(steps, ml3=2),
+        check(launches == per(steps, ml3=2, bwd=2),
               f"joint train: launches {launches} over {steps} steps, expected 2 motif_level3 "
-              "per step and nothing else")
+              "and 2 of its backward per step and nothing else")
         with open(trainer.logger.jsonl_path) as f:
             means = [json.loads(line)["loss"] for line in f]
         check(len(means) == TRAIN_EPOCHS and all(math.isfinite(m) for m in means),
@@ -1005,8 +1298,8 @@ def run_joint_training(ml, mc, am):
         gi = torch.zeros((), device="cuda")
         batches = [trainer.batched._map(lambda t, i=i: t[i]) for i in range(PROFILE_STEPS)]
         res["profile"] = profile_steps(lambda b: tt.train_step(trainer.state, b, gi), batches)
-    res["level3_backward_bound"] = level3_backward_bound(cfg.with_(sampling_num=1), B,
-                                                         torch.float32)
+    res["level3_backward_bound"] = step_level3_backward_bound(cfg, data.slice_batch(0, B),
+                                                              torch.float32)
     res["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, B))
     res["dropout"] = dropout_step(cfg, data.slice_batch(0, B))
     return res
@@ -1057,7 +1350,7 @@ def run_scene(ml, mc, am):
     data = load_dataset(cfg, "train", num_graphs=2, device="cuda")
     check(data.adj_samples is None and not torch.equal(data.adj, data.adj.transpose(1, 2)),
           "scene: a directed adjacency and no spanning trees")
-    res["train"] = run_short_train(ml, mc, am, cfg, {"ml3": 2}, vs_cpu=False)
+    res["train"] = run_short_train(ml, mc, am, cfg, {"ml3": 2, "bwd": 2}, vs_cpu=False)
     return res
 
 
@@ -1294,17 +1587,21 @@ def blocked_pair(ml, mc, am, conv, block_rows, inputs, grad_out, ref_device) -> 
         errs[name] = {"blocked_vs_unblocked": (b - u).abs().max().item(),
                       "blocked_vs_f64": e_b, "unblocked_vs_f64": e_u}
     res["max_abs_err"] = errs
-    check(res[f"block_{block_rows}"]["peak_above_inputs_bytes"]
-          < res["block_None"]["peak_above_inputs_bytes"], "blocked peak below unblocked")
     return res
 
 
 def run_blocked(ml, mc, am):
     """Layer 2 of the protein sg conv at its preset shape (500 trees of the
     fallback's test split, N = 50, x of width 10, hidden (20,20,20,20))
-    unblocked against block_rows=10; the third-order conv's layer 2 at
-    synthetic2 (100 trees, N = 25, x of width 20, hidden (50,50,50))
-    against block_rows=5, whose forward is one motif_level3 either way."""
+    unblocked against block_rows=10, the blocked peak lower; the
+    third-order conv's layer 2 at synthetic2 (100 trees, N = 25, x of width
+    20, hidden (50,50,50)) against block_rows=5, whose forward is one
+    motif_level3 and whose backward one launch of the pair either way (the
+    pair keeps no [B,n,N,h] tensor, so block_rows leaves its peak as it
+    is), and the same with the replaced backward (``replaced_backward``,
+    autograd through the plain level 3, recomputed per block): the pair's
+    peak below the replaced unblocked one, the replaced blocked peak below
+    its unblocked one."""
     from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.nn import SpatialGraphConv, SpatialGraphConv3D
@@ -1315,7 +1612,7 @@ def run_blocked(ml, mc, am):
             ("protein_conv3d_layer2", protein_preset(dataset_path=str(ROOT / "dataset")),
              SpatialGraphConv3D, 10, per(1), "cuda"),
             ("synthetic2_conv_layer2", synthetic2_preset(dataset_path=str(ROOT / "dataset")),
-             SpatialGraphConv, 5, per(1, ml3=1), "cpu")):
+             SpatialGraphConv, 5, per(1, ml3=1, bwd=1), "cpu")):
         data = load_dataset(cfg, "test", num_graphs=cfg.train.batch_size, device="cuda")
         N, S = cfg.num_nodes, cfg.sampling_num
         T = data.batch_size * S
@@ -1326,8 +1623,23 @@ def run_blocked(ml, mc, am):
         conv = make(f, cfg.rel_dim, tuple(hidden), torch.Generator().manual_seed(1)).cuda()
         g = torch.randn(T, N, hidden[-1], generator=gen, device="cuda")
         res = blocked_pair(ml, mc, am, conv, block_rows, (adj, x, rel), g, ref_device)
-        for key in ("block_None", f"block_{block_rows}"):
+        peak = lambda r, key: r[key]["peak_above_inputs_bytes"]
+        blocked = f"block_{block_rows}"
+        for key in ("block_None", blocked):
             check(res[key]["launches"] == per_run, f"{name} {key}: launches {res[key]['launches']}")
+        if make is SpatialGraphConv3D:
+            check(peak(res, blocked) < peak(res, "block_None"), "blocked peak below unblocked")
+        else:
+            with replaced_backward():
+                res["replaced_backward"] = old = blocked_pair(
+                    ml, mc, am, conv, block_rows, (adj, x, rel), g, ref_device)
+            for key in ("block_None", blocked):
+                check(old[key]["launches"] == per(1, ml3=1),
+                      f"{name} replaced {key}: launches {old[key]['launches']}")
+            check(peak(res, blocked) <= peak(res, "block_None")
+                  < peak(old, "block_None") and peak(old, blocked) < peak(old, "block_None"),
+                  f"{name} peaks: pair {peak(res, 'block_None')} / {peak(res, blocked)}, "
+                  f"replaced {peak(old, 'block_None')} / {peak(old, blocked)}")
         out[name] = dict(res, trees=T, num_nodes=N, in_width=f, hidden=list(hidden),
                          block_rows=block_rows)
     return out
@@ -1358,7 +1670,8 @@ def run_eval(ml, mc, am):
         zero_counts(ml, mc, am)
         trainer.run(TRAIN_EPOCHS, verbose=False)
         launches = read_counts(ml, mc, am)
-        check(launches == per(steps + eval_batches, ml3=2, k3=2),
+        check(launches == per(steps + eval_batches, ml3=2, k3=2)
+              | {"motif_level3_backward": 2 * steps},
               f"eval: launches {launches} over {steps} steps and {eval_batches} eval batches")
         best_dir = Path(trainer.best_checkpointer.directory)
         best = json.loads((best_dir / "best.json").read_text())
@@ -1435,9 +1748,10 @@ def run_remat(ml, mc, am):
     prot = protein_preset(dataset_path=str(ROOT / "dataset"))
     out = {}
     for name, cfg, graphs, plain, remat in (
-            ("synthetic2", s2, s2.train.batch_size, per(1, ml3=2, k3=2), per(1, ml3=4, k3=2)),
+            ("synthetic2", s2, s2.train.batch_size, per(1, ml3=2, k3=2, bwd=2),
+             per(1, ml3=4, k3=2, bwd=2)),
             ("synthetic2_joint", s2.with_(model_type="base"), s2.train.batch_size,
-             per(1, ml3=2), per(1, ml3=4)),
+             per(1, ml3=2, bwd=2), per(1, ml3=4, bwd=2)),
             ("protein", prot, 2, per(1, k3=2), per(1, k3=2))):
         batch = load_dataset(cfg, "train", num_graphs=graphs, device="cpu")
         enc, gen = cfg.encoder, torch.Generator().manual_seed(0)
@@ -1620,8 +1934,23 @@ PROFILE_EPOCHS = 2       # cli_profile: --epochs 2 --profile traces epoch 1
 # the kernel events of each wrapper in a torch.profiler trace, by the
 # substring their kernels' names share
 TRACE_KERNEL_NAMES = {"motif_level3": "motif_level3_kernel",
+                      "motif_level3_backward": "motif_l3_grad_",
                       "motif_combine": "motif_combine_kernel",
                       "adj_matmul": "adj_matmul_"}
+
+
+def trace_kernel_events(events) -> dict:
+    """Each wrapper's kernel events in a Chrome trace's events."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {k: sum(sub in e.get("name", "") for e in kernels)
+            for k, sub in TRACE_KERNEL_NAMES.items()}
+
+
+def events_of(launches: dict) -> dict:
+    """The kernel events that wrapper launches give (the backward pair: two
+    kernels a launch)."""
+    return {k: v * (BACKWARD_KERNELS if k == "motif_level3_backward" else 1)
+            for k, v in launches.items()}
 
 
 def component_labels(adj):
@@ -1758,13 +2087,13 @@ def run_cli_profile(untraced_epoch_s: float):
     at synthetic2 full width, in a process of its own as a user runs it
     (timeout 600 s): the trace ``<workdir>/profile/trace_rank0.json`` holds
     one ``train_epoch`` range over epoch 1's 20 steps and their kernel
-    events alone: 40 ``motif_level3``, 40 ``adj_matmul``, no
-    ``motif_combine``.  The traced epoch's wall time (the profiler's start
-    and stop included) and its ``train_epoch`` range, each against
+    events alone: 40 ``motif_level3``, 80 of its backward pair (40
+    launches), 40 ``adj_matmul``, no ``motif_combine``.  The traced
+    epoch's wall time (the profiler's start and stop included) and its
+    ``train_epoch`` range, each against
     ``untraced_epoch_s``, an untraced f32 epoch's seconds from the train
-    phase.  (In a process that has traced before, torch's profiler was
-    seen to drop a few of the first kernel records of a later trace:
-    hence a fresh process.)"""
+    phase.  A process that has traced before is the ``trace_twice``
+    phase's case; this one holds the CLI as a user runs it."""
     import re
     import tempfile
 
@@ -1788,8 +2117,7 @@ def run_cli_profile(untraced_epoch_s: float):
               f"cli_profile trace {written}")
         events = json.loads(path.read_text())["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
-        trace_counts = {k: sum(sub in e.get("name", "") for e in kernels)
-                        for k, sub in TRACE_KERNEL_NAMES.items()}
+        trace_counts = trace_kernel_events(events)
         # a host range appears once as "user_annotation"; the device's
         # projection of it ("gpu_user_annotation") is left out
         host_ranges = lambda name: [e for e in events
@@ -1798,8 +2126,8 @@ def run_cli_profile(untraced_epoch_s: float):
         check(len(epoch_ranges) == 1 and len(steps) == 20,
               f"cli_profile: {len(epoch_ranges)} train_epoch ranges, {len(steps)} "
               "train_step.forward ranges, expected 1 and 20")
-        check(trace_counts == per(20, 2, 2),
-              f"cli_profile trace kernels {trace_counts}, expected 40 / 40 / 0")
+        check(trace_counts == events_of(per(20, 2, 2, 2)),
+              f"cli_profile trace kernels {trace_counts}, expected 40 / 80 / 0 / 40")
         range_s = epoch_ranges[0]["dur"] / 1e6
         out.update(
             epoch_seconds=secs, traced_epoch_range_seconds=range_s,
@@ -1810,6 +2138,103 @@ def run_cli_profile(untraced_epoch_s: float):
             trace_kernel_events=trace_counts, trace_all_kernels=len(kernels),
             trace_device_ms=sum(e.get("dur", 0) for e in kernels) / 1e3)
     return out
+
+
+TRACE_GRAPHS = 40         # trace_twice: 4 steps an epoch
+
+
+def trace_records(path) -> dict:
+    """A Chrome trace's kernel events by wrapper and, to see which records
+    go missing, the kernel launches on the host (CUDA runtime events named
+    ``*LaunchKernel*``) whose correlation id no device event
+    carries: their count and positions in launch order."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and "LaunchKernel" in e.get("name", "")), key=lambda e: e.get("ts", 0))
+    on_device = {e.get("args", {}).get("correlation") for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    missing = [i for i, e in enumerate(launches)
+               if e.get("args", {}).get("correlation") not in on_device]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    return {"kernel_events": trace_kernel_events(events), "host_launches": len(launches),
+            "launches_without_kernel": len(missing), "missing_positions": missing[:20],
+            "last_missing_position": missing[-1] if missing else None,
+            "missing_names": [launches[i].get("name") for i in missing[:5]],
+            "first_kernels": [e.get("name", "")[:40] for e in kernels[:4]],
+            "first_launch_to_first_kernel_us": (kernels[0]["ts"] - launches[0]["ts"]
+                                                if kernels and launches else None)}
+
+
+def run_trace_twice(ml, mc, am):
+    """Fault 3.2 in a process that has traced before (this one: every
+    profile above).  Two Trainers (synthetic2 full width, f32, 40 graphs of
+    the train split, 4 steps an epoch) each run 2 epochs with
+    ``profile_dir``, the package's own tracing: each trace's kernel events
+    of every wrapper must equal the wrappers' launches in the traced epoch
+    (half the run's), in both traces: the Trainer's profiler warms up on a
+    discarded step that keeps the card busy for ``TRACE_WARMUP_S``.
+    Before them, as the diagnostic of what that repairs, only reported,
+    the same epoch twice under a bare ``torch.profiler.profile`` started at
+    the epoch's first launch (the Trainer's tracing before the warm-up),
+    and twice under a profiler whose discarded warm-up step is only four
+    tiny kernels and one synchronize (too short a warm-up).  For every
+    trace, the host launches without a kernel record, their positions in
+    launch order, and the time from the first launch to the first kernel
+    record."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    data = load_dataset(cfg, "train", num_graphs=TRACE_GRAPHS, device="cuda")
+    nb = data.batch_size // cfg.train.batch_size
+    out = {"steps_per_epoch": nb, "bare": [], "warmup": [], "trainer": []}
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        bare = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/bare")
+        bare.run_epoch(0)
+        for k, variant in enumerate(("bare", "warmup", "bare", "warmup")):
+            torch.cuda.synchronize()
+            zero_counts(ml, mc, am)
+            warm = variant == "warmup"
+            with profile(activities=activities, acc_events=True,
+                         **({"schedule": schedule(wait=0, warmup=1, active=1)} if warm
+                            else {})) as prof:
+                if warm:
+                    for _ in range(4):
+                        torch.ones(1, device="cuda").add_(1)
+                    torch.cuda.synchronize()
+                    prof.step()
+                with record_function("train_epoch"):
+                    bare.run_epoch(1 + k)
+                torch.cuda.synchronize()
+            launches = read_counts(ml, mc, am)
+            path = f"{workdir}/{variant}_{k}.json"
+            prof.export_chrome_trace(path)
+            rec = trace_records(path)
+            out[variant].append(dict(rec, expected_events=events_of(launches),
+                                     equal=rec["kernel_events"] == events_of(launches)))
+        for k in range(2):
+            tr = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/trainer_{k}")
+            zero_counts(ml, mc, am)
+            tr.run(2, verbose=False, profile_dir=f"{workdir}/trainer_{k}/profile")
+            launches = read_counts(ml, mc, am)
+            check(launches == per(2 * nb, 2, 2, 2), f"trace_twice launches {launches}")
+            want = events_of(per(nb, 2, 2, 2))
+            rec = trace_records(f"{workdir}/trainer_{k}/profile/trace_rank0.json")
+            out["trainer"].append(dict(rec, expected_events=want,
+                                       equal=rec["kernel_events"] == want))
+    return out
+
+
+def check_trace_twice(out) -> None:
+    for k, rec in enumerate(out["trainer"]):
+        check(rec["equal"], f"trace_twice: trace {k} holds {rec['kernel_events']} kernel "
+              f"events, the wrappers launched {rec['expected_events']}")
 
 
 LARGE_GRAPH_NODES = (2048, 8192)   # benchmarks/large_graph_bench.py's graphs
@@ -1971,9 +2396,9 @@ def run_dp(ml, mc, am, mesh):
             trainers[name].run(TRAIN_EPOCHS, verbose=False)
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == per(steps, ml3=2, k3=2),
+            check(launches == per(steps, ml3=2, k3=2, bwd=2),
                   f"dp {name}: launches {launches} over {steps} steps, expected 2 of "
-                  "motif_level3 and adj_matmul per step and no motif_combine")
+                  "motif_level3, its backward and adj_matmul per step and no motif_combine")
             with open(trainers[name].logger.jsonl_path) as f:
                 means[name] = [json.loads(line)["loss"] for line in f]
             out[name] = {"launches": launches, "epoch_mean_loss": means[name],
@@ -2107,7 +2532,7 @@ def tp_rank_rows(ml, mc, am, gen) -> dict:
         zero_counts(ml, mc, am)
         y = step()
         launches = read_counts(ml, mc, am)
-        check(launches == per(1, ml3=1), f"tp rank rows m={m}: launches {launches}")
+        check(launches == per(1, ml3=1, bwd=1), f"tp rank rows m={m}: launches {launches}")
         peak = torch.cuda.max_memory_allocated() - base
         for p in params.values():
             p.grad = None
@@ -2159,7 +2584,7 @@ def run_tp(ml, mc, am, mesh):
                 hints._INSPECT = None
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == per(steps, ml3=2, k3=2),
+            check(launches == per(steps, ml3=2, k3=2, bwd=2),
                   f"tp {name}: launches {launches} over {steps} steps")
             with open(tr.logger.jsonl_path) as f:
                 means[name] = [json.loads(line)["loss"] for line in f]
@@ -2272,7 +2697,8 @@ def main() -> int:
     from snd_vae_tpu_torch.nn.kernels import motif_combine as mc
     from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml
 
-    # f32 products and convolutions in full f32, for the comparisons
+    # f32 products and convolutions in full f32, for the comparisons (the
+    # serve phase also holds the serving entry points to clearing TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2356,6 +2782,9 @@ def main() -> int:
     emit("cli_eval", run_cli_eval())
     cli_profile = run_cli_profile(20 / training["float32"]["steps_per_s"])
     emit("cli_profile", cli_profile)
+    trace_twice = run_trace_twice(ml, mc, am)
+    emit("trace_twice", trace_twice)
+    check_trace_twice(trace_twice)
 
     # 17.-19. the parallel layer: the large-graph encoder and the
     # data-parallel Trainer in an NCCL process group of one, then the CLI
@@ -2407,16 +2836,20 @@ def main() -> int:
                "remat_train": remat["synthetic2"]["remat"]["launches"],
                "remat_joint_train": remat["synthetic2_joint"]["remat"]["launches"],
                "remat_protein_train": remat["protein"]["remat"]["launches"],
-               "large_graph": {"motif_level3": 0, "motif_combine": 0,
-                               "adj_matmul": large_graph["launches"]},
+               "large_graph": {"motif_level3": 0, "motif_level3_backward": 0,
+                               "motif_combine": 0, "adj_matmul": large_graph["launches"]},
                "dp_train": dp["mesh"]["launches"],
                "tp_train": tp["tp"]["launches"],
-               "profile_train": cli_profile["trace_kernel_events"]}
+               "profile_train": {k: v // (BACKWARD_KERNELS if k == "motif_level3_backward"
+                                          else 1)
+                                 for k, v in cli_profile["trace_kernel_events"].items()}}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})
     print(json.dumps({"kernels": [
         entry("motif_level3", L3_SOURCE, "fused_motif_combine", K1_REPLACES),
+        entry("motif_level3_backward", L3B_SOURCE, "motif_combine (custom VJP, _motif_bwd)",
+              K2_REPLACES),
         entry("motif_combine", K1_SOURCE, "fused_motif_combine", K1_REPLACES),
         entry("adj_matmul", K3_SOURCE, "blocked_adj_matmul", K3_REPLACES),
     ]}), flush=True)

@@ -25,7 +25,8 @@ def full_f32() -> None:
     """f32 means f32 on the card: matmuls and cuDNN convolutions of f32
     tensors run in full f32, not TF32 (PyTorch lets cuDNN take TF32 by
     default), so what an entry point computes on the card is what the CPU
-    computes.  Set by the CLI and the Trainer; process-wide."""
+    computes.  Set by the CLI, the Trainer and ``serve.reconstruct`` /
+    ``serve.sample``; process-wide."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

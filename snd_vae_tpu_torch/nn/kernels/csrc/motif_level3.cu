@@ -68,88 +68,9 @@
 // No tensor cores: after the rank-R fold the product is only R deep per
 // (i,j), TF32 would break the 1e-5 check against the plain version, and the
 // f32 CUDA cores do the 134 MFLOP at N = 256 in ~2 us.
-#include <cstdint>
-#include <type_traits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "motif_level3.cuh"
 
 namespace {
-
-constexpr int kTi = 8;                 // rows i per block, one warp each
-constexpr int kTj = 32;                // j per tile, one lane each in the rf step
-constexpr int kHl = 2;                 // h columns per lane
-constexpr int kHc = 32 * kHl;          // h columns per block
-constexpr int kThreads = 32 * kTi;
-constexpr float kLeak = 0.2f;
-constexpr size_t kMaxSmem = 232448;    // what one block may take on sm_90
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One element into shared memory: f32 by cp.async (src-size 0 zero-fills
-// and reads nothing), bf16 through a register.
-__device__ __forceinline__ void stage(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, bool valid) {
-  *dst = valid ? __bfloat162float(*src) : 0.f;
-}
-__device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// k-chunk [k0, k0+kTk) of A[b, j-tile, :] into as [kTj][kTk+4] and of
-// phi[b, i-tile, :, :] into ps [kTi][kTk*r] (i counts the window's rows,
-// ``rows`` of them).  Invalid pieces read from the base pointer with
-// src-size 0.  ``vec`` (f32, N % 4 == 0, 16-byte aligned
-// tensors): 16-byte pieces, none of which straddles N.
-template <int kTk, typename T>
-__device__ __forceinline__ void stage_chunk(float* as, float* ps, const T* ab, const T* pb,
-                                            int n, int rows, int r, int i0, int j0, int k0,
-                                            bool vec) {
-  constexpr int kAp = kTk + 4;
-  if constexpr (std::is_same<T, float>::value) {
-    if (vec) {
-      for (int e = threadIdx.x; e < kTj * kTk / 4; e += kThreads) {
-        const int jj = e / (kTk / 4), kk = 4 * (e % (kTk / 4)), j = j0 + jj, k = k0 + kk;
-        const bool ok = j < n && k < n;
-        stage16(as + jj * kAp + kk, ab + (ok ? static_cast<int64_t>(j) * n + k : 0), ok);
-      }
-      const int row = kTk * r / 4;
-      for (int e = threadIdx.x; e < kTi * row; e += kThreads) {
-        const int ii = e / row, q = 4 * (e % row), i = i0 + ii, k = k0 + q / r;
-        const bool ok = i < rows && k < n;
-        stage16(ps + ii * kTk * r + q,
-                pb + (ok ? (static_cast<int64_t>(i) * n + k0) * r + q : 0), ok);
-      }
-      return;
-    }
-  }
-  for (int e = threadIdx.x; e < kTj * kTk; e += kThreads) {
-    const int jj = e / kTk, kk = e % kTk, j = j0 + jj, k = k0 + kk;
-    const bool ok = j < n && k < n;
-    stage(as + jj * kAp + kk, ab + (ok ? static_cast<int64_t>(j) * n + k : 0), ok);
-  }
-  const int row = kTk * r;
-  for (int e = threadIdx.x; e < kTi * row; e += kThreads) {
-    const int ii = e / row, q = e % row, i = i0 + ii, k = k0 + q / r;
-    const bool ok = i < rows && k < n;
-    stage(ps + e, pb + (ok ? (static_cast<int64_t>(i) * n + k0) * r + q : 0), ok);
-  }
-}
 
 template <typename T, int kTk>
 __global__ void __launch_bounds__(kThreads)
@@ -184,11 +105,7 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
   const T* pb = phi + b * rows * n * r; // phi[b] [rows, n, r]
   const T* mb = ab + static_cast<int64_t>(row0) * n;   // A[b, row0:, :], the mask rows
 
-  for (int e = tid; e < r * kHc; e += kThreads) {   // joins the first tile's copy group
-    const int rr = e / kHc, hh = hc0 + e % kHc;
-    stage(wd + e, m1d + (hh < h ? rr * h + hh : 0), hh < h);
-    stage(wf + e, m1f + (hh < h ? rr * h + hh : 0), hh < h);
-  }
+  stage_m1(wd, wf, m1d, m1f, r, h, hc0);   // joins the first tile's copy group
   float base[kHl], acc[kHl];            // a_i + bias, and nt, for (i, h)
 #pragma unroll
   for (int q = 0; q < kHl; ++q) {
@@ -197,65 +114,11 @@ motif_level3_kernel(const T* __restrict__ adj, const T* __restrict__ phi,
     acc[q] = 0.f;
   }
 
-  const int nk = (n + kTk - 1) / kTk;
   for (int j0 = 0; j0 < n; j0 += kTj) {
     __syncthreads();                    // the last j-tile's epilogue is done with the tiles
-    for (int e = tid; e < kTi * kTj * r; e += kThreads) {
-      const int ii = i0 + e / (kTj * r), q = e % (kTj * r);
-      const bool ok = ii < rows && j0 + q / r < n;
-      stage(pj + e, pb + (ok ? (static_cast<int64_t>(ii) * n + j0) * r + q : 0), ok);
-    }
-    for (int e = tid; e < kTi * kTj; e += kThreads) {
-      const int ii = i0 + e / kTj, j = j0 + e % kTj;
-      const bool ok = ii < rows && j < n;
-      stage(mk + e, mb + (ok ? static_cast<int64_t>(ii) * n + j : 0), ok);
-    }
-    for (int e = tid; e < kTj; e += kThreads) {
-      const bool ok = j0 + e < n;
-      stage(dg + e, deg + (ok ? b * n + j0 + e : 0), ok);
-    }
-    for (int e = tid; e < kTj * kHc; e += kThreads) {
-      const int j = j0 + e / kHc, hh = hc0 + e % kHc;
-      const bool ok = j < n && hh < h;
-      stage(vs + e, v_j + (ok ? (b * n + j) * h + hh : 0), ok);
-    }
-    for (int rr = 0; rr < r; ++rr) rfs[(w * kTj + lane) * r + rr] = 0.f;
-
+    stage_tile(pj, mk, dg, vs, pb, mb, deg, v_j, b, n, rows, r, h, i0, j0, hc0);
     // 1. rf[i, j0 + lane, :] for this thread, k-chunk by k-chunk
-    stage_chunk<kTk>(as, ps, ab, pb, n, rows, r, i0, j0, 0, vec);
-    cp_async_commit();
-    for (int c = 0; c < nk; ++c) {
-      if (c + 1 < nk) {                 // the next chunk's copies fly during this one's sums
-        const int nb = (c + 1) & 1;
-        stage_chunk<kTk>(as + nb * kAs, ps + nb * kTi * kTk * r, ab, pb, n, rows, r, i0, j0,
-                         (c + 1) * kTk, vec);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      // four k per float4 read of A; phi's row is the same for the whole
-      // warp (a broadcast), read four k at a time where R = 1
-      const float* at = as + (c & 1) * kAs + lane * kAp;
-      const float* pt = ps + (c & 1) * kTi * kTk * r + w * kTk * r;
-      for (int rr = 0; rr < r; ++rr) {
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kTk; kk += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(at + kk);
-          const float4 p = r == 1 ? *reinterpret_cast<const float4*>(pt + kk)
-                                  : make_float4(pt[kk * r + rr], pt[(kk + 1) * r + rr],
-                                                pt[(kk + 2) * r + rr], pt[(kk + 3) * r + rr]);
-          s0 = fmaf(a.x, p.x, s0);
-          s1 = fmaf(a.y, p.y, s1);
-          s2 = fmaf(a.z, p.z, s2);
-          s3 = fmaf(a.w, p.w, s3);
-        }
-        rfs[(w * kTj + lane) * r + rr] += (s0 + s1) + (s2 + s3);
-      }
-      __syncthreads();
-    }
+    rf_tile<kTk>(as, ps, rfs, ab, pb, n, rows, r, i0, j0, vec);
 
     // 2. m3, lrelu and the masked j-sum for row i, over the j with
     // A[i,j] != 0 only (a ballot lists them), two j at a time
@@ -320,9 +183,7 @@ int launch(const void* adj, const void* phi, const void* a_i, const void* v_j,
   const int n_h_tiles = (h + kHc - 1) / kHc;
   const int64_t blocks = static_cast<int64_t>(batch) * n_i_tiles * n_h_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = sizeof(float) * (2 * kTj * (kTk + 4) + 2 * kTi * kTk * r +
-                                       2 * kTi * kTj * r + kTi * kTj + kTj + kTj * kHc +
-                                       2 * r * kHc);
+  const size_t smem = sizeof(float) * smem_floats<kTk>(r);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = std::is_same<T, float>::value && n % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(adj) % 16 == 0 &&

@@ -17,10 +17,28 @@ only there, it returns ``motif_level3_plain``.  With ``row0`` it computes a
 window of rows i in [row0, row0 + n) of nt: φ(rel) and a_i are given for
 those rows only ([B,n,N,R], [B,n,h]), A, v_j and deg whole; the rows of
 the mesh's ``model`` axis are such windows, and the full launch is the
-window (0, N).  ``motif_level3`` is the
-differentiable entry point; its backward recomputes the plain level 3,
-with ``block_rows`` one i-row block at a time (the port of JAX's
-``_blocked_nt``, ``snd_vae_tpu/nn/spatial_conv.py:263-320``).
+window (0, N).  ``motif_level3`` is the differentiable entry point.
+
+Its backward (the port of JAX's custom VJP ``motif_combine``,
+``snd_vae_tpu/nn/pallas/blocked_spmm.py:281-301``) is the closed form of
+the gradient.  With g = ∂L/∂nt and lrelu'(x) = 1 for x > 0, 0.2 otherwise:
+
+  P[i,j,:]    = g[i] * A[i,j]^2 * lrelu'(m3[i,j,:])
+  ∂a_i[i]     = Σ_j deg[j] P[i,j]            ∂v_j[j] = Σ_i P[i,j]
+  ∂deg[j]     = Σ_{i,h} P[i,j,h] (a_i + bias + φ M1d)[i,j,h]
+  ∂M1d        = Σ φ ⊗ (deg P)   ∂M1f = Σ rf ⊗ P   ∂bias = Σ deg P
+  gd, grf     = (deg P) M1d^T, P M1f^T                        [.,n,N,R]
+  ∂φ[i,k,r]   = gd[i,k,r] + Σ_j A[j,k] grf[i,j,r]
+  ∂A[j,k]     = Σ_{i,r} grf[i,j,r] φ[i,k,r]
+                + on the window's rows i: Σ_h g lrelu(m3) + A Σ_h lrelu'(m3) g c
+
+(c the bracket of m3).  ``fused_motif_level3_backward`` launches the pair of
+``csrc/motif_level3_backward.cu`` on CUDA tensors and counts each launch of
+the pair in ``fused_motif_level3_backward.launches``; on CPU tensors, and
+only there, it returns ``motif_level3_backward_plain``, the closed form as
+PyTorch ops, with ``block_rows`` one i-row block at a time (the port of
+JAX's ``_blocked_nt``, ``snd_vae_tpu/nn/spatial_conv.py:263-320``).  Both
+compute only the gradients asked for.
 """
 
 from __future__ import annotations
@@ -44,7 +62,23 @@ _SIGNATURES = {
         ctypes.c_void_p,                                                     # stream
     )
 }
+_BACKWARD_SIGNATURES = {
+    "motif_level3_backward_launch": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # adj phi a_i v_j
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # deg m1d m1f bias
+        ctypes.c_void_p,                                                     # grad of nt
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # d: adj phi a_i v_j
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # d: deg m1d m1f bias
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # gd grf loc (f32)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # pv pdeg pp (f32)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,              # batch n row0 rows
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,              # r h tiles flags
+        ctypes.c_int, ctypes.c_void_p,                                       # dtype stream
+    )
+}
 LEAK = 0.2
+NAMES = ("adj", "phi_r", "a_i", "v_j", "deg", "m1d", "m1f", "bias")
+ROW_TILE = 8            # rows i per block of the backward's first kernel (kTi)
 
 
 def motif_level3_plain(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
@@ -123,6 +157,112 @@ def fused_motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias, row0: int = 0)
 fused_motif_level3.launches = 0
 
 
+def motif_level3_backward_plain(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
+                                row0: int = 0, needs=(True,) * 8,
+                                block_rows: Optional[int] = None) -> tuple:
+    """The gradients of ``motif_level3``'s eight inputs (``NAMES``) for
+    ``grad`` = ∂L/∂nt [B,n,h], in the closed form of the module docstring,
+    as PyTorch ops (not autograd through the forward); None where ``needs``
+    is False.  bf16 and f16 inputs are computed in f32 and the results cast
+    back.  ``block_rows`` recomputes rf, m3 and P ([B,block_rows,N,·]) one
+    i-row block of the window at a time, the last block short where it does
+    not divide n."""
+    dt = adj.dtype
+    if dt in (torch.bfloat16, torch.float16):
+        grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias = (
+            t.float() for t in (grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias))
+    need = dict(zip(NAMES, needs))
+    n = phi_r.shape[1]
+    out = {k: torch.zeros_like(t) for k, t in
+           zip(NAMES, (adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)) if need[k]}
+    step = block_rows or n
+    for s in range(0, n, step):
+        e = min(s + step, n)
+        a_r, phi, g = adj[:, row0 + s:row0 + e], phi_r[:, s:e], grad[:, s:e]
+        rf = torch.einsum("bjk,bikr->bijr", adj, phi)
+        base = a_i[:, s:e, None] + bias + phi @ m1d                 # a_i + bias + d_ij
+        c = deg[:, None, :, None] * base + v_j[:, None] + rf @ m1f
+        slope = torch.full_like(c, LEAK).masked_fill_(a_r[..., None] * c > 0, 1.0)
+        p = g[:, :, None] * (a_r * a_r)[..., None] * slope
+        dp = deg[:, None, :, None] * p
+        if need["a_i"]:
+            out["a_i"][:, s:e] = dp.sum(2)
+        if need["v_j"]:
+            out["v_j"] += p.sum(1)
+        if need["deg"]:
+            out["deg"] += (p * base).sum((1, 3))
+        if need["m1d"]:
+            out["m1d"] += torch.einsum("bijr,bijh->rh", phi, dp)
+        if need["m1f"]:
+            out["m1f"] += torch.einsum("bijr,bijh->rh", rf, p)
+        if need["bias"]:
+            out["bias"] += dp.sum((0, 1, 2))
+        if need["phi_r"] or need["adj"]:
+            grf = p @ m1f.T
+        if need["phi_r"]:
+            out["phi_r"][:, s:e] = dp @ m1d.T + torch.einsum("bjk,bijr->bikr", adj, grf)
+        if need["adj"]:
+            gs = g[:, :, None]
+            out["adj"][:, row0 + s:row0 + e] += ((gs * a_r[..., None] * c * slope).sum(-1)
+                                                 + a_r * (gs * slope * c).sum(-1))
+            out["adj"] += torch.einsum("bijr,bikr->bjk", grf, phi)
+    return tuple(out[k].to(dt) if k in out else None for k in NAMES)
+
+
+def fused_motif_level3_backward(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
+                                row0: int = 0, needs=(True,) * 8,
+                                block_rows: Optional[int] = None) -> tuple:
+    """The gradients of ``fused_motif_level3``'s eight inputs (``NAMES``)
+    for ``grad`` = ∂L/∂nt of the window's rows [B,n,h], each in its input's
+    dtype, None where ``needs`` is False.  On CUDA tensors: the kernel pair
+    of ``csrc/motif_level3_backward.cu`` (two launches, one count), which
+    keeps no [B,n,N,h] tensor, so ``block_rows`` does not apply; on CPU
+    tensors ``motif_level3_backward_plain``."""
+    dev = check_inputs("motif_level3_backward", grad=grad, adj=adj, phi_r=phi_r, a_i=a_i,
+                       v_j=v_j, deg=deg, m1d=m1d, m1f=m1f, bias=bias)
+    _check_shapes(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias, row0)
+    if grad.shape != a_i.shape:
+        raise ValueError(f"motif_level3_backward: grad has shape {tuple(grad.shape)}, "
+                         f"expected {tuple(a_i.shape)}")
+    if dev.type == "cpu":
+        return motif_level3_backward_plain(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
+                                           row0, needs, block_rows)
+
+    B, n, N, R = phi_r.shape
+    h = bias.shape[0]
+    inputs = (adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)
+    need = dict(zip(NAMES, needs))
+    if not any(needs) or B * n * N * h == 0:
+        return tuple(torch.zeros_like(t) if need[k] else None for k, t in zip(NAMES, inputs))
+    tiles = -(-n // ROW_TILE)
+    # adj and φ(rel) are written whole by the second kernel; a_i's rows, v_j,
+    # deg and the parameters are written whole as well
+    grads = {k: torch.empty_like(t) for k, t in zip(NAMES, inputs) if need[k]}
+    f32 = dict(dtype=torch.float32, device=dev)
+    empty = lambda cond, *shape: torch.empty(*shape, **f32) if cond else None
+    scratch = (empty(need["phi_r"], B, n, N, R),                          # gd
+               empty(need["phi_r"] or need["adj"], B, n, N, R),           # grf
+               empty(need["adj"], B, n, N),                               # loc
+               empty(need["v_j"], B, tiles, N, h),                        # pv
+               empty(need["deg"], B, tiles, N),                           # pdeg
+               empty(need["m1d"] or need["m1f"] or need["bias"],          # pp
+                     B * tiles, (2 * R + 1) * h))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    flags = sum(1 << i for i, k in enumerate(NAMES) if need[k])
+    fn = build.load("motif_level3_backward", _BACKWARD_SIGNATURES).motif_level3_backward_launch
+    with torch.cuda.device(dev):
+        code = fn(*(t.data_ptr() for t in inputs), grad.data_ptr(),
+                  *(ptr(grads.get(k)) for k in NAMES), *(ptr(t) for t in scratch),
+                  B, N, row0, n, R, h, tiles, flags, CUDA_DTYPES[adj.dtype],
+                  stream_handle(dev))
+    raise_on_error("motif_level3_backward", code)
+    fused_motif_level3_backward.launches += 1
+    return tuple(grads.get(k) for k in NAMES)
+
+
+fused_motif_level3_backward.launches = 0
+
+
 class _MotifLevel3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, block_rows, row0, *inputs):
@@ -132,36 +272,22 @@ class _MotifLevel3(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
-        wanted = [t for t in inputs if t.requires_grad]
-        if not wanted:
-            return (None,) * (2 + len(inputs))
-        adj, phi_r, a_i, *shared = inputs
-        n, r0 = phi_r.shape[1], ctx.row0
-        step = ctx.block_rows or n
-        got = None
-        for s in range(0, n, step):
-            # one i-row block of the window's plain level 3, recomputed and dropped
-            e = min(s + step, n)
-            with torch.enable_grad():
-                out = _level3_rows(adj, adj[:, r0 + s:r0 + e], phi_r[:, s:e], a_i[:, s:e],
-                                   *shared)
-            part = torch.autograd.grad(out, wanted, grad[:, s:e])
-            got = part if got is None else [g + p for g, p in zip(got, part)]
-        got = iter(got)
-        return (None, None) + tuple(next(got) if t.requires_grad else None for t in inputs)
+        needs = ctx.needs_input_grad[2:]
+        if not any(needs):
+            return (None,) * (2 + len(needs))
+        return (None, None) + fused_motif_level3_backward(
+            grad.contiguous(), *ctx.saved_tensors, row0=ctx.row0, needs=needs,
+            block_rows=ctx.block_rows)
 
 
 def motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
                  block_rows: Optional[int] = None, row0: int = 0) -> torch.Tensor:
     """The differentiable level 3 of the window of rows [row0, row0 + n)
     that ``phi_r`` and ``a_i`` hold (all N by default): forward
-    ``fused_motif_level3``, backward autograd through the plain version.
-    The forward saves only its inputs, so the backward recomputes rf and m3
-    ([B,n,N,R] and [B,n,N,h]) rather than keeping m3 from the forward: the
-    kernel never writes it.  With ``block_rows`` it recomputes them one
-    i-row block of the window at a time, [B,block_rows,N,·] (the last block
-    short where block_rows does not divide n), summing the blocks'
-    gradients; the forward is one launch either way."""
+    ``fused_motif_level3``, backward ``fused_motif_level3_backward`` for the
+    inputs that need a gradient.  The forward saves only its inputs, so the
+    backward recomputes rf and m3: the kernel pair in registers and shared
+    memory, the CPU's closed form as [B,n,N,·] tensors, or with
+    ``block_rows`` one i-row block of the window at a time,
+    [B,block_rows,N,·]; the forward is one launch either way."""
     return _MotifLevel3.apply(block_rows, row0, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias)

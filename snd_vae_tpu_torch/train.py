@@ -81,7 +81,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.func import functional_call
 from torch.nn.utils import parametrize
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
 from .checkpoint import Checkpointer, checkpoint_dir, checkpoint_payload
 from .config import Config
@@ -100,6 +100,10 @@ from .parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, mesh_from_config, \
 from .parallel.tensor_parallel import canonical_parameters, slices
 from .serve import reconstruct
 from .utils.logging import LossesLogger, epoch_means
+
+# how long the profiler's discarded warm-up step keeps the device busy
+# before a --profile trace starts
+TRACE_WARMUP_S = 0.02
 
 
 @dataclass
@@ -461,12 +465,27 @@ class Trainer:
         """``run_epoch`` under ``torch.profiler`` (the CPU, and the card's
         kernels on a CUDA device) in a ``train_epoch`` range; the device
         is synchronized before the trace stops.  Returns the epoch's aux
-        values and the profile."""
+        values and the profile.
+
+        The profiler first takes a warm-up step that the trace leaves out:
+        ``TRACE_WARMUP_S`` of tiny kernels, each waited for.  Without it, in
+        a process that had traced before, the card's records of the first
+        kernels of a trace (3 to 11 of them, the first ~1-2 ms of device
+        work) were lost, so a trace counted fewer kernels than ran
+        (PERF.md, fault 3.2)."""
         cuda = self.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         # one cycle: keeping its events (acc_events) spares torch's warning
         # that a new cycle would clear them
-        with profile(activities=activities, acc_events=True) as prof:
+        with profile(activities=activities, acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            x = torch.zeros(1, device=self.device)
+            end = time.perf_counter() + TRACE_WARMUP_S
+            while time.perf_counter() < end:
+                x.add_(1)
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+            prof.step()                     # the warm-up ends, the trace starts
             with record_function("train_epoch"):
                 storer = self.run_epoch(epoch)
             if cuda:
@@ -491,7 +510,9 @@ class Trainer:
         is asked for, as the JAX trainer's ``prof_epoch``) with
         ``torch.profiler`` if this run reaches it, and writes the trace as
         ``<profile_dir>/trace_rank<r>.json`` (Chrome's trace format), one
-        per process under a mesh."""
+        per process under a mesh.  The trace holds a record of every kernel
+        the epoch launched, also in a process that has traced before (the
+        profiler warms up on a discarded step: ``_profiled_epoch``)."""
         cfg = self.cfg
         epochs = cfg.train.epochs if epochs is None else epochs
         prof_epoch = 1 if epochs > 1 else 0

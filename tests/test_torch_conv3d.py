@@ -178,16 +178,35 @@ def test_third_order_block_rows_matches_jax_f64(rng, key, block_rows):
                                    err_msg=what)
 
 
-def test_third_order_blocked_backward_is_blockwise(rng, key):
-    """With block_rows the backward's plain recompute never sees more than
-    block_rows rows of i: every tensor it saves is at most [B,2,N,·]."""
+def test_third_order_blocked_backward_is_blockwise(rng, key, monkeypatch):
+    """With block_rows the backward's plain recompute (the CPU's closed
+    form of level 3's gradient) never sees more than block_rows rows of i:
+    every pairwise tensor it makes is at most [B,2,N,·]."""
+    from torch.overrides import TorchFunctionMode
+
+    from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml
+
+    class Shapes(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor):
+                self.seen.append(tuple(out.shape))
+            return out
+
+    mode, plain = Shapes(), ml.motif_level3_backward_plain
+
+    def recorded(*args, **kwargs):
+        with mode:
+            return plain(*args, **kwargs)
+
+    monkeypatch.setattr(ml, "motif_level3_backward_plain", recorded)
     adj, x, rel, p = _third_order(rng, key)
     tp = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p.items()}
     ta = tuple(map(torch.from_numpy, (adj, x, rel)))
-    out = tops.spatial_graph_conv(*ta, tp, block_rows=2)
-    shapes = []
-    with torch.autograd.graph.saved_tensors_hooks(lambda t: shapes.append(t.shape) or t,
-                                                  lambda t: t):
-        out.sum().backward()
-    pairwise = [s for s in shapes if len(s) == 4 and s[-2] == 6]   # [B,rows,N,·]
-    assert any(s[1] == 2 for s in pairwise) and all(s[1] <= 2 for s in pairwise), shapes
+    tops.spatial_graph_conv(*ta, tp, block_rows=2).sum().backward()
+    pairwise = [s for s in mode.seen if len(s) == 4 and s[-2] == 6]   # [B,rows,N,·]
+    assert any(s[1] == 2 for s in pairwise) and all(s[1] <= 2 for s in pairwise), mode.seen

@@ -21,7 +21,8 @@ from snd_vae_tpu_torch.nn.kernels.adj_matmul import adj_matmul, adj_matmul_plain
     blocked_adj_matmul
 from snd_vae_tpu_torch.nn.kernels.motif_combine import fused_motif_combine, \
     motif_combine_plain
-from snd_vae_tpu_torch.nn.kernels.motif_level3 import fused_motif_level3, motif_level3_plain
+from snd_vae_tpu_torch.nn.kernels.motif_level3 import fused_motif_level3, \
+    fused_motif_level3_backward, motif_level3, motif_level3_backward_plain, motif_level3_plain
 from snd_vae_tpu_torch.parallel import initialize_distributed, make_mesh
 from snd_vae_tpu_torch.parallel import large_graph as lg
 
@@ -147,6 +148,68 @@ def test_cuda_kernel_row_windows_match_the_rows():
                         assert err <= 2e-2 * want.abs().max().item()
                     parts.append(got)
                 assert torch.equal(torch.cat(parts, dim=1), full)
+
+
+@pytest.mark.parametrize("B,N,h,R,n,row0,weighted", [
+    (4, 25, 50, 1, 25, 0, False), (3, 29, 37, 2, 29, 0, True), (2, 72, 75, 2, 31, 20, False),
+    (2, 40, 70, 5, 40, 0, True)])
+def test_cuda_backward_pair_matches_plain_version(B, N, h, R, n, row0, weighted):
+    """On the card: the level-3 backward pair against its closed-form plain
+    version in float64 for all eight gradients, each within (its longest
+    sum + 8)·2^-24 times the plain version on the inputs' magnitudes (the
+    worst-case rounding of an f32 sum of that many terms); one count per
+    call; each subset of gradients asked for gets exactly those; the
+    autograd wrapper launches the pair and no autograd chain.  Shapes: the
+    served one tile, ragged N and h with a weighted A, a row window with
+    several j-tiles and h chunks, and R = 5 (two channel groups)."""
+    _card()
+    rng = np.random.default_rng(2)
+    x64 = _t(_level3_inputs(rng, B, N, h, R, weighted))
+    x64[1], x64[2] = x64[1][:, row0:row0 + n].contiguous(), x64[2][:, row0:row0 + n].contiguous()
+    g64 = torch.from_numpy(rng.standard_normal((B, n, h)))
+    ts, g = [t.float().cuda() for t in x64], g64.float().cuda()
+    n0 = fused_motif_level3_backward.launches
+    got = fused_motif_level3_backward(g, *ts, row0=row0)
+    torch.cuda.synchronize()
+    assert fused_motif_level3_backward.launches == n0 + 1
+    w64 = [t.double() for t in ts]
+    want = motif_level3_backward_plain(g.double(), *w64, row0=row0)
+    mag = motif_level3_backward_plain(g.double().abs(), *[t.abs() for t in w64], row0=row0)
+    depth = N + 2 * R + 8
+    terms = (depth + n * R + h, depth + N + h, depth + N, depth + n, depth + n * h,
+             *(depth + B * n * N,) * 3)
+    for got_i, want_i, mag_i, k in zip(got, want, mag, terms):
+        assert got_i.dtype == torch.float32 and got_i.shape == want_i.shape
+        assert bool(((got_i.double() - want_i).abs() <= (k + 8) * 2.0 ** -24 * mag_i).all())
+    for needs in ((False, False, True, True, False, True, True, True),
+                  (True, False, False, False, False, False, False, False),
+                  (False, True, False, False, True, False, False, False)):
+        part = fused_motif_level3_backward(g, *ts, row0=row0, needs=needs)
+        for p, full, need in zip(part, got, needs):
+            assert (p is None) != need
+            if need:
+                torch.testing.assert_close(p, full, rtol=0, atol=0)
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    n0 = fused_motif_level3_backward.launches
+    grads = torch.autograd.grad(motif_level3(*leaves, row0=row0), leaves, g)
+    assert fused_motif_level3_backward.launches == n0 + 1
+    for a, b in zip(grads, got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_cuda_backward_pair_bf16():
+    """On the card: the pair on bf16 inputs, each gradient in bf16 within
+    2e-2 of the largest magnitude of the f32 plain version on the same
+    (bf16-rounded) inputs."""
+    _card()
+    rng = np.random.default_rng(3)
+    ts = [t.to(torch.bfloat16).cuda() for t in _t(_level3_inputs(rng, 6, 25, 50, 1))]
+    g = torch.from_numpy(rng.standard_normal((6, 25, 50))).to(torch.bfloat16).cuda()
+    got = fused_motif_level3_backward(g, *ts)
+    want = motif_level3_backward_plain(g.float(), *[t.float() for t in ts])
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert (a.float() - b).abs().max().item() <= 2e-2 * b.abs().max().item()
 
 
 def test_cuda_fused_matches_plain():

@@ -76,6 +76,48 @@ def _assert_bit_equal(jc, tc, split, num_graphs=12):
         if w is not None:
             assert g.dtype == torch.float32, f
             np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f)
+    return got
+
+
+# the authors' on-disk layouts, written by the JAX package's own tests'
+# writers (G = 6 graphs of N = 12 nodes): synthetic's 2D_adj.npy as an
+# object array of scipy sparse matrices, mnist's mesh pickle
+LAYOUT_CASES = [(ds, split, norm) for ds in ("synthetic2", "mnist")
+                for split in ("train", "test") for norm in (False, True)]
+
+
+@pytest.mark.parametrize("dataset,split,normalize", LAYOUT_CASES)
+def test_authors_layout_bit_equal(jax_native, tmp_path, dataset, split, normalize):
+    """Both packages' loaders give bit-equal batches from the authors'
+    files, both splits, with and without ``normalize_coords``; the batch
+    holds the files' graphs (in the loaders' order), not the seeded
+    fallback."""
+    import pickle
+
+    from test_data_roundtrip import FakeMesh, FakeMeshData
+    from test_realdata_e2e import G, N, _write_synthetic
+
+    rng = np.random.default_rng(4)
+    if dataset == "synthetic2":
+        _write_synthetic(tmp_path, rng)
+        path = tmp_path / "spatial_network_correlated2" / "25" / split / "2D_adj.npy"
+        written = [m.toarray() for m in np.load(path, allow_pickle=True)]
+    else:
+        (tmp_path / "3D_mesh").mkdir()
+        for s in ("train", "test"):
+            clouds = [rng.normal(0, 1.0, (N, 3)) for _ in range(G)]
+            with open(tmp_path / "3D_mesh" / f"mnist-combined-{s}-tasp_meshes.pickle", "wb") as f:
+                pickle.dump(FakeMeshData([FakeMesh(c) for c in clouds]), f)
+            if s == split:
+                written = [c + 10.0 for c in clouds]   # the reference's shift
+    over = dict(dataset_path=str(tmp_path) + "/", num_nodes=N, sampling_num=2,
+                normalize_coords=normalize)
+    got = _assert_bit_equal(jcfg.preset(dataset, **over), tcfg.preset(dataset, **over), split,
+                            num_graphs=G)
+    if dataset == "synthetic2" or not normalize:
+        held = got.adj if dataset == "synthetic2" else got.coords
+        for g in held.numpy():
+            assert any(np.allclose(g, w, rtol=1e-6, atol=1e-5) for w in written)
 
 
 def test_graph_batch_slice_and_to():

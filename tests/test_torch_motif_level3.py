@@ -1,8 +1,10 @@
 """The port's level-3 kernel ``motif_level3`` (φ(rel) to the masked j-sum in
 one launch) against the JAX package: its default rank-R path and dense
 oracle in float64, the Pallas motif-combine kernel (interpret mode) in f32,
-and ``jax.vjp`` for the gradients.  On the CPU the wrapper returns its plain
-PyTorch version; the CUDA kernel runs only where there is a card, in
+and ``jax.vjp`` for the gradients; its backward's closed form
+(``motif_level3_backward_plain``) against ``jax.vjp`` and autograd through
+the plain level 3.  On the CPU the wrappers return their plain PyTorch
+versions; the CUDA kernels run only where there is a card, in
 ``tests/test_torch_cuda.py``."""
 
 import jax
@@ -16,8 +18,12 @@ from snd_vae_tpu import nn as jops
 from snd_vae_tpu_torch import nn as tops
 from snd_vae_tpu_torch.nn.kernels.motif_combine import motif_combine_plain
 from snd_vae_tpu_torch.nn.kernels.motif_level3 import (
+    NAMES,
+    _level3_rows,
     fused_motif_level3,
+    fused_motif_level3_backward,
     motif_level3,
+    motif_level3_backward_plain,
 )
 
 
@@ -38,6 +44,17 @@ def _level3_inputs(rng, B, N, h, R, weighted=False):
     draw = lambda *s: rng.standard_normal(s)
     return [adj, np.maximum(rel, 0.2 * rel), draw(B, N, h), draw(B, N, h), adj.sum(-1),
             draw(R, h), draw(R, h), draw(h)]
+
+
+def _window_inputs(rng, B, N, h, R, n, row0, directed=False):
+    """``_level3_inputs`` with a weighted A (asymmetric with ``directed``)
+    and φ(rel), a_i cut to the window of rows [row0, row0 + n)."""
+    x = _level3_inputs(rng, B, N, h, R, weighted=True)
+    if directed:
+        x[0] = x[0] * rng.random((B, N, N)) * 4
+        x[4] = x[0].sum(-1)
+    x[1], x[2] = x[1][:, row0:row0 + n], x[2][:, row0:row0 + n]
+    return x
 
 
 def _t(arrays):
@@ -143,6 +160,107 @@ def test_spatial_graph_conv_grad_matches_jax_vjp_f64(rng, key, exact_f64):
         np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i), rtol=1e-9, atol=1e-11)
 
 
+def _jax_level3_rows(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias, row0):
+    """``_jax_level3`` for the window of rows [row0, row0 + n) that φ(rel)
+    and a_i hold: rf reads the whole A, the mask and the j-sum A's rows."""
+    f32 = dict(preferred_element_type=jnp.float32)
+    n = phi_r.shape[1]
+    rows = adj[:, row0:row0 + n]
+    rf = jnp.einsum("bjk,bikr->bijr", adj, phi_r, **f32).astype(adj.dtype)
+    d_ij = jnp.einsum("...f,fo->...o", phi_r, m1d, **f32).astype(adj.dtype)
+    wf = jnp.einsum("...f,fo->...o", rf, m1f, **f32).astype(adj.dtype)
+    m3 = deg[:, None, :, None] * (a_i[:, :, None] + d_ij + bias) + v_j[:, None] + wf
+    m3 = rows[..., None] * m3
+    return jnp.einsum("bij,bijh->bih", rows, jops.lrelu(m3), **f32).astype(adj.dtype)
+
+
+BACKWARD_CASES = [  # B, N, h, R, n, row0, block_rows, directed
+    (2, 7, 5, 1, 7, 0, None, False), (2, 9, 4, 2, 9, 0, 4, True),
+    (2, 10, 4, 1, 10, 0, 5, False), (2, 11, 6, 2, 5, 3, None, True),
+    (3, 13, 5, 3, 6, 7, 2, True), (2, 12, 3, 2, 7, 5, 3, False)]
+
+
+@pytest.mark.parametrize("B,N,h,R,n,row0,block_rows,directed", BACKWARD_CASES)
+def test_backward_plain_matches_jax_vjp_f64(rng, exact_f64, B, N, h, R, n, row0, block_rows,
+                                            directed):
+    """The closed-form backward equals jax.vjp of JAX's level 3 for all
+    eight inputs in float64 at rtol 1e-10: a weighted (and directed) A,
+    ragged N, row windows with row0 > 0, and block_rows that do and do not
+    divide the window."""
+    x = _window_inputs(rng, B, N, h, R, n, row0, directed)
+    g = rng.standard_normal((B, n, h))
+    got = motif_level3_backward_plain(torch.from_numpy(g), *_t(x), row0=row0,
+                                      block_rows=block_rows)
+    _, vjp = jax.vjp(lambda *a: _jax_level3_rows(*a, row0), *map(jnp.asarray, x))
+    for name, got_i, want_i in zip(NAMES, got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i), rtol=1e-10, atol=1e-12,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,N,h,R,n,row0,block_rows,directed", BACKWARD_CASES)
+def test_backward_plain_matches_the_autograd_chain(rng, B, N, h, R, n, row0, block_rows,
+                                                   directed):
+    """The closed form equals autograd through the plain level 3 of the
+    window's rows (the backward it replaced) at 1e-12 in float64; the
+    autograd wrapper ``motif_level3`` returns the closed form (to the
+    rounding of the CPU's vectorized sums, 1e-13)."""
+    x = _t(_window_inputs(rng, B, N, h, R, n, row0, directed))
+    g = torch.from_numpy(rng.standard_normal((B, n, h)))
+    leaves = [t.clone().requires_grad_(True) for t in x]
+    want = torch.autograd.grad(_level3_rows(leaves[0], leaves[0][:, row0:row0 + n],
+                                            *leaves[1:]), leaves, g)
+    got = motif_level3_backward_plain(g, *x, row0=row0, block_rows=block_rows)
+    leaves = [t.clone().requires_grad_(True) for t in x]
+    wrapped = torch.autograd.grad(motif_level3(*leaves, block_rows=block_rows, row0=row0),
+                                  leaves, g)
+    for name, got_i, want_i, w_i in zip(NAMES, got, want, wrapped):
+        torch.testing.assert_close(got_i, want_i, rtol=1e-12, atol=1e-12, msg=name)
+        torch.testing.assert_close(w_i, got_i, rtol=1e-13, atol=1e-13, msg=name)
+
+
+def test_backward_plain_bf16_within_2e2_of_f32(rng):
+    """bf16 inputs: the closed form runs in f32 and casts back, each
+    gradient bf16 and within 2e-2 of the largest magnitude of the f32
+    result on the same (bf16-rounded) inputs."""
+    x = [t.to(torch.bfloat16) for t in _t(_window_inputs(rng, 3, 11, 6, 2, 11, 0))]
+    g = torch.from_numpy(rng.standard_normal((3, 11, 6))).to(torch.bfloat16)
+    got = motif_level3_backward_plain(g, *x)
+    want = motif_level3_backward_plain(g.float(), *[t.float() for t in x])
+    for name, got_i, want_i in zip(NAMES, got, want):
+        assert got_i.dtype == torch.bfloat16, name
+        assert (got_i.float() - want_i).abs().max() <= 2e-2 * want_i.abs().max(), name
+
+
+@pytest.mark.parametrize("wanted", [(2, 3, 5, 6, 7), (0,), (1,), (4,), (0, 1, 4), (5, 6)])
+def test_backward_gives_exactly_the_gradients_asked(rng, wanted):
+    """Each subset of needs_input_grad gets exactly its gradients, equal to
+    the full backward's (to rounding: the CPU's vectorized sums may take
+    another order for another buffer): through the autograd wrapper (the
+    others None) and through the wrapper's ``needs`` (the model's path asks
+    for a_i, v_j, M1d, M1f and bias)."""
+    x = _t(_window_inputs(rng, 2, 9, 4, 2, 6, 2, directed=True))
+    g = torch.from_numpy(rng.standard_normal((2, 6, 4)))
+    full = fused_motif_level3_backward(g, *x, row0=2)
+    needs = tuple(i in wanted for i in range(8))
+    part = fused_motif_level3_backward(g, *x, row0=2, needs=needs)
+    leaves = [t.clone().requires_grad_(need) for t, need in zip(x, needs)]
+    got = iter(torch.autograd.grad(motif_level3(*leaves, row0=2), [leaves[i] for i in wanted],
+                                   g))
+    for i, (f, p) in enumerate(zip(full, part)):
+        assert (p is None) == (i not in wanted)
+        if i in wanted:
+            torch.testing.assert_close(p, f, rtol=1e-13, atol=1e-13)
+            torch.testing.assert_close(next(got), f, rtol=1e-13, atol=1e-13)
+
+
+def test_backward_wrapper_rejects_a_bad_gradient(rng):
+    x = _t(_level3_inputs(rng, 1, 4, 3, 1))
+    with pytest.raises(ValueError):
+        fused_motif_level3_backward(torch.zeros(1, 4, 2, dtype=torch.float64), *x)
+    with pytest.raises(TypeError):
+        fused_motif_level3_backward(torch.zeros(1, 4, 3), *x)
+
+
 def test_level3_partial_grads(rng):
     """Only the inputs that need a gradient get one."""
     ts = _t(_level3_inputs(rng, 1, 5, 3, 1))
@@ -152,13 +270,17 @@ def test_level3_partial_grads(rng):
 
 
 def test_cpu_calls_count_no_launches(rng):
-    before = fused_motif_level3.launches
+    """On the CPU neither the forward's nor the backward's wrapper counts a
+    launch: they run the plain versions."""
+    before = fused_motif_level3.launches, fused_motif_level3_backward.launches
     ts = _t(_level3_inputs(rng, 1, 4, 3, 1))
     fused_motif_level3(*ts)
-    motif_level3(*ts)
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    torch.autograd.grad(motif_level3(*leaves).sum(), leaves)
+    fused_motif_level3_backward(torch.ones(1, 4, 3, dtype=torch.float64), *ts)
     tops.spatial_graph_conv(*_t(_graph(rng, 1, 4, 2, 1)),
                             {k: torch.from_numpy(v) for k, v in _conv_params(rng, 2, 1).items()})
-    assert fused_motif_level3.launches == before
+    assert (fused_motif_level3.launches, fused_motif_level3_backward.launches) == before
 
 
 def _conv_params(rng, F, R, hidden=(5, 4, 3)):

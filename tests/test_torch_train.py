@@ -33,7 +33,7 @@ from snd_vae_tpu.models import build_model as jax_build_model
 from snd_vae_tpu.models.outputs import Latents as JaxLatents
 from snd_vae_tpu.models.outputs import ModelOutput as JaxModelOutput
 from snd_vae_tpu.utils.logging import LossesLogger as JaxLossesLogger
-from snd_vae_tpu_torch import cli
+from snd_vae_tpu_torch import cli, serve
 from snd_vae_tpu_torch import config as tcfg
 from snd_vae_tpu_torch import train as ttrain
 from snd_vae_tpu_torch.checkpoint import Checkpointer
@@ -440,11 +440,16 @@ def test_trainer_with_eval_every_scores_the_heldout_split(tmp_path):
 
 
 def test_entry_points_run_in_full_f32(tmp_path, monkeypatch):
-    """The CLI and the Trainer turn TF32 off for the card's f32 matmuls and
-    convolutions."""
+    """The CLI, the Trainer and the serving functions turn TF32 off for the
+    card's f32 matmuls and convolutions."""
+    _, tc = configs("small")
+    model = build_model(tc, device="cpu")
+    batch = load_dataset(tc, "test", num_graphs=2, device="cpu")
     for run in (lambda: cli.main(["--type", "sample", "--device", "cpu", "--num-generate",
                                   "2", "--workdir", str(tmp_path)]),
-                lambda: _small_trainer(tmp_path)):
+                lambda: _small_trainer(tmp_path),
+                lambda: serve.reconstruct(model, batch),
+                lambda: serve.sample(model, 2, torch.Generator().manual_seed(0))):
         monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
         monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
         run()
