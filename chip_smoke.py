@@ -25,20 +25,23 @@ Phases, one output line each:
                for K3 with W the separate x @ W and K3.  motif_level3 also
                at the joint model's shapes over synthetic2 truth graphs and
                at scene's over a directed A of integer weights 0..4; the
-               level-3 backward pair against its closed-form plain version
-               and the autograd chain it replaced, all eight gradients, at
-               those shapes, the mesh's row windows and larger ones;
+               level-3 backward against its closed-form plain version and
+               the autograd chain it replaced, all eight gradients, at those
+               shapes, the mesh's row windows and larger ones, with each of
+               its kernels' device ms (profiler), its kernels per call (1 on
+               the model's path, 2 where dA or dphi is asked) and two calls
+               bit-equal;
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
                kernel launches (motif_level3 and adj_matmul twice per
-               batch, motif_combine and the backward pair never), each
+               batch, motif_combine and the level-3 backward never), each
                entry point turning TF32 off itself; one batch against the same
                weights on the CPU (plain versions); graphs/s in float32
                and bfloat16;
   5. train   — synthetic2 at full width on the generated train split (200
                graphs, 20 steps an epoch), f32 and bf16 with f32 masters:
                Trainer.run for 2 epochs with Adam from the seed weights,
-               counting the launches (motif_level3, its backward pair and
+               counting the launches (motif_level3, its backward and
                adj_matmul twice per step, motif_combine never), finite
                losses falling from the
                first epoch to the second; in f32 one step on the card
@@ -48,8 +51,8 @@ Phases, one output line each:
                of 5 steps: kernels and device-busy ms per step, device ms of
                the forward, backward and optimizer ranges, the device
                events no host op launched, the level-3 backward (K2's
-               pair) and the top backward kernels; then the pair against
-               the autograd chain it replaced, in turns: kernels,
+               kernel) and the top backward kernels; then the kernel
+               against the autograd chain it replaced, in turns: kernels,
                device-busy and level-3 backward ms per step;
   6. joint_serve — the joint model ("base") at synthetic2 width, as 4. (2
                motif_level3 per batch, no adj_matmul, no motif_combine);
@@ -77,7 +80,7 @@ Phases, one output line each:
                block_rows=10, and the third-order layer 2 at synthetic2
                against block_rows=5: outputs equal, gradients as close to
                float64 as the unblocked ones, peak memory (the blocked one
-               lower; the third order's pair keeps no [B,n,N,h] tensor,
+               lower; the third order's backward keeps no [B,n,N,h] tensor,
                below the replaced backward's peaks) and device ms of each;
  13. protein_joint, mnist — the joint model on protein (no kernel) and the
                disentangled model at the mnist preset (adj_matmul twice):
@@ -199,7 +202,10 @@ K1_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_combine.cu"
 K3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul.cu"
 K1_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:204"
 K2_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:295"
-BACKWARD_KERNELS = 2      # kernels per launch of the level-3 backward pair
+# kernels per call of the level-3 backward: on the model's path, and where
+# ∂A or ∂φ is asked (the contractions' second kernel)
+BACKWARD_KERNELS = 1
+BACKWARD_KERNELS_CONTRACT = 2
 # the level-3 backward's gradients on the model's path: a_i, v_j, M1d, M1f, bias
 MODEL_NEEDS = (False, False, True, True, False, True, True, True)
 K3_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:89"
@@ -228,8 +234,8 @@ def read_counts(ml, mc, am) -> dict:
 
 
 def per(n: int, ml3: int = 0, k3: int = 0, bwd: int = 0) -> dict:
-    """The launches n batches or steps should count (``bwd``: launches of
-    the level-3 backward pair)."""
+    """The launches n batches or steps should count (``bwd``: calls of
+    the level-3 backward)."""
     return {"motif_level3": n * ml3, "motif_level3_backward": n * bwd, "motif_combine": 0,
             "adj_matmul": n * k3}
 
@@ -358,8 +364,8 @@ def replaced_chain(mc, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias):
 
 
 class _MotifLevel3Autograd(torch.autograd.Function):
-    """The level-3 backward that the kernel pair replaced, for the measurements
-    that compare it with the kernel pair and for nothing else: the forward
+    """The level-3 backward that the backward kernel replaced, for the
+    measurements that compare it with the kernel and for nothing else: the forward
     is the package's (one ``motif_level3`` launch), the backward autograd
     through the plain level 3 (``_level3_rows``), recomputed one i-row block
     of ``block_rows`` at a time."""
@@ -566,11 +572,11 @@ def replaced_grads(ml, g, x, row0, needs):
 
 def level3_peaks(ml, x, g) -> dict:
     """Peak allocated bytes above the inputs of level 3's forward plus
-    backward (the model's gradients) with the kernel pair and with the
+    backward (the model's gradients) with the backward kernel and with the
     replaced backward (``_MotifLevel3Autograd``), unblocked and at
     block_rows=5."""
     out = {}
-    for name, fn in (("pair", ml.motif_level3),
+    for name, fn in (("kernel", ml.motif_level3),
                      ("replaced", lambda *a, block_rows: _MotifLevel3Autograd.apply(
                          block_rows, 0, *a))):
         for block in (None, 5):
@@ -582,13 +588,55 @@ def level3_peaks(ml, x, g) -> dict:
                                 [t for t in leaves if t.requires_grad], g)
             torch.cuda.synchronize()
             out[f"{name}_block_{block}"] = torch.cuda.max_memory_allocated() - base
-    check(max(out["pair_block_None"], out["pair_block_5"]) < out["replaced_block_None"],
+    check(max(out["kernel_block_None"], out["kernel_block_5"]) < out["replaced_block_None"],
           f"level-3 forward + backward peaks {out}")
     return out
 
 
+def backward_kernels_ms(ml, fn, calls: int = 20, takes: int = 3):
+    """The level-3 backward's kernels that calls of ``fn`` launch, by
+    name: device ms per launch and launches per call (profiler, over
+    ``calls`` calls; the wrapper's count is restored after), and the traces
+    taken.  The profiler first takes a discarded warm-up step of
+    ``TRACE_WARMUP_S`` of tiny kernels, each waited for, as the Trainer's
+    tracing does: without it a trace in a process that has traced before
+    may lose the records of its first milliseconds of kernels (PERF.md,
+    fault 3.2).  Even so, now and then a trace of this phase holds no
+    kernel record at all while the wrapper counted its launches; such a
+    trace is taken again, up to ``takes`` traces."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from snd_vae_tpu_torch.train import TRACE_WARMUP_S
+
+    before = ml.fused_motif_level3_backward.launches
+    fn()
+    torch.cuda.synchronize()
+    for take in range(1, takes + 1):
+        start = ml.fused_motif_level3_backward.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            x = torch.zeros(1, device="cuda")
+            end = time.perf_counter() + TRACE_WARMUP_S
+            while time.perf_counter() < end:
+                x.add_(1)
+                torch.cuda.synchronize()
+            prof.step()                 # the warm-up ends, the trace starts
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key.split("<")[0].split("::")[-1]: {
+            "ms": e.self_device_time_total / 1e3 / e.count, "launches": e.count / calls}
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and TRACE_KERNEL_NAMES["motif_level3_backward"] in e.key}
+        if out or ml.fused_motif_level3_backward.launches - start != calls:
+            break
+    ml.fused_motif_level3_backward.launches = before
+    return out, take
+
+
 def check_level3_backward(ml, gen):
-    """The level-3 backward pair (``fused_motif_level3_backward``) against
+    """The level-3 backward (``fused_motif_level3_backward``) against
     its closed-form plain version and against the autograd chain it
     replaced, for all eight gradients: f32 within the float64 summation
     bound of each gradient's longest sum (``grad_terms``) against the plain
@@ -600,10 +648,13 @@ def check_level3_backward(ml, gen):
     over a directed A of weights 0..4, the mesh's row windows (m = 2, 4) at
     [100,25,25,50], and off the path [4,256,256,50] at density 0.4, a
     ragged weighted R = 2 case, several j-tiles and h chunks at R = 2, and
-    R = 5 (two channel groups).  Each row: kernel ms for the model's
-    gradients and for all eight, the plain version's and the chain's ms for
-    the model's gradients, the bound of the model's gradients, and the
-    launches of the pair per train step (one per layer) and per served
+    R = 5 (two channel groups).  Two calls for the model's gradients are
+    bit-equal.  Each row: ms for the model's gradients and for all eight,
+    each of the backward's kernels' device ms per call by name (profiler;
+    ``BACKWARD_KERNELS`` kernels a call for the model's gradients,
+    ``BACKWARD_KERNELS_CONTRACT`` for all eight), the plain version's and
+    the chain's ms for the model's gradients, the bound of the model's
+    gradients, and the calls per train step (one per layer) and per served
     batch (none); at synthetic2's shapes the peak memory of level 3's
     forward plus backward (``level3_peaks``)."""
     from snd_vae_tpu_torch.config import synthetic2_preset
@@ -672,6 +723,20 @@ def check_level3_backward(ml, gen):
                     check(diff <= 4e-2 * top, f"backward {path} bf16 {name}: {diff} from the "
                           "replaced chain")
                     errs[name] = {"vs_f32_plain": err, "vs_replaced": diff}
+            model = lambda: ml.fused_motif_level3_backward(g, *x, row0=row0, needs=MODEL_NEEDS)
+            first, again = model(), model()
+            check(all(a is None or torch.equal(a, c) for a, c in zip(first, again)),
+                  f"backward {path} {[B, N, h]}: two calls differ")
+            traced = {need: backward_kernels_ms(ml, lambda: ml.fused_motif_level3_backward(
+                g, *x, row0=row0, needs=need)) for need in (MODEL_NEEDS, (True,) * 8)}
+            kernels = {need: k for need, (k, _) in traced.items()}
+            for need, want in ((MODEL_NEEDS, BACKWARD_KERNELS),
+                               ((True,) * 8, BACKWARD_KERNELS_CONTRACT)):
+                plan = ml.motif_level3_backward_plan(B, N, n, R, h, need)
+                check(len(kernels[need]) == want == plan.kernels and all(
+                    k["launches"] <= 1 for k in kernels[need].values()),
+                    f"backward {path} {[B, N, h]}: kernels {kernels[need]}, expected {want} "
+                    "a call")
             b = level3_backward_bound(x[0], R, h, MODEL_NEEDS, dt, row0, n)
             on_path = path in ("synthetic2", "joint", "scene") or path.startswith("tp_")
             rows.append(dict(
@@ -679,8 +744,9 @@ def check_level3_backward(ml, gen):
                 dtype=str(dt)[6:], R=R, served=served, batch_shape=served,
                 max_abs_err=max(e["vs_f64" if dt == torch.float32 else "vs_f32_plain"]
                                 for e in errs.values()), errors=errs,
-                ms=device_ms(lambda: ml.fused_motif_level3_backward(
-                    g, *x, row0=row0, needs=MODEL_NEEDS)),
+                ms=device_ms(model), two_calls_bit_equal=True,
+                kernels_ms=kernels[MODEL_NEEDS], kernels_ms_all_eight=kernels[(True,) * 8],
+                kernel_traces_taken=[t for _, t in traced.values()],
                 ms_all_eight=device_ms(lambda: ml.fused_motif_level3_backward(g, *x, row0=row0)),
                 plain_ms=device_ms(lambda: ml.motif_level3_backward_plain(
                     g, *x, row0=row0, needs=MODEL_NEEDS)),
@@ -1232,13 +1298,13 @@ def run_training(ml, mc, am):
             batches = [trainer.batched._map(lambda t, i=i: t[i]) for i in range(PROFILE_STEPS)]
             step = lambda b: tt.train_step(trainer.state, b, gi)
             res["profile"] = profile_steps(step, batches)
-            # the level-3 backward: the kernel pair against the autograd
-            # chain it replaced, in turns (pair, chain, chain, pair)
+            # the level-3 backward: the kernel against the autograd chain
+            # it replaced, in turns (kernel, chain, chain, kernel)
             keys = ("wall_ms_per_step", "kernels_per_step", "device_busy_ms_per_step",
                     "level3_backward_ms_per_step", "level3_backward_kernels_per_step")
-            turns = {"pair": [], "replaced": []}
-            for name in ("pair", "replaced", "replaced", "pair"):
-                if name == "pair":
+            turns = {"kernel": [], "replaced": []}
+            for name in ("kernel", "replaced", "replaced", "kernel"):
+                if name == "kernel":
                     prof = profile_steps(step, batches)
                 else:
                     with replaced_backward():
@@ -1596,10 +1662,10 @@ def run_blocked(ml, mc, am):
     unblocked against block_rows=10, the blocked peak lower; the
     third-order conv's layer 2 at synthetic2 (100 trees, N = 25, x of width
     20, hidden (50,50,50)) against block_rows=5, whose forward is one
-    motif_level3 and whose backward one launch of the pair either way (the
-    pair keeps no [B,n,N,h] tensor, so block_rows leaves its peak as it
+    motif_level3 and whose backward one call of the backward kernel either
+    way (it keeps no [B,n,N,h] tensor, so block_rows leaves its peak as it
     is), and the same with the replaced backward (``replaced_backward``,
-    autograd through the plain level 3, recomputed per block): the pair's
+    autograd through the plain level 3, recomputed per block): the kernel's
     peak below the replaced unblocked one, the replaced blocked peak below
     its unblocked one."""
     from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
@@ -1638,7 +1704,7 @@ def run_blocked(ml, mc, am):
                       f"{name} replaced {key}: launches {old[key]['launches']}")
             check(peak(res, blocked) <= peak(res, "block_None")
                   < peak(old, "block_None") and peak(old, blocked) < peak(old, "block_None"),
-                  f"{name} peaks: pair {peak(res, 'block_None')} / {peak(res, blocked)}, "
+                  f"{name} peaks: kernel {peak(res, 'block_None')} / {peak(res, blocked)}, "
                   f"replaced {peak(old, 'block_None')} / {peak(old, blocked)}")
         out[name] = dict(res, trees=T, num_nodes=N, in_width=f, hidden=list(hidden),
                          block_rows=block_rows)
@@ -1947,8 +2013,8 @@ def trace_kernel_events(events) -> dict:
 
 
 def events_of(launches: dict) -> dict:
-    """The kernel events that wrapper launches give (the backward pair: two
-    kernels a launch)."""
+    """The kernel events that wrapper launches on the model's path give
+    (the level-3 backward: ``BACKWARD_KERNELS`` a call)."""
     return {k: v * (BACKWARD_KERNELS if k == "motif_level3_backward" else 1)
             for k, v in launches.items()}
 
@@ -2087,8 +2153,8 @@ def run_cli_profile(untraced_epoch_s: float):
     at synthetic2 full width, in a process of its own as a user runs it
     (timeout 600 s): the trace ``<workdir>/profile/trace_rank0.json`` holds
     one ``train_epoch`` range over epoch 1's 20 steps and their kernel
-    events alone: 40 ``motif_level3``, 80 of its backward pair (40
-    launches), 40 ``adj_matmul``, no ``motif_combine``.  The traced
+    events alone: 40 ``motif_level3``, 40 of its backward (one kernel a
+    call), 40 ``adj_matmul``, no ``motif_combine``.  The traced
     epoch's wall time (the profiler's start and stop included) and its
     ``train_epoch`` range, each against
     ``untraced_epoch_s``, an untraced f32 epoch's seconds from the train

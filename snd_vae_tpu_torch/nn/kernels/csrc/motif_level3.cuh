@@ -90,9 +90,10 @@ __device__ __forceinline__ void stage_chunk(float* as, float* ps, const T* ab, c
 // The (i-tile, j-tile)'s operands besides rf, into shared memory (they join
 // the copy group of rf's first k-chunk): phi[b, i-tile, j-tile, :] into
 // pj [kTi][kTj][r], A[b, row0 + i-tile, j-tile] into mk [kTi][kTj], deg into
-// dg [kTj] and v_j[b, j-tile, h-chunk] into vs [kTj][kHc]; zero past the
-// window's rows, N and h.
-template <typename T>
+// dg [kTj] and v_j[b, j-tile, h-chunk] into vs [kTj][kHcT]; zero past the
+// window's rows, N and h.  kHcT: the h chunk (the forward's kHc, or 32 for
+// the backward where h <= 32).
+template <int kHcT = kHc, typename T>
 __device__ __forceinline__ void stage_tile(float* pj, float* mk, float* dg, float* vs,
                                            const T* pb, const T* mb, const T* deg,
                                            const T* v_j, int64_t b, int n, int rows, int r,
@@ -112,19 +113,19 @@ __device__ __forceinline__ void stage_tile(float* pj, float* mk, float* dg, floa
     const bool ok = j0 + e < n;
     stage(dg + e, deg + (ok ? b * n + j0 + e : 0), ok);
   }
-  for (int e = tid; e < kTj * kHc; e += kThreads) {
-    const int j = j0 + e / kHc, hh = hc0 + e % kHc;
+  for (int e = tid; e < kTj * kHcT; e += kThreads) {
+    const int j = j0 + e / kHcT, hh = hc0 + e % kHcT;
     const bool ok = j < n && hh < h;
     stage(vs + e, v_j + (ok ? (b * n + j) * h + hh : 0), ok);
   }
 }
 
-// M1d[:, h-chunk] and M1f[:, h-chunk] into wd, wf [r][kHc], zero past h.
-template <typename T>
+// M1d[:, h-chunk] and M1f[:, h-chunk] into wd, wf [r][kHcT], zero past h.
+template <int kHcT = kHc, typename T>
 __device__ __forceinline__ void stage_m1(float* wd, float* wf, const T* m1d, const T* m1f,
                                          int r, int h, int hc0) {
-  for (int e = threadIdx.x; e < r * kHc; e += kThreads) {
-    const int rr = e / kHc, hh = hc0 + e % kHc;
+  for (int e = threadIdx.x; e < r * kHcT; e += kThreads) {
+    const int rr = e / kHcT, hh = hc0 + e % kHcT;
     stage(wd + e, m1d + (hh < h ? rr * h + hh : 0), hh < h);
     stage(wf + e, m1f + (hh < h ? rr * h + hh : 0), hh < h);
   }
@@ -184,11 +185,11 @@ __device__ __forceinline__ void rf_tile(float* as, float* ps, float* rfs, const 
 }
 
 // Shared memory of one block, in floats: the forward's layout, which the
-// backward reuses (the k-chunk buffers alias its per-(i, j) sums).
-template <int kTk>
+// backward begins with (its per-(i, j) sums alias the k-chunk buffers).
+template <int kTk, int kHcT = kHc>
 constexpr size_t smem_floats(int r) {
   return 2 * kTj * (kTk + 4) + 2 * kTi * kTk * r + 2 * kTi * kTj * r + kTi * kTj + kTj +
-         kTj * kHc + 2 * r * kHc;
+         kTj * kHcT + 2 * r * kHcT;
 }
 
 }  // namespace

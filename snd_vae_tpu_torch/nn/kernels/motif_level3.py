@@ -32,19 +32,22 @@ the gradient.  With g = ∂L/∂nt and lrelu'(x) = 1 for x > 0, 0.2 otherwise:
   ∂A[j,k]     = Σ_{i,r} grf[i,j,r] φ[i,k,r]
                 + on the window's rows i: Σ_h g lrelu(m3) + A Σ_h lrelu'(m3) g c
 
-(c the bracket of m3).  ``fused_motif_level3_backward`` launches the pair of
-``csrc/motif_level3_backward.cu`` on CUDA tensors and counts each launch of
-the pair in ``fused_motif_level3_backward.launches``; on CPU tensors, and
-only there, it returns ``motif_level3_backward_plain``, the closed form as
-PyTorch ops, with ``block_rows`` one i-row block at a time (the port of
-JAX's ``_blocked_nt``, ``snd_vae_tpu/nn/spatial_conv.py:263-320``).  Both
+(c the bracket of m3).  ``fused_motif_level3_backward`` launches
+``csrc/motif_level3_backward.cu`` on CUDA tensors (one kernel on the
+model's path, a second only when ∂A or ∂φ is asked) as
+``motif_level3_backward_plan`` lays it out, and counts each call in
+``fused_motif_level3_backward.launches``; on CPU tensors, and only there,
+it returns ``motif_level3_backward_plain``, the closed form as PyTorch ops,
+with ``block_rows`` one i-row block at a time (the port of JAX's
+``_blocked_nt``, ``snd_vae_tpu/nn/spatial_conv.py:263-320``).  Both
 compute only the gradients asked for.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -70,15 +73,20 @@ _BACKWARD_SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # d: adj phi a_i v_j
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # d: deg m1d m1f bias
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # gd grf loc (f32)
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # pv pdeg pp (f32)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pdeg pv pp counter
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,              # batch n row0 rows
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,              # r h tiles flags
-        ctypes.c_int, ctypes.c_void_p,                                       # dtype stream
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,              # r h tiles clusters
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,                            # cluster h_chunk cols4
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                         # flags dtype stream
     )
 }
 LEAK = 0.2
 NAMES = ("adj", "phi_r", "a_i", "v_j", "deg", "m1d", "m1f", "bias")
-ROW_TILE = 8            # rows i per block of the backward's first kernel (kTi)
+# The backward kernel's sizes, mirrored from csrc/motif_level3_backward.cu,
+# whose launch refuses a plan that does not match them.
+ROW_TILE = 8            # rows i per row tile, one warp each (kTi)
+MAX_CLUSTER = 4         # a tree of at most this many row tiles is one cluster (kMaxCluster),
+SPLIT_CLUSTER = 2       # a larger one clusters of this many blocks (kSplitCluster)
 
 
 def motif_level3_plain(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias) -> torch.Tensor:
@@ -209,13 +217,87 @@ def motif_level3_backward_plain(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
     return tuple(out[k].to(dt) if k in out else None for k in NAMES)
 
 
+@dataclass(frozen=True)
+class Level3BackwardPlan:
+    """One call of csrc/motif_level3_backward.cu for B trees of N nodes, a
+    window of ``rows`` rows, R channels, h columns and the gradients
+    ``needs`` asks for.  The window's rows fall in ``tiles`` row tiles of
+    ``ROW_TILE``, one a block; a tree's blocks form ``clusters``
+    thread-block clusters of ``cluster`` blocks: one cluster where ``tiles``
+    <= ``MAX_CLUSTER``, else clusters of ``SPLIT_CLUSTER``,
+    block q of the tree taking row tile q (``rows_of``; a cluster's last
+    block may have none).  ``h_chunk`` columns of h per pass (one per lane
+    in the model's instance where h <= 32), ``cols`` columns of the
+    per-cluster parameter partials ((2R + 1)·h rounded up to 4, for 16-byte
+    loads).  ``scratch``: the f32 buffers by name and shape (gd, grf, loc,
+    pdeg, pv, pp), only those the gradients asked for need; ``counters``:
+    the election counters the launch takes, 0 where it elects no block, 1
+    for the sums over trees, 1 + B·cluster where a tree's clusters are
+    summed too (one per tree and rank).
+    ``kernels``: 1, or 2 where ∂A or ∂φ is asked."""
+
+    rows: int
+    tiles: int
+    clusters: int
+    cluster: int
+    h_chunk: int
+    cols: int
+    kernels: int
+    counters: int
+    scratch: Dict[str, Tuple[int, ...]]
+
+    def rows_of(self, block: int) -> list:
+        """The window's rows that block ``block`` of a tree (``clusters`` ×
+        ``cluster`` of them, cluster by cluster) takes: its row tile."""
+        return list(range(block * ROW_TILE, min((block + 1) * ROW_TILE, self.rows)))
+
+
+def motif_level3_backward_plan(batch: int, n: int, rows: int, r: int, h: int,
+                               needs=(True,) * 8) -> Level3BackwardPlan:
+    """The launch plan of ``fused_motif_level3_backward`` (pure Python)."""
+    need = dict(zip(NAMES, needs))
+    model = n <= 32 and r == 1 and h <= 64     # the kernel's instance for the model
+    tiles = -(-rows // ROW_TILE)
+    clusters = 1 if tiles <= MAX_CLUSTER else -(-tiles // SPLIT_CLUSTER)
+    cluster = max(1, -(-tiles // clusters))
+    params = need["m1d"] or need["m1f"] or need["bias"]
+    tree_sum = clusters > 1 and (need["v_j"] or need["deg"])
+    cols = -(-(2 * r + 1) * h // 4) * 4
+    shapes = {"gd": (need["phi_r"], (batch, rows, n, r)),
+              "grf": (need["phi_r"] or need["adj"], (batch, rows, n, r)),
+              "loc": (need["adj"], (batch, rows, n)),
+              "pdeg": (need["deg"], (batch, clusters, n)),
+              "pv": (need["v_j"] and clusters > 1, (batch, clusters, n, h)),
+              "pp": (params, (batch, clusters, cols))}
+    return Level3BackwardPlan(
+        rows=rows, tiles=tiles, clusters=clusters, cluster=cluster,
+        h_chunk=32 if model and h <= 32 else 64, cols=cols,
+        kernels=2 if need["adj"] or need["phi_r"] else 1,
+        counters=(1 + batch * cluster if tree_sum else 1) if params or tree_sum else 0,
+        scratch={k: shape for k, (cond, shape) in shapes.items() if cond})
+
+
+# the backward's election counters, one buffer per (device, stream): zero
+# before a launch and left zero by it; a larger one replaces it when a plan
+# needs more
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, stream: int, size: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _COUNTERS or _COUNTERS[key].numel() < size:
+        _COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=dev)
+    return _COUNTERS[key]
+
+
 def fused_motif_level3_backward(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
                                 row0: int = 0, needs=(True,) * 8,
                                 block_rows: Optional[int] = None) -> tuple:
     """The gradients of ``fused_motif_level3``'s eight inputs (``NAMES``)
     for ``grad`` = ∂L/∂nt of the window's rows [B,n,h], each in its input's
-    dtype, None where ``needs`` is False.  On CUDA tensors: the kernel pair
-    of ``csrc/motif_level3_backward.cu`` (two launches, one count), which
+    dtype, None where ``needs`` is False.  On CUDA tensors:
+    ``csrc/motif_level3_backward.cu`` as ``motif_level3_backward_plan``
+    lays it out (one kernel, two where ∂A or ∂φ is asked; one count), which
     keeps no [B,n,N,h] tensor, so ``block_rows`` does not apply; on CPU
     tensors ``motif_level3_backward_plain``."""
     dev = check_inputs("motif_level3_backward", grad=grad, adj=adj, phi_r=phi_r, a_i=a_i,
@@ -234,27 +316,22 @@ def fused_motif_level3_backward(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
     need = dict(zip(NAMES, needs))
     if not any(needs) or B * n * N * h == 0:
         return tuple(torch.zeros_like(t) if need[k] else None for k, t in zip(NAMES, inputs))
-    tiles = -(-n // ROW_TILE)
-    # adj and φ(rel) are written whole by the second kernel; a_i's rows, v_j,
-    # deg and the parameters are written whole as well
+    plan = motif_level3_backward_plan(B, N, n, R, h, needs)
+    # every gradient asked for is written whole
     grads = {k: torch.empty_like(t) for k, t in zip(NAMES, inputs) if need[k]}
-    f32 = dict(dtype=torch.float32, device=dev)
-    empty = lambda cond, *shape: torch.empty(*shape, **f32) if cond else None
-    scratch = (empty(need["phi_r"], B, n, N, R),                          # gd
-               empty(need["phi_r"] or need["adj"], B, n, N, R),           # grf
-               empty(need["adj"], B, n, N),                               # loc
-               empty(need["v_j"], B, tiles, N, h),                        # pv
-               empty(need["deg"], B, tiles, N),                           # pdeg
-               empty(need["m1d"] or need["m1f"] or need["bias"],          # pp
-                     B * tiles, (2 * R + 1) * h))
+    scratch = {k: torch.empty(*shape, dtype=torch.float32, device=dev)
+               for k, shape in plan.scratch.items()}
+    stream = stream_handle(dev)
+    counter = _counters(dev, stream, plan.counters) if plan.counters else None
     ptr = lambda t: None if t is None else t.data_ptr()
     flags = sum(1 << i for i, k in enumerate(NAMES) if need[k])
     fn = build.load("motif_level3_backward", _BACKWARD_SIGNATURES).motif_level3_backward_launch
     with torch.cuda.device(dev):
         code = fn(*(t.data_ptr() for t in inputs), grad.data_ptr(),
-                  *(ptr(grads.get(k)) for k in NAMES), *(ptr(t) for t in scratch),
-                  B, N, row0, n, R, h, tiles, flags, CUDA_DTYPES[adj.dtype],
-                  stream_handle(dev))
+                  *(ptr(grads.get(k)) for k in NAMES),
+                  *(ptr(scratch.get(k)) for k in ("gd", "grf", "loc", "pdeg", "pv", "pp")),
+                  ptr(counter), B, N, row0, n, R, h, plan.tiles, plan.clusters, plan.cluster,
+                  plan.h_chunk, plan.cols, flags, CUDA_DTYPES[adj.dtype], stream)
     raise_on_error("motif_level3_backward", code)
     fused_motif_level3_backward.launches += 1
     return tuple(grads.get(k) for k in NAMES)
@@ -286,7 +363,7 @@ def motif_level3(adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
     that ``phi_r`` and ``a_i`` hold (all N by default): forward
     ``fused_motif_level3``, backward ``fused_motif_level3_backward`` for the
     inputs that need a gradient.  The forward saves only its inputs, so the
-    backward recomputes rf and m3: the kernel pair in registers and shared
+    backward recomputes rf and m3: the kernel in registers and shared
     memory, the CPU's closed form as [B,n,N,·] tensors, or with
     ``block_rows`` one i-row block of the window at a time,
     [B,block_rows,N,·]; the forward is one launch either way."""

@@ -150,18 +150,45 @@ def test_cuda_kernel_row_windows_match_the_rows():
                 assert torch.equal(torch.cat(parts, dim=1), full)
 
 
+MODEL_NEEDS = (False, False, True, True, False, True, True, True)
+
+
+def _held_to_f64(got, g, ts, row0, needs=(True,) * 8):
+    """Each gradient ``needs`` asks for within (its longest sum + 8)·2^-24
+    times the plain version on the inputs' magnitudes (the worst-case
+    rounding of an f32 sum of that many terms) of the plain version in
+    float64; None where not asked."""
+    B, n, N, R = ts[1].shape
+    h = ts[2].shape[-1]
+    w64 = [t.double() for t in ts]
+    want = motif_level3_backward_plain(g.double(), *w64, row0=row0)
+    mag = motif_level3_backward_plain(g.double().abs(), *[t.abs() for t in w64], row0=row0)
+    depth = N + 2 * R + 8
+    terms = (depth + n * R + h, depth + N + h, depth + N, depth + n, depth + n * h,
+             *(depth + B * n * N,) * 3)
+    for got_i, want_i, mag_i, k, need in zip(got, want, mag, terms, needs):
+        assert (got_i is None) != need
+        if need:
+            assert got_i.dtype == torch.float32 and got_i.shape == want_i.shape
+            assert bool(((got_i.double() - want_i).abs() <= (k + 8) * 2.0 ** -24 * mag_i).all())
+
+
 @pytest.mark.parametrize("B,N,h,R,n,row0,weighted", [
     (4, 25, 50, 1, 25, 0, False), (3, 29, 37, 2, 29, 0, True), (2, 72, 75, 2, 31, 20, False),
-    (2, 40, 70, 5, 40, 0, True)])
+    (2, 40, 70, 5, 40, 0, True), (2, 72, 75, 2, 72, 0, False), (2, 256, 50, 1, 256, 0, False),
+    (100, 25, 20, 1, 25, 0, False)])
 def test_cuda_backward_pair_matches_plain_version(B, N, h, R, n, row0, weighted):
-    """On the card: the level-3 backward pair against its closed-form plain
-    version in float64 for all eight gradients, each within (its longest
-    sum + 8)·2^-24 times the plain version on the inputs' magnitudes (the
-    worst-case rounding of an f32 sum of that many terms); one count per
-    call; each subset of gradients asked for gets exactly those; the
-    autograd wrapper launches the pair and no autograd chain.  Shapes: the
-    served one tile, ragged N and h with a weighted A, a row window with
-    several j-tiles and h chunks, and R = 5 (two channel groups)."""
+    """On the card: the level-3 backward against its closed-form plain
+    version in float64 for all eight gradients, each within its summation
+    bound (``_held_to_f64``); one count per call; each subset of gradients
+    asked for (the model's, ∂A alone, ∂φ with ∂deg, ∂a_i and ∂v_j alone,
+    the bias alone, ∂deg alone) gets exactly those, equal to the full call's
+    bit for bit; the autograd wrapper launches the kernel and no autograd
+    chain.  Shapes: the served one tile, ragged N and h with a weighted A, a
+    row window with several j-tiles and h chunks, R = 5 (two channel
+    groups), N = 72 and 256 (more row tiles than one cluster holds: five
+    and 16 clusters a tree, their sums through L2), and the served B = 100
+    trees at h = 20 (one h column per lane)."""
     _card()
     rng = np.random.default_rng(2)
     x64 = _t(_level3_inputs(rng, B, N, h, R, weighted))
@@ -172,18 +199,12 @@ def test_cuda_backward_pair_matches_plain_version(B, N, h, R, n, row0, weighted)
     got = fused_motif_level3_backward(g, *ts, row0=row0)
     torch.cuda.synchronize()
     assert fused_motif_level3_backward.launches == n0 + 1
-    w64 = [t.double() for t in ts]
-    want = motif_level3_backward_plain(g.double(), *w64, row0=row0)
-    mag = motif_level3_backward_plain(g.double().abs(), *[t.abs() for t in w64], row0=row0)
-    depth = N + 2 * R + 8
-    terms = (depth + n * R + h, depth + N + h, depth + N, depth + n, depth + n * h,
-             *(depth + B * n * N,) * 3)
-    for got_i, want_i, mag_i, k in zip(got, want, mag, terms):
-        assert got_i.dtype == torch.float32 and got_i.shape == want_i.shape
-        assert bool(((got_i.double() - want_i).abs() <= (k + 8) * 2.0 ** -24 * mag_i).all())
-    for needs in ((False, False, True, True, False, True, True, True),
-                  (True, False, False, False, False, False, False, False),
-                  (False, True, False, False, True, False, False, False)):
+    _held_to_f64(got, g, ts, row0)
+    for needs in (MODEL_NEEDS, (True, False, False, False, False, False, False, False),
+                  (False, True, False, False, True, False, False, False),
+                  (False, False, True, True, False, False, False, False),
+                  (False, False, False, False, False, False, False, True),
+                  (False, False, False, False, True, False, False, False)):
         part = fused_motif_level3_backward(g, *ts, row0=row0, needs=needs)
         for p, full, need in zip(part, got, needs):
             assert (p is None) != need
@@ -197,19 +218,76 @@ def test_cuda_backward_pair_matches_plain_version(B, N, h, R, n, row0, weighted)
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_cuda_backward_windows_and_repeats():
+    """On the card, at synthetic2's layer 2 ([100,25,25,50], R = 1): the
+    mesh's row windows (every rank's rows at m = 2 and 4, ``node_block``)
+    for the model's gradients and all eight, each within its summation
+    bound of float64; two calls bit-equal; a call after calls with other
+    numbers of trees (B = 3 and 1, so other block counts reach the election
+    counter) bit-equal to the first, so the counter reset itself; the same
+    at [4,256,256,50] (16 clusters a tree: the per-tree counters) with a
+    call at B = 2 between."""
+    from snd_vae_tpu_torch.parallel.mesh import node_block
+
+    _card()
+    rng = np.random.default_rng(4)
+    ts = [t.float().cuda() for t in _t(_level3_inputs(rng, 100, 25, 50, 1))]
+    for m in (2, 4):
+        for k in range(m):
+            row0, n = node_block(25, m, k)
+            win = [ts[0], ts[1][:, row0:row0 + n].contiguous(),
+                   ts[2][:, row0:row0 + n].contiguous(), *ts[3:]]
+            g = torch.from_numpy(rng.standard_normal((100, n, 50))).float().cuda()
+            for needs in (MODEL_NEEDS, (True,) * 8):
+                _held_to_f64(fused_motif_level3_backward(g, *win, row0=row0, needs=needs),
+                             g, win, row0, needs)
+    g = torch.from_numpy(rng.standard_normal((100, 25, 50))).float().cuda()
+    first = fused_motif_level3_backward(g, *ts, needs=MODEL_NEEDS)
+    again = fused_motif_level3_backward(g, *ts, needs=MODEL_NEEDS)
+    for B in (3, 1):
+        small = [ts[0][:B], ts[1][:B], ts[2][:B], ts[3][:B], ts[4][:B], *ts[5:]]
+        _held_to_f64(fused_motif_level3_backward(g[:B], *small, needs=MODEL_NEEDS),
+                     g[:B], small, 0, MODEL_NEEDS)
+    after = fused_motif_level3_backward(g, *ts, needs=MODEL_NEEDS)
+    for a, b, c in zip(first, again, after):
+        assert (a is None) == (b is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, b) and torch.equal(a, c)
+    ts = [t.float().cuda() for t in _t(_level3_inputs(rng, 4, 256, 50, 1))]
+    g = torch.from_numpy(rng.standard_normal((4, 256, 50))).float().cuda()
+    for needs in (MODEL_NEEDS, (True,) * 8):
+        first = fused_motif_level3_backward(g, *ts, needs=needs)
+        _held_to_f64(first, g, ts, 0, needs)
+        again = fused_motif_level3_backward(g, *ts, needs=needs)
+        small = [ts[0][:2], ts[1][:2], ts[2][:2], ts[3][:2], ts[4][:2], *ts[5:]]
+        _held_to_f64(fused_motif_level3_backward(g[:2], *small, needs=needs),
+                     g[:2], small, 0, needs)
+        after = fused_motif_level3_backward(g, *ts, needs=needs)
+        for a, b, c in zip(first, again, after):
+            assert (a is None) == (b is None) == (c is None)
+            if a is not None:
+                assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_cuda_backward_pair_bf16():
-    """On the card: the pair on bf16 inputs, each gradient in bf16 within
-    2e-2 of the largest magnitude of the f32 plain version on the same
-    (bf16-rounded) inputs."""
+    """On the card: the backward on bf16 inputs, each gradient in bf16
+    within 2e-2 of the largest magnitude of the f32 plain version on the
+    same (bf16-rounded) inputs, all eight and the model's, at 6 and at the
+    served 100 trees."""
     _card()
     rng = np.random.default_rng(3)
-    ts = [t.to(torch.bfloat16).cuda() for t in _t(_level3_inputs(rng, 6, 25, 50, 1))]
-    g = torch.from_numpy(rng.standard_normal((6, 25, 50))).to(torch.bfloat16).cuda()
-    got = fused_motif_level3_backward(g, *ts)
-    want = motif_level3_backward_plain(g.float(), *[t.float() for t in ts])
-    for a, b in zip(got, want):
-        assert a.dtype == torch.bfloat16
-        assert (a.float() - b).abs().max().item() <= 2e-2 * b.abs().max().item()
+    for B in (6, 100):
+        ts = [t.to(torch.bfloat16).cuda() for t in _t(_level3_inputs(rng, B, 25, 50, 1))]
+        g = torch.from_numpy(rng.standard_normal((B, 25, 50))).to(torch.bfloat16).cuda()
+        want = motif_level3_backward_plain(g.float(), *[t.float() for t in ts])
+        for needs in ((True,) * 8, MODEL_NEEDS):
+            got = fused_motif_level3_backward(g, *ts, needs=needs)
+            for a, b, need in zip(got, want, needs):
+                if not need:
+                    assert a is None
+                    continue
+                assert a.dtype == torch.bfloat16
+                assert (a.float() - b).abs().max().item() <= 2e-2 * b.abs().max().item()
 
 
 def test_cuda_fused_matches_plain():

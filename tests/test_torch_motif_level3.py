@@ -18,12 +18,16 @@ from snd_vae_tpu import nn as jops
 from snd_vae_tpu_torch import nn as tops
 from snd_vae_tpu_torch.nn.kernels.motif_combine import motif_combine_plain
 from snd_vae_tpu_torch.nn.kernels.motif_level3 import (
+    MAX_CLUSTER,
     NAMES,
+    ROW_TILE,
+    SPLIT_CLUSTER,
     _level3_rows,
     fused_motif_level3,
     fused_motif_level3_backward,
     motif_level3,
     motif_level3_backward_plain,
+    motif_level3_backward_plan,
 )
 
 
@@ -314,3 +318,73 @@ def test_wrapper_rejects_bad_inputs(rng, case):
         err = ValueError
     with pytest.raises(err):
         fused_motif_level3(*ts)
+
+
+MODEL_NEEDS = (False, False, True, True, False, True, True, True)
+
+
+@pytest.mark.parametrize("B,N,rows,R,h", [
+    (100, 25, 25, 1, 20), (100, 25, 25, 1, 50), (100, 25, 13, 1, 50), (100, 25, 7, 1, 50),
+    (100, 25, 4, 1, 50), (2, 72, 72, 2, 75), (4, 256, 256, 1, 50), (4, 256, 64, 1, 50),
+    (2, 40, 40, 5, 70), (3, 29, 29, 2, 37), (1, 8, 8, 1, 3), (2, 9, 9, 1, 33),
+    (1, 2048, 2048, 1, 8)])
+def test_backward_plan_clusters_cover_every_row_once(B, N, rows, R, h):
+    """The backward's launch plan: one block per row tile, a tree's blocks
+    one cluster where it has at most 4 row tiles (every tree of N <= 32),
+    else clusters of 2, as few clusters as hold its row tiles and
+    fewer padding blocks (without rows) than clusters; the blocks' rows
+    covering the window once each; the h chunk one column per lane only
+    in the model's instance (N <= 32, R = 1, h <= 32); the parameter
+    partials' row (2R + 1)·h rounded up to 4."""
+    p = motif_level3_backward_plan(B, N, rows, R, h)
+    assert 1 <= p.cluster <= MAX_CLUSTER and p.cluster <= p.tiles
+    assert p.tiles == -(-rows // ROW_TILE)
+    assert (p.clusters == 1 if p.tiles <= MAX_CLUSTER else
+            p.clusters == -(-p.tiles // SPLIT_CLUSTER) and p.cluster == SPLIT_CLUSTER)
+    assert p.clusters == 1 or N > 32
+    assert 0 <= p.clusters * p.cluster - p.tiles < p.clusters
+    got = [p.rows_of(q) for q in range(p.clusters * p.cluster)]
+    assert all(len(g) <= ROW_TILE for g in got)
+    assert sorted(i for g in got for i in g) == list(range(rows))
+    assert all(got[q] for q in range(p.tiles)) and not any(got[p.tiles:])
+    assert p.h_chunk == (32 if N <= 32 and R == 1 and h <= 32 else 64)
+    assert p.cols % 4 == 0 and 0 <= p.cols - (2 * R + 1) * h < 4
+
+
+@pytest.mark.parametrize("needs,names,kernels", [
+    (MODEL_NEEDS, {"pp"}, 1),
+    ((True,) * 8, {"gd", "grf", "loc", "pdeg", "pp"}, 2),
+    ((False, False, True, True, False, False, False, False), set(), 1),
+    ((False, False, False, False, True, False, False, False), {"pdeg"}, 1),
+    ((True, False, False, False, False, False, False, False), {"grf", "loc"}, 2),
+    ((False, True, False, False, True, False, False, False), {"gd", "grf", "pdeg"}, 2),
+    ((False, False, False, False, False, False, False, True), {"pp"}, 1)])
+def test_backward_plan_scratch(needs, names, kernels):
+    """The scratch the plan asks for, and its sizes: the per-cluster
+    parameter partials [B, clusters, cols] and the election counter only
+    where a parameter's gradient is asked, ∂deg's sum over h chunks [B,
+    clusters, N], gd / grf / loc for the contractions, which take the second
+    kernel; the model's path (a_i, v_j, M1d, M1f, bias) one kernel and
+    B·cols floats, below the earlier per-block partials ([B·tiles, (2R+1)h] and
+    [B, tiles, N, h]).  At N = 256 (16 clusters of 2 a tree) the clusters'
+    ∂v_j sums [B, 16, N, h] and a counter per tree and rank besides, where
+    ∂v_j or ∂deg is asked."""
+    B, N, rows, R, h = 100, 25, 25, 1, 50
+    p = motif_level3_backward_plan(B, N, rows, R, h, needs)
+    assert set(p.scratch) == names and p.kernels == kernels and p.clusters == 1
+    assert p.counters == ("pp" in names)
+    want = {"gd": (B, rows, N, R), "grf": (B, rows, N, R), "loc": (B, rows, N),
+            "pdeg": (B, 1, N), "pp": (B, 1, p.cols)}
+    assert all(p.scratch[k] == want[k] for k in names)
+    if needs == MODEL_NEEDS:
+        tiles = -(-rows // ROW_TILE)
+        assert B * p.cols < B * tiles * (2 * R + 1) * h + B * tiles * N * h
+    B, N = 4, 256
+    big = motif_level3_backward_plan(B, N, N, R, h, needs)
+    need = dict(zip(NAMES, needs))
+    assert big.clusters == 16 and big.cluster == 2
+    assert set(big.scratch) == names | ({"pv"} if need["v_j"] else set())
+    assert big.counters == ((1 + B * 2) if need["v_j"] or need["deg"] else
+                            1 if "pp" in names else 0)
+    assert big.scratch.get("pv", (B, 16, N, h)) == (B, 16, N, h)
+    assert big.scratch.get("pp", (B, 16, big.cols)) == (B, 16, big.cols)
