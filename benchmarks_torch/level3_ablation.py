@@ -3,9 +3,10 @@
 
     python3 benchmarks_torch/level3_ablation.py
 
-Builds ``csrc/motif_level3.cu`` five more times, each with a phase compiled
-out (the rf sums; the k-chunk copies; the j-tile's epilogue copies; the
-epilogue; all four), and times every build with ``chip_smoke.device_ms``
+Builds ``csrc/motif_level3.cu``, its header ``csrc/motif_level3.cuh``
+inlined, five more times, each with a phase compiled out (the rf sums; the
+k-chunk copies; the j-tile's epilogue copies; the epilogue; all four), and
+times every build with ``chip_smoke.device_ms``
 (median of 100 single launches behind a device-side spin) at the served
 shapes, at N = 256 (16-byte copies; one tree and four) and N = 255 (4-byte
 copies), beside the timing floor: a one-element ``fill_`` timed the same
@@ -34,14 +35,16 @@ from snd_vae_tpu_torch.nn.kernels import build  # noqa: E402
 from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml  # noqa: E402
 from snd_vae_tpu_torch.nn.kernels._launch import stream_handle  # noqa: E402
 
-# (macro, first line of the phase, last line of the phase) in the source
+# (macro, first line of the phase, last line of the phase) in the source,
+# its header csrc/motif_level3.cuh inlined (rf_tile, stage_chunk and
+# stage_tile live there)
 PHASES = (
-    ("SKIP_RF", "      for (int rr = 0; rr < r; ++rr) {\n        float s0",
-     "(s2 + s3);\n      }"),
-    ("SKIP_STAGE", "    stage_chunk<kTk>(as, ps, ab, pb, n, rows, r, i0, j0, 0, vec);", "vec);"),
-    ("SKIP_STAGE", "        stage_chunk<kTk>(as + nb", "(c + 1) * kTk, vec);"),
-    ("SKIP_EPI_STAGE", "    for (int e = tid; e < kTi * kTj * r; e += kThreads) {",
-     "stage(vs + e, v_j + (ok ? (b * n + j) * h + hh : 0), ok);\n    }"),
+    ("SKIP_RF", "    for (int rr = 0; rr < r; ++rr) {\n      float s0",
+     "(s2 + s3);\n    }"),
+    ("SKIP_STAGE", "  stage_chunk<kTk>(as, ps, ab, pb, n, rows, r, i0, j0, 0, vec);", "vec);"),
+    ("SKIP_STAGE", "      stage_chunk<kTk>(as + nb", "(c + 1) * kTk, vec);"),
+    ("SKIP_EPI_STAGE", "  for (int e = tid; e < kTi * kTj * r; e += kThreads) {",
+     "stage(vs + e, v_j + (ok ? (b * n + j) * h + hh : 0), ok);\n  }"),
     ("SKIP_EPI", "    if (i < rows) {\n      const unsigned all",
      "if (two) acc[q] = fmaf(a2, l2, acc[q]);\n        }\n      }\n    }"),
 )
@@ -52,14 +55,23 @@ SHAPES = ((100, 25, 20, 0.4), (100, 25, 50, 0.4), (4, 256, 50, 0.4), (1, 256, 50
           (4, 256, 50, 0.0), (4, 255, 50, 0.4))
 
 
+HEADER = "motif_level3.cuh"
+
+
 def guarded_source() -> str:
-    """The kernel source with each phase between #ifndef MACRO / #endif."""
+    """The kernel source, its header inlined, with each phase between
+    #ifndef MACRO / #endif."""
     src = (build.CSRC / "motif_level3.cu").read_text()
+    include = f'#include "{HEADER}"'
+    if src.count(include) != 1:
+        raise ValueError(f"motif_level3.cu does not include {HEADER} once; update HEADER")
+    src = src.replace(include, (build.CSRC / HEADER).read_text())
     for macro, start, end in PHASES:
         i = src.find(start)
         j = src.find(end, i)
         if i < 0 or j < 0:
-            raise ValueError(f"phase {macro} not found in motif_level3.cu; update PHASES")
+            raise ValueError(f"phase {macro} not found in motif_level3.cu and {HEADER}; "
+                             "update PHASES")
         j += len(end)
         src = f"{src[:i]}\n#ifndef {macro}\n{src[i:j]}\n#endif\n{src[j:]}"
     return src

@@ -30,7 +30,12 @@ Phases, one output line each:
                shapes, the mesh's row windows and larger ones, with each of
                its kernels' device ms (profiler), its kernels per call (1 on
                the model's path, 2 where dA or dphi is asked) and two calls
-               bit-equal;
+               bit-equal; K3's backward at every K3 shape and a graph with
+               zero rows (the tie), for the gradients {W} and {x, W} (no
+               W: {x}), against its closed-form plain version (f32 within
+               each gradient's float64 summation bound, bf16 within 2e-2),
+               two calls bit-equal, with the replaced autograd chain's ms
+               and kernels timed in turns with it;
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
                kernel launches (motif_level3 and adj_matmul twice per
@@ -41,8 +46,9 @@ Phases, one output line each:
   5. train   — synthetic2 at full width on the generated train split (200
                graphs, 20 steps an epoch), f32 and bf16 with f32 masters:
                Trainer.run for 2 epochs with Adam from the seed weights,
-               counting the launches (motif_level3, its backward and
-               adj_matmul twice per step, motif_combine never), finite
+               counting the launches (motif_level3, adj_matmul and their
+               backwards twice per step, motif_combine and K3's plain
+               version never), finite
                losses falling from the
                first epoch to the second; in f32 one step on the card
                against the same step on the CPU (loss, every gradient and
@@ -51,9 +57,10 @@ Phases, one output line each:
                of 5 steps: kernels and device-busy ms per step, device ms of
                the forward, backward and optimizer ranges, the device
                events no host op launched, the level-3 backward (K2's
-               kernel) and the top backward kernels; then the kernel
-               against the autograd chain it replaced, in turns: kernels,
-               device-busy and level-3 backward ms per step;
+               kernel), K3's backward and the top backward kernels; then
+               each backward kernel against the autograd chain it
+               replaced, in turns: kernels, device-busy and the backward's
+               ms and kernels per step;
   6. joint_serve — the joint model ("base") at synthetic2 width, as 4. (2
                motif_level3 per batch, no adj_matmul, no motif_combine);
   7. joint_train — the joint model: Trainer.run for 2 epochs in f32 (2
@@ -111,8 +118,9 @@ Phases, one output line each:
  16b. cli_profile — the CLI's --type train --epochs 2 --profile at
                synthetic2 full width in a process of its own: the
                torch.profiler trace of epoch 1 holds one train_epoch range
-               over 20 steps and 40 motif_level3, 40 adj_matmul and no
-               motif_combine kernel events; the traced epoch's wall time
+               over 20 steps and 40 motif_level3, 40 of its backward, 40
+               adj_matmul, 40 of its backward and no motif_combine kernel
+               events; the traced epoch's wall time
                and its train_epoch range against an untraced f32 epoch of
                phase 5;
  16c. trace_twice — in this process, which has traced before: two
@@ -133,7 +141,9 @@ Phases, one output line each:
                run, bf16 within 2e-2 of the library path, the card against
                the CPU at N = 2048; device ms per apply and per layer with
                each layer's bound, K3 alone beside its plain version and
-               torch.mm + leaky_relu, the normalize's ms, peak memory;
+               torch.mm + leaky_relu, the normalize's ms, peak memory; the
+               kernels' gradients through K3's backward (2 launches) against
+               the library path's;
  18. dp      — the data-parallel Trainer on that mesh at synthetic2 full
                width, 2 epochs f32: 2 + 2 launches per step, per-epoch
                losses equal to a mesh-less Trainer's at rtol 1e-6, the
@@ -162,7 +172,8 @@ happen in the CPU tests (gloo: tests/test_torch_parallel.py,
 test_torch_large_graph.py, test_torch_dp_train.py).
 
 Each path's launches are counted from 0 just before it runs and read just
-after.  Any failed check raises: the script then exits non-zero without a
+after; K3's plain version is counted too (a wrapper this script installs)
+and no path may call it.  Any failed check raises: the script then exits non-zero without a
 result line.  Without a CUDA card, or without the rest of the repository beside it,
 it fails before printing anything.
 """
@@ -209,6 +220,9 @@ BACKWARD_KERNELS_CONTRACT = 2
 # the level-3 backward's gradients on the model's path: a_i, v_j, M1d, M1f, bias
 MODEL_NEEDS = (False, False, True, True, False, True, True, True)
 K3_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:89"
+K3B_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul_backward.cu"
+K3B_TPU_FN = "blocked_adj_matmul (no backward in JAX: jax.vjp of GraphConv)"
+K3B_REPLACED = "autograd through adj_matmul_plain (snd_vae_tpu_torch/nn/kernels/adj_matmul.py)"
 
 
 def emit(phase: str, payload) -> None:
@@ -220,9 +234,27 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def count_plain_calls(am) -> None:
+    """Wrap ``adj_matmul_plain`` so that ``read_counts`` sees its calls: K3's
+    plain version, which no path on the card may call (its backward was
+    autograd through it before it had a kernel).  Installed by ``main``
+    only; the package has no such switch."""
+    plain = am.adj_matmul_plain
+
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return plain(*args, **kwargs)
+
+    counted.calls = 0
+    am.adj_matmul_plain = counted
+
+
 def zero_counts(ml, mc, am) -> None:
     ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
     ml.fused_motif_level3_backward.launches = am.blocked_adj_matmul.launches = 0
+    am.fused_adj_matmul_backward.launches = 0
+    if hasattr(am.adj_matmul_plain, "calls"):
+        am.adj_matmul_plain.calls = 0
 
 
 def read_counts(ml, mc, am) -> dict:
@@ -230,14 +262,17 @@ def read_counts(ml, mc, am) -> dict:
     return {"motif_level3": ml.fused_motif_level3.launches,
             "motif_level3_backward": ml.fused_motif_level3_backward.launches,
             "motif_combine": mc.fused_motif_combine.launches,
-            "adj_matmul": am.blocked_adj_matmul.launches}
+            "adj_matmul": am.blocked_adj_matmul.launches,
+            "adj_matmul_backward": am.fused_adj_matmul_backward.launches,
+            "adj_matmul_plain": getattr(am.adj_matmul_plain, "calls", 0)}
 
 
-def per(n: int, ml3: int = 0, k3: int = 0, bwd: int = 0) -> dict:
+def per(n: int, ml3: int = 0, k3: int = 0, bwd: int = 0, k3b: int = 0) -> dict:
     """The launches n batches or steps should count (``bwd``: calls of
-    the level-3 backward)."""
+    the level-3 backward; ``k3b``: of K3's backward); K3's plain version is
+    never called."""
     return {"motif_level3": n * ml3, "motif_level3_backward": n * bwd, "motif_combine": 0,
-            "adj_matmul": n * k3}
+            "adj_matmul": n * k3, "adj_matmul_backward": n * k3b, "adj_matmul_plain": 0}
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -499,6 +534,7 @@ def check_kernels(ml, mc, am):
                          plain_ms=device_ms(lambda: mc.motif_combine_plain(*x)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra))
     rows += check_adj_matmul(am, gen)
+    rows += check_adj_matmul_backward(am, gen)
     torch.cuda.synchronize()
     return rows
 
@@ -839,6 +875,185 @@ def check_adj_matmul(am, gen):
     return rows
 
 
+# K3's backward: the gradient subsets (∂A, ∂x, ∂W) each K3 case is held
+# at: with W, {W} (GraphConv 1, whose x is the data) and {x, W} (GraphConv
+# 2); without W, {x}.  Beside K3_CASES, GraphConv 2's shape with 3 rows of
+# A all zero (y = 0 there: the tie), f32 and bf16.
+K3B_NEEDS_W = ((False, False, True), (False, True, True))
+K3B_NEEDS = ((False, True, False),)
+K3B_TIE_CASES = tuple(((10, 25, 25), (10, 25, 11), 20, 0.2, dt, False, 0.15, "zero_rows")
+                      for dt in (torch.float32, torch.bfloat16))
+K3B_ZERO_ROWS = 3
+
+
+class _AdjMatmulAutograd(torch.autograd.Function):
+    """K3's backward as it was before it had a kernel, for the measurements
+    that compare it with the kernel and for nothing else: the forward is the
+    package's (one ``blocked_adj_matmul`` launch), the backward autograd
+    through ``adj_matmul_plain``, which recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, adj, x, w, leak):
+        from snd_vae_tpu_torch.nn.kernels import adj_matmul as am
+
+        ctx.save_for_backward(adj, x, w)
+        ctx.leak = leak
+        return am.blocked_adj_matmul(adj, x, leak, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from snd_vae_tpu_torch.nn.kernels import adj_matmul as am
+
+        got = replaced_adj_grads(am, *ctx.saved_tensors, ctx.leak, grad,
+                                 ctx.needs_input_grad[:3])
+        return (*got, None)
+
+
+class replaced_adj_backward:
+    """A context in which GraphConv runs K3's replaced backward
+    (``_AdjMatmulAutograd``), for measurements in turns."""
+
+    def __enter__(self):
+        import snd_vae_tpu_torch.nn.graph_conv as gc
+
+        self.saved = gc.adj_matmul
+        gc.adj_matmul = lambda adj, x, leak=None, w=None: _AdjMatmulAutograd.apply(
+            adj, x, w, leak)
+
+    def __exit__(self, *exc):
+        import snd_vae_tpu_torch.nn.graph_conv as gc
+
+        gc.adj_matmul = self.saved
+
+
+def replaced_adj_grads(am, a, x, w, leak, g, needs):
+    """The replaced chain: autograd through ``adj_matmul_plain``, the
+    forward recomputed, for the inputs ``needs`` (∂A, ∂x, ∂W) asks for."""
+    ts = [None if t is None else t.detach().requires_grad_(bool(nd))
+          for t, nd in zip((a, x, w), needs)]
+    with torch.enable_grad():
+        out = am.adj_matmul_plain(ts[0], ts[1], leak, ts[2])
+    wanted = [t for t in ts if t is not None and t.requires_grad]
+    got = iter(torch.autograd.grad(out, wanted, g))
+    return [next(got) if t is not None and t.requires_grad else None for t in ts]
+
+
+def adj_backward_terms(k: int, b: int, n: int, m: int, f: Optional[int], h: int) -> int:
+    """The longest f32 sum behind one element of K3's gradient k (∂A, ∂x,
+    ∂W): ∂A sums H products of gy with xw, itself a sum of F; ∂x sums N
+    into gxw, then H into gx (gxw alone without W); ∂W N into gxw, then the
+    B·M rows of x."""
+    return (h + (f or 0), n + (0 if f is None else h), n + b * m)[k]
+
+
+def adj_backward_bound(a, x, w, leak, needs, dtype) -> tuple:
+    """The least time of one call of K3's backward on these tensors:
+    bytes of A, x, W, the gradient and (with act) the output read once and
+    the asked-for gradients written once; operations (every product dense,
+    as the kernel computes it): gy 3 per output element with act, gxw
+    2·B·N·M·H, ∂x 2·B·M·F·H with W, ∂W 2·B·M·F·H, ∂A 2·B·N·M·H (and xw's
+    recompute 2·B·M·F·H)."""
+    n, m = a.shape[-2:]
+    b = a.shape[0] if a.dim() == 3 else 1
+    f = None if w is None else w.shape[0]
+    h = x.shape[-1] if w is None else w.shape[1]
+    need_a, need_x, need_w = needs
+    isz = a.element_size()
+    elems = a.numel() + x.numel() + (0 if w is None else w.numel()) + b * n * h * (
+        2 if leak is not None else 1)
+    elems += (a.numel() if need_a else 0) + (x.numel() if need_x else 0) + (
+        w.numel() if need_w and w is not None else 0)
+    ops = (3 * b * n * h if leak is not None else 0) + (
+        2 * b * n * m * h if need_x or need_w else 0)
+    if w is not None:
+        ops += (2 * b * m * f * h if need_x else 0) + (2 * b * m * f * h if need_w else 0)
+    if need_a:
+        ops += 2 * b * n * m * h + (0 if w is None else 2 * b * m * f * h)
+    return bound(isz * elems, ops, dtype)
+
+
+def check_adj_matmul_backward(am, gen):
+    """K3's backward (``fused_adj_matmul_backward``) at every K3 case and a
+    graph with zero rows (the tie), for the subsets K3B_NEEDS(_W) asks,
+    against its closed form ``adj_matmul_backward_plain``: f32 within the
+    float64 summation bound of each gradient's longest sum
+    (``adj_backward_terms``), bf16 within 2e-2 of the largest magnitude;
+    two calls bit-equal.  Each row: the kernel's and the replaced chain's
+    (autograd through the plain forward) ms, timed in turns (kernel, chain,
+    chain, kernel: events behind the spin, 50 calls a turn, each the mean
+    of its two), their kernels and device-busy ms per call (profiler), the
+    plain version's ms, the bound; GraphConv 1 ({W}) and 2 ({x, W}) of
+    synthetic2 in f32 are the train step's rows (one call each a step)."""
+    names = ("adj", "x", "w")
+    rows = []
+    for a_shape, x_shape, hw, leak, dt, served, density, *path in K3_CASES + K3B_TIE_CASES:
+        a, x = adj_inputs(a_shape, x_shape, dt, gen, density)
+        tie = bool(path) and path[0] == "zero_rows"
+        if tie:
+            a[:, :K3B_ZERO_ROWS] = 0
+        w = (None if hw is None else
+             (0.3 * torch.randn(x_shape[-1], hw, generator=gen, device="cuda")).to(dt))
+        n, m = a_shape[-2:]
+        b = a_shape[0] if len(a_shape) == 3 else 1
+        f, hh = (None, x_shape[-1]) if w is None else (x_shape[-1], hw)
+        out = am.blocked_adj_matmul(a, x, leak, w)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+        for needs in (K3B_NEEDS if w is None else K3B_NEEDS_W):
+            kern = lambda: am.fused_adj_matmul_backward(g, a, x, out, leak, w, needs)
+            plain = lambda: am.adj_matmul_backward_plain(g, a, x, out, leak, w, needs)
+            chain = lambda: replaced_adj_grads(am, a, x, w, leak, g, needs)
+            got, again = kern(), kern()
+            check(all(u is None or torch.equal(u, v) for u, v in zip(got, again)),
+                  f"K3 backward {a_shape} {needs}: two calls differ")
+            want = plain()
+            errs = {}
+            for k, name in enumerate(names):
+                if want[k] is None:
+                    check(got[k] is None, f"K3 backward {a_shape} {needs}: {name} not asked")
+                    continue
+                if dt == torch.float32:
+                    # act's slopes read the output's sign: held as it is in
+                    # the reference, as |out| in the magnitudes (an upper bound)
+                    inputs = [g, a, x] + ([] if leak is None else [out]) + (
+                        [] if w is None else [w])
+                    fn = (lambda gg, aa, xx, *rest, k=k: am.adj_matmul_backward_plain(
+                        gg, aa, xx, rest[0] if leak is not None else None, leak,
+                        rest[-1] if w is not None else None, needs)[k])
+                    err, p32 = compare_f64_bound(got[k], inputs,
+                                                 adj_backward_terms(k, b, n, m, f, hh), fn)
+                    errs[name] = {"vs_f64": err, "plain_f32_vs_f64": p32}
+                else:
+                    errs[name] = {"vs_bf16_plain": compare(got[k], want[k], dt)}
+            turns = {"kernel": [], "chain": []}
+            for name in ("kernel", "chain", "chain", "kernel"):
+                turns[name].append(device_ms(kern if name == "kernel" else chain,
+                                             reps=REPS // 2))
+            k_busy, c_busy = busy_ms(kern), busy_ms(chain)
+            b_ms, b_by = adj_backward_bound(a, x, w, leak, needs, dt)
+            on_step = served and dt == torch.float32 and needs == (
+                (False, False, True) if f == 1 else (False, True, True))
+            shape = [list(a_shape), list(x_shape)] + ([] if w is None else [list(w.shape)])
+            plan = am.adj_matmul_backward_plan(b, n, m, hh, f, dt, needs)
+            rows.append(dict(
+                kernel="adj_matmul_backward", shape=shape, dtype=str(dt)[6:],
+                needs=[nm for nm, nd in zip(names, needs) if nd], served=on_step,
+                batch_shape=on_step, leak=leak, density=density,
+                **({"path": path[0]} if path else {}),
+                zero_rows=K3B_ZERO_ROWS if tie else 0,
+                plan={"variant": plan.variant, "fuse_w": plan.fuse_w, "grid": plan.grid,
+                      "smem": plan.smem, "parts": plan.parts, "kernels": plan.kernels},
+                max_abs_err=max(e["vs_f64" if dt == torch.float32 else "vs_bf16_plain"]
+                                for e in errs.values()), errors=errs,
+                two_calls_bit_equal=True,
+                ms=statistics.mean(turns["kernel"]), replaced_ms=statistics.mean(turns["chain"]),
+                turns_ms=turns, kernels_per_call=k_busy["kernels"],
+                busy_ms=k_busy["busy_ms"], replaced_kernels_per_call=c_busy["kernels"],
+                replaced_busy_ms=c_busy["busy_ms"],
+                plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launches_per_step=1 if on_step else 0, launches_per_served_batch=0))
+    return rows
+
+
 def serve_rate(fn, graphs: int, iters: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1069,9 +1284,9 @@ def autograd_node(event):
 def profile_steps(step, batches) -> dict:
     """One profiled pass of train steps over the batches: wall and
     device-busy ms and kernels per step; the device ms of the kernels each
-    train_step range launched; the device ms of the level-3 and K3
-    backwards (autograd through their plain versions); the backward's top
-    kernels by device time, all per step."""
+    train_step range launched; the device ms and kernels of the level-3
+    and K3 backwards (their autograd nodes, with any autograd nested in
+    them); the backward's top kernels by device time, all per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1121,7 +1336,10 @@ def profile_steps(step, batches) -> dict:
                                                if k.startswith("_MotifLevel3"))),
         "level3_backward_kernels_per_step": sum(c for k, c in node_kernels.items()
                                                 if k.startswith("_MotifLevel3")) / n,
-        "adj_matmul_backward_ms_per_step": per(node_us.get("_AdjMatmulBackward", 0.0)),
+        "adj_matmul_backward_ms_per_step": per(sum(us for k, us in node_us.items()
+                                                   if k.startswith("_AdjMatmul"))),
+        "adj_matmul_backward_kernels_per_step": sum(c for k, c in node_kernels.items()
+                                                    if k.startswith("_AdjMatmul")) / n,
         "top_backward_kernels": [[name[:70], per(t), c / n] for name, (t, c) in top],
     }
 
@@ -1269,9 +1487,10 @@ def run_training(ml, mc, am):
             trainer.run(TRAIN_EPOCHS, verbose=False)
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == per(steps, ml3=2, k3=2, bwd=2),
+            check(launches == per(steps, ml3=2, k3=2, bwd=2, k3b=2),
                   f"{dtype_name}: launches {launches} over {steps} steps, expected 2 of "
-                  "motif_level3, its backward and adj_matmul per step and no motif_combine")
+                  "motif_level3, adj_matmul and their backwards per step, no motif_combine "
+                  "and no adj_matmul_plain")
             with open(trainer.logger.jsonl_path) as f:
                 means = [json.loads(line)["loss"] for line in f]
             check(len(means) == TRAIN_EPOCHS and all(math.isfinite(m) for m in means),
@@ -1312,6 +1531,21 @@ def run_training(ml, mc, am):
                 turns[name].append({k: prof[k] for k in keys})
             res["backward_turns"] = {name: {k: statistics.mean(t[k] for t in ts) for k in keys}
                                      | {"runs": ts} for name, ts in turns.items()}
+            # K3's backward: the kernel against the autograd chain it
+            # replaced, in turns (kernel, chain, chain, kernel)
+            keys = ("wall_ms_per_step", "kernels_per_step", "device_busy_ms_per_step",
+                    "adj_matmul_backward_ms_per_step", "adj_matmul_backward_kernels_per_step")
+            turns = {"kernel": [], "replaced": []}
+            for name in ("kernel", "replaced", "replaced", "kernel"):
+                if name == "kernel":
+                    prof = profile_steps(step, batches)
+                else:
+                    with replaced_adj_backward():
+                        prof = profile_steps(step, batches)
+                turns[name].append({k: prof[k] for k in keys})
+            res["adj_matmul_backward_turns"] = {
+                name: {k: statistics.mean(t[k] for t in ts) for k in keys} | {"runs": ts}
+                for name, ts in turns.items()}
         res["level3_backward_bound"] = step_level3_backward_bound(
             cfg, data.slice_batch(0, B), getattr(torch, dtype_name))
         res["adj_matmul_backward_bound"] = adj_matmul_backward_bound(
@@ -1559,7 +1793,7 @@ def run_protein(ml, mc, am):
     coords = torch.rand(B, cfg.num_nodes, cfg.spatial_dim, generator=gen, device="cuda")
     with torch.inference_mode():
         res["adj_head_ms"] = device_ms(lambda: model._adj_head(h, coords), reps=20)
-    res["train"] = run_train_epochs(ml, mc, am, cfg, PROTEIN_TRAIN_GRAPHS, {"k3": 2})
+    res["train"] = run_train_epochs(ml, mc, am, cfg, PROTEIN_TRAIN_GRAPHS, {"k3": 2, "k3b": 2})
     return res
 
 
@@ -1598,11 +1832,12 @@ def run_short_train(ml, mc, am, cfg, per_step, vs_cpu=True) -> dict:
 def run_3d_short(ml, mc, am, cfg, per_batch) -> dict:
     """One reconstructed f32 batch on the card against the CPU (its first 2
     graphs), then ``run_short_train``; ``per_batch`` launches per batch and
-    per step."""
+    per step, and per step as many of K3's backward as of K3."""
+    per_step = per_batch | ({"k3b": per_batch["k3"]} if "k3" in per_batch else {})
     return {"serve": serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32",), n_batches=1,
                                  sample_graphs=SAMPLE_GRAPHS, num_graphs=cfg.train.batch_size,
                                  timed=False, cpu_graphs=2),
-            "train": run_short_train(ml, mc, am, cfg, per_batch)}
+            "train": run_short_train(ml, mc, am, cfg, per_step)}
 
 
 def blocked_pair(ml, mc, am, conv, block_rows, inputs, grad_out, ref_device) -> dict:
@@ -1737,7 +1972,7 @@ def run_eval(ml, mc, am):
         trainer.run(TRAIN_EPOCHS, verbose=False)
         launches = read_counts(ml, mc, am)
         check(launches == per(steps + eval_batches, ml3=2, k3=2)
-              | {"motif_level3_backward": 2 * steps},
+              | {"motif_level3_backward": 2 * steps, "adj_matmul_backward": 2 * steps},
               f"eval: launches {launches} over {steps} steps and {eval_batches} eval batches")
         best_dir = Path(trainer.best_checkpointer.directory)
         best = json.loads((best_dir / "best.json").read_text())
@@ -1814,11 +2049,11 @@ def run_remat(ml, mc, am):
     prot = protein_preset(dataset_path=str(ROOT / "dataset"))
     out = {}
     for name, cfg, graphs, plain, remat in (
-            ("synthetic2", s2, s2.train.batch_size, per(1, ml3=2, k3=2, bwd=2),
-             per(1, ml3=4, k3=2, bwd=2)),
+            ("synthetic2", s2, s2.train.batch_size, per(1, ml3=2, k3=2, bwd=2, k3b=2),
+             per(1, ml3=4, k3=2, bwd=2, k3b=2)),
             ("synthetic2_joint", s2.with_(model_type="base"), s2.train.batch_size,
              per(1, ml3=2, bwd=2), per(1, ml3=4, bwd=2)),
-            ("protein", prot, 2, per(1, k3=2), per(1, k3=2))):
+            ("protein", prot, 2, per(1, k3=2, k3b=2), per(1, k3=2, k3b=2))):
         batch = load_dataset(cfg, "train", num_graphs=graphs, device="cpu")
         enc, gen = cfg.encoder, torch.Generator().manual_seed(0)
         S = 1 if cfg.model_type == "base" else cfg.sampling_num
@@ -2002,7 +2237,8 @@ PROFILE_EPOCHS = 2       # cli_profile: --epochs 2 --profile traces epoch 1
 TRACE_KERNEL_NAMES = {"motif_level3": "motif_level3_kernel",
                       "motif_level3_backward": "motif_l3_grad_",
                       "motif_combine": "motif_combine_kernel",
-                      "adj_matmul": "adj_matmul_"}
+                      "adj_matmul": "adj_matmul_",
+                      "adj_matmul_backward": "adj_bwd_"}
 
 
 def trace_kernel_events(events) -> dict:
@@ -2014,9 +2250,10 @@ def trace_kernel_events(events) -> dict:
 
 def events_of(launches: dict) -> dict:
     """The kernel events that wrapper launches on the model's path give
-    (the level-3 backward: ``BACKWARD_KERNELS`` a call)."""
+    (the level-3 backward: ``BACKWARD_KERNELS`` a call; K3's backward one),
+    by the wrappers that launch kernels."""
     return {k: v * (BACKWARD_KERNELS if k == "motif_level3_backward" else 1)
-            for k, v in launches.items()}
+            for k, v in launches.items() if k in TRACE_KERNEL_NAMES}
 
 
 def component_labels(adj):
@@ -2154,7 +2391,7 @@ def run_cli_profile(untraced_epoch_s: float):
     (timeout 600 s): the trace ``<workdir>/profile/trace_rank0.json`` holds
     one ``train_epoch`` range over epoch 1's 20 steps and their kernel
     events alone: 40 ``motif_level3``, 40 of its backward (one kernel a
-    call), 40 ``adj_matmul``, no ``motif_combine``.  The traced
+    call), 40 ``adj_matmul``, 40 of K3's backward, no ``motif_combine``.  The traced
     epoch's wall time (the profiler's start and stop included) and its
     ``train_epoch`` range, each against
     ``untraced_epoch_s``, an untraced f32 epoch's seconds from the train
@@ -2192,8 +2429,8 @@ def run_cli_profile(untraced_epoch_s: float):
         check(len(epoch_ranges) == 1 and len(steps) == 20,
               f"cli_profile: {len(epoch_ranges)} train_epoch ranges, {len(steps)} "
               "train_step.forward ranges, expected 1 and 20")
-        check(trace_counts == events_of(per(20, 2, 2, 2)),
-              f"cli_profile trace kernels {trace_counts}, expected 40 / 80 / 0 / 40")
+        check(trace_counts == events_of(per(20, 2, 2, 2, 2)),
+              f"cli_profile trace kernels {trace_counts}, expected 40 / 40 / 0 / 40 / 40")
         range_s = epoch_ranges[0]["dur"] / 1e6
         out.update(
             epoch_seconds=secs, traced_epoch_range_seconds=range_s,
@@ -2289,8 +2526,8 @@ def run_trace_twice(ml, mc, am):
             zero_counts(ml, mc, am)
             tr.run(2, verbose=False, profile_dir=f"{workdir}/trainer_{k}/profile")
             launches = read_counts(ml, mc, am)
-            check(launches == per(2 * nb, 2, 2, 2), f"trace_twice launches {launches}")
-            want = events_of(per(nb, 2, 2, 2))
+            check(launches == per(2 * nb, 2, 2, 2, 2), f"trace_twice launches {launches}")
+            want = events_of(per(nb, 2, 2, 2, 2))
             rec = trace_records(f"{workdir}/trainer_{k}/profile/trace_rank0.json")
             out["trainer"].append(dict(rec, expected_events=want,
                                        equal=rec["kernel_events"] == want))
@@ -2368,6 +2605,30 @@ def large_graph_case(am, lg, mesh, adj, x):
                                                 reps=LARGE_GRAPH_REPS)
             row[f"{name}_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
             row[f"{name}_apply_busy"] = busy_ms(lambda enc=enc: enc(adj, x))
+    # the backward: the kernels' gradients of the pooled vector through K3's
+    # backward (one launch per layer) against the library path's autograd,
+    # f32 within 1e-4 and bf16 within 2e-2 of the largest magnitude (the
+    # sums over N rows run in another order)
+    gp = torch.randn(pooled["kernel"].shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(2)).to(dtype)
+    grads, row["backward_launches"] = {}, {}
+    for name, enc in encs.items():
+        am.fused_adj_matmul_backward.launches = 0
+        grads[name] = torch.autograd.grad(enc(adj, x), list(enc.kernels), gp)
+        torch.cuda.synchronize()
+        row["backward_launches"][name] = am.fused_adj_matmul_backward.launches
+    check(row["backward_launches"] == {"kernel": 2, "library": 0},
+          f"large_graph N={n} {dtype}: backward launches {row['backward_launches']}, expected "
+          "2 of K3's backward with the kernel and none without")
+    errs = []
+    for got, want in zip(grads["kernel"], grads["library"]):
+        err, top = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+        check(err <= (1e-4 if dtype == torch.float32 else 2e-2) * top,
+              f"large_graph N={n} {dtype}: kernel gradient {err} from the library's (max {top})")
+        errs.append(err)
+    row["backward_kernel_vs_library_err"] = errs
+    row["backward_ms"] = {name: device_ms(lambda enc=enc: torch.autograd.grad(
+        enc(adj, x), list(enc.kernels), gp), reps=LARGE_GRAPH_REPS) for name, enc in encs.items()}
     return row, h, pooled, [w.detach() for w in encs["kernel"].kernels]
 
 
@@ -2377,7 +2638,8 @@ def run_large_graph(am, mesh):
     (symmetric, density 0.01, F = H = 128) at N = 2048 and 8192, normalized
     by ``sharded_gcn_normalize``, through a ShardedGCNEncoder of hidden
     (128, 128) with ``use_kernel`` True and False, f32 and bf16.  Counts 2
-    K3 launches per apply with the kernel and none without.  Each f32 layer
+    K3 launches per apply with the kernel and none without, and 2 of K3's
+    backward per gradient of the kernels (held to the library path's).  Each f32 layer
     of either path within the summation bound of N + F terms of a float64
     run on the same input; bf16 within 2e-2 of the library path's largest
     magnitude, layer by layer and pooled; at N = 2048 the card's
@@ -2392,7 +2654,7 @@ def run_large_graph(am, mesh):
 
     W = LARGE_GRAPH_WIDTH
     out = {"density": LARGE_GRAPH_DENSITY, "hidden": [W, W], "features": W,
-           "launches": 0}
+           "launches": 0, "backward_launches": 0}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n in LARGE_GRAPH_NODES:
         a = (torch.rand(n, n, generator=gen, device="cuda") < LARGE_GRAPH_DENSITY).float().triu(1)
@@ -2406,7 +2668,9 @@ def run_large_graph(am, mesh):
         del a
         for dtype in (torch.float32, torch.bfloat16):
             row, h, pooled, ws = large_graph_case(am, lg, mesh, adj32.to(dtype), x32.to(dtype))
-            out["launches"] += row["launches"]["kernel"] if dtype == torch.float32 else 0
+            if dtype == torch.float32:
+                out["launches"] += row["launches"]["kernel"]
+                out["backward_launches"] += row["backward_launches"]["kernel"]
             if a_cpu is not None and dtype == torch.float32:
                 adj_cpu = gcn_normalize(a_cpu)
                 torch.testing.assert_close(adj32.cpu(), adj_cpu, rtol=1e-5, atol=1e-7)
@@ -2462,9 +2726,10 @@ def run_dp(ml, mc, am, mesh):
             trainers[name].run(TRAIN_EPOCHS, verbose=False)
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == per(steps, ml3=2, k3=2, bwd=2),
+            check(launches == per(steps, ml3=2, k3=2, bwd=2, k3b=2),
                   f"dp {name}: launches {launches} over {steps} steps, expected 2 of "
-                  "motif_level3, its backward and adj_matmul per step and no motif_combine")
+                  "motif_level3, adj_matmul and their backwards per step, no motif_combine "
+                  "and no adj_matmul_plain")
             with open(trainers[name].logger.jsonl_path) as f:
                 means[name] = [json.loads(line)["loss"] for line in f]
             out[name] = {"launches": launches, "epoch_mean_loss": means[name],
@@ -2650,7 +2915,7 @@ def run_tp(ml, mc, am, mesh):
                 hints._INSPECT = None
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
-            check(launches == per(steps, ml3=2, k3=2, bwd=2),
+            check(launches == per(steps, ml3=2, k3=2, bwd=2, k3b=2),
                   f"tp {name}: launches {launches} over {steps} steps")
             with open(tr.logger.jsonl_path) as f:
                 means[name] = [json.loads(line)["loss"] for line in f]
@@ -2763,6 +3028,7 @@ def main() -> int:
     from snd_vae_tpu_torch.nn.kernels import motif_combine as mc
     from snd_vae_tpu_torch.nn.kernels import motif_level3 as ml
 
+    count_plain_calls(am)
     # f32 products and convolutions in full f32, for the comparisons (the
     # serve phase also holds the serving entry points to clearing TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2903,7 +3169,8 @@ def main() -> int:
                "remat_joint_train": remat["synthetic2_joint"]["remat"]["launches"],
                "remat_protein_train": remat["protein"]["remat"]["launches"],
                "large_graph": {"motif_level3": 0, "motif_level3_backward": 0,
-                               "motif_combine": 0, "adj_matmul": large_graph["launches"]},
+                               "motif_combine": 0, "adj_matmul": large_graph["launches"],
+                               "adj_matmul_backward": large_graph["backward_launches"]},
                "dp_train": dp["mesh"]["launches"],
                "tp_train": tp["tp"]["launches"],
                "profile_train": {k: v // (BACKWARD_KERNELS if k == "motif_level3_backward"
@@ -2918,6 +3185,8 @@ def main() -> int:
               K2_REPLACES),
         entry("motif_combine", K1_SOURCE, "fused_motif_combine", K1_REPLACES),
         entry("adj_matmul", K3_SOURCE, "blocked_adj_matmul", K3_REPLACES),
+        entry("adj_matmul_backward", K3B_SOURCE, K3B_TPU_FN, K3_REPLACES)
+        | {"replaced_in_port": K3B_REPLACED},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -46,3 +46,19 @@ def stream_handle(dev: torch.device) -> int:
 def raise_on_error(kernel: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {code}")
+
+
+# the kernels' election counters, one buffer per (kernel, device, stream):
+# zero before a launch and left zero by it; a larger one replaces it when a
+# plan needs more
+_COUNTERS: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def election_counters(kernel: str, dev: torch.device, stream: int, size: int) -> torch.Tensor:
+    """At least ``size`` int32 counters, all zero, for launches of
+    ``kernel`` on ``stream`` (launches on one stream run one after
+    another, and each leaves its counters zero)."""
+    key = (kernel, dev.index, stream)
+    if key not in _COUNTERS or _COUNTERS[key].numel() < size:
+        _COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=dev)
+    return _COUNTERS[key]

@@ -7,12 +7,27 @@ counts the launch in ``blocked_adj_matmul.launches``; on CPU tensors, and
 only there, it returns ``adj_matmul_plain``.  ``adj_matmul_plan`` picks the
 kernel's variant and sizes from the shapes alone (pure Python, so the CPU
 tests hold it); the wrapper passes the plan to the launch, which checks it
-against the kernel's sizes and launches it as it stands.  ``adj_matmul`` is a
-``torch.autograd.Function`` whose forward is that wrapper and whose backward
-is autograd through the plain version (the kernel writes a fresh buffer, so
-without it nothing upstream would get a gradient; the TPU kernel has no
-backward kernel either).  ``GraphConv`` computes its ``lrelu(A @ (X W))``
-through ``adj_matmul`` with ``w``: one launch.
+against the kernel's sizes and launches it as it stands.
+
+``adj_matmul`` is a ``torch.autograd.Function`` whose forward is that
+wrapper and whose backward is ``fused_adj_matmul_backward``: with g =
+∂L/∂out, s = 1 where out > 0, leak where out < 0 or is -0.0, and (1 + leak)/2
+where out is +0.0 (``torch.maximum``'s backward splits a tie),
+
+  gy = g·s,  gxw = round(Aᵀ gy),  gx = round(gxw Wᵀ) (gxw without W),
+  gW = round(Σ_b x_bᵀ gxw_b),  gA = round(gy xwᵀ),
+
+each product summed in at least f32 and rounded to its input's dtype, the
+roundings of autograd through ``adj_matmul_plain``.  The forward saves its
+output, from which s is read, so nothing of it is recomputed.  On CUDA
+tensors the wrapper launches ``csrc/adj_matmul_backward.cu`` as
+``adj_matmul_backward_plan`` lays it out (one kernel, a second where ∂A is
+asked) and counts the call in ``fused_adj_matmul_backward.launches``; on
+CPU tensors, and only there, it returns ``adj_matmul_backward_plain``, the
+closed form above as PyTorch ops.  The TPU kernel has no backward (JAX
+differentiates its GraphConv's einsums); the tests hold both against
+``jax.vjp``.  ``GraphConv`` computes its ``lrelu(A @ (X W))`` through
+``adj_matmul`` with ``w``: one launch forward, one backward.
 """
 
 from __future__ import annotations
@@ -26,7 +41,8 @@ import torch
 
 from ..basic import acc_dtype
 from . import build
-from ._launch import CUDA_DTYPES, check_inputs, raise_on_error, stream_handle
+from ._launch import (CUDA_DTYPES, check_inputs, election_counters, raise_on_error,
+                      stream_handle)
 
 # The kernel's sizes, mirrored from csrc/adj_matmul.cu, whose launch
 # refuses a plan that does not match them.
@@ -281,29 +297,247 @@ def cluster_capacity(device: torch.device) -> dict:
 blocked_adj_matmul.launches = 0
 
 
+# The backward kernel's sizes, mirrored from csrc/adj_matmul_backward.cu,
+# whose launch refuses a plan that does not match them.
+BWD_THREADS = 256
+BWD_TILE = (64, 64, 32)      # tiled: gxw tile rows k, columns h, and the i step
+BWD_RED = BWD_TILE[1] + 4    # row stride of the rounded gxw tile
+DA_TILE = (64, 64, 32)       # ∂A: tile rows i, columns k, and the h step
+DA_STRIDE = 64 + 4           # row stride of ∂A's transposed operands
+
+
+class BackwardPlan(ctypes.Structure):
+    """A plan as ``adj_matmul_backward_launch`` takes it (``struct
+    BackwardPlan`` in csrc/adj_matmul_backward.cu)."""
+
+    _fields_ = [("variant", ctypes.c_int), ("fuse_w", ctypes.c_int),
+                ("threads", ctypes.c_int), ("smem", ctypes.c_int),
+                ("grid", ctypes.c_int * 3), ("k_tiles", ctypes.c_int),
+                ("h_tiles", ctypes.c_int), ("parts", ctypes.c_int),
+                ("da_grid", ctypes.c_int * 3), ("da_smem", ctypes.c_int)]
+
+
+_BACKWARD_SIGNATURES = {
+    "adj_matmul_backward_launch": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # a, x, w, out
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # g, gx, gw, ga
+        ctypes.c_void_p, ctypes.c_void_p,                                      # part, counter
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch n m h f
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # leak has_leak flags dtype
+        ctypes.POINTER(BackwardPlan), ctypes.c_void_p,                         # plan, stream
+    ),
+}
+
+
+@dataclass(frozen=True)
+class AdjMatmulBackwardPlan:
+    """One call of csrc/adj_matmul_backward.cu for [batch,n,m] @ [batch,m,h]
+    (with ``f``: x [batch,m,f] and W [f,h]) and the gradients ``needs``
+    asks for.  ``variant``: "small" (one block per graph, W always fused)
+    or "tiled" (64 x 64 tiles of gxw over ``k_tiles`` x ``h_tiles``; W fused
+    up to ``MAX_FUSED_F``, a block then walking all ``h_tiles`` column
+    tiles).  ``grid`` / ``smem``: the main kernel's (gx, gxw or gW; zeros
+    where only ∂A is asked); ``da_grid`` / ``da_smem``: the ∂A kernel's
+    (zeros where ∂A is not asked).  ``parts``: rows of the f32 workspace of
+    partial gW, [parts, f·h], summed in the launch, which then takes one
+    election counter (0 where gW is not fused or not asked).  ``kernels``:
+    1, or 2 where ∂A is asked beside gx or gW."""
+
+    variant: str
+    fuse_w: bool
+    threads: int
+    smem: int
+    grid: Tuple[int, int, int]
+    k_tiles: int
+    h_tiles: int
+    parts: int
+    da_grid: Tuple[int, int, int]
+    da_smem: int
+
+    @property
+    def kernels(self) -> int:
+        return int(self.grid != (0, 0, 0)) + int(self.da_grid != (0, 0, 0))
+
+    def as_c(self) -> BackwardPlan:
+        return BackwardPlan(0 if self.variant == "small" else 1, self.fuse_w, self.threads,
+                            self.smem, self.grid, self.k_tiles, self.h_tiles, self.parts,
+                            self.da_grid, self.da_smem)
+
+
+def _small_floats(n: int, m: int, h: int, f: int) -> int:
+    return n * (m | 1) + n * h + m * h + m * f + f * h
+
+
+def adj_matmul_backward_plan(batch: int, n: int, m: int, h: int, f: Optional[int] = None,
+                             dtype: torch.dtype = torch.float32,
+                             needs=(False, True, True)) -> AdjMatmulBackwardPlan:
+    """The launch plan of ``fused_adj_matmul_backward`` (pure Python) for
+    the shapes of ``adj_matmul_plan`` and the gradients ``needs`` (∂A, ∂x,
+    ∂W) asks for.
+
+    A graph whose A, gy, gxw, x and W fit one block's 48 KB (n, m <= 64)
+    takes the small variant: the model's path.  Larger ones take tiles."""
+    if dtype not in CUDA_DTYPES:
+        raise TypeError(f"adj_matmul_backward: no kernel for {dtype}")
+    need_a, need_x, need_w = needs[0], needs[1], needs[2] and f is not None
+    small = (n <= SMALL_MAX_NM and m <= SMALL_MAX_NM
+             and 4 * _small_floats(n, m, h, f or 0) <= SMALL_MAX_SMEM)
+    fuse = f is not None and (small or f <= MAX_FUSED_F)
+    fk = f if fuse else 0
+    if (need_a or not small) and batch > GRID_YZ_MAX:
+        raise ValueError(f"adj_matmul_backward: batch {batch} exceeds the grid")
+    k_tiles, h_tiles = _cdiv(m, BWD_TILE[0]), _cdiv(h, BWD_TILE[1])
+    if small:
+        grid, smem, k_tiles, h_tiles = (batch, 1, 1), 4 * _small_floats(n, m, h, fk), 0, 0
+        parts = batch if need_w else 0
+    else:
+        stage = max(2 * BWD_TILE[2] * BWD_TILE[0], BWD_TILE[0] * BWD_RED)
+        grid = (k_tiles * (1 if fuse else h_tiles), batch, 1)
+        smem = 4 * (stage + 2 * BWD_TILE[0] * fk)
+        parts = batch * k_tiles if need_w and fuse else 0
+    main = need_x or need_w
+    return AdjMatmulBackwardPlan(
+        variant="small" if small else "tiled", fuse_w=fuse, threads=BWD_THREADS,
+        smem=smem if main else 0, grid=grid if main else (0, 0, 0), k_tiles=k_tiles,
+        h_tiles=h_tiles, parts=parts,
+        da_grid=(_cdiv(n, DA_TILE[0]) * _cdiv(m, DA_TILE[1]), batch, 1) if need_a else (0, 0, 0),
+        da_smem=4 * (2 * DA_TILE[2] * DA_STRIDE + (DA_TILE[1] + DA_TILE[2]) * fk) if need_a
+        else 0)
+
+
+def lrelu_grad(grad: torch.Tensor, out: torch.Tensor, leak: float) -> torch.Tensor:
+    """∂L/∂y of max(y, leak·y) from the output ``out`` (whose sign is y's,
+    leak > 0), rounded as ``torch.maximum``'s backward rounds it: g where
+    out > 0, g·leak where out < 0 or is -0.0, g/2 + (g/2)·leak where out is
+    +0.0 (the tie, y == 0)."""
+    half = grad / 2
+    return torch.where(out > 0, grad,
+                       torch.where(torch.signbit(out), grad * leak, half + half * leak))
+
+
+def adj_matmul_backward_plain(grad: torch.Tensor, adj: torch.Tensor, x: torch.Tensor,
+                              out: Optional[torch.Tensor], leak: Optional[float] = None,
+                              w: Optional[torch.Tensor] = None,
+                              needs=(True, True, True)) -> tuple:
+    """Plain PyTorch version of K3's backward: (∂A, ∂x, ∂W) of
+    ``adj_matmul_plain(adj, x, leak, w)`` for ``grad`` = ∂L/∂out, in the
+    closed form of the module docstring (not autograd through the
+    forward); ``out`` is the forward's output (read only with ``leak``).
+    None where ``needs`` is False or there is no W."""
+    need_a, need_x, need_w = needs
+    acc = acc_dtype(x.dtype)
+    gy = (grad if leak is None else lrelu_grad(grad, out, leak)).to(acc)
+    ga = gx = gw = None
+    if need_a:
+        xw = x if w is None else project(x, w)
+        ga = torch.matmul(gy, xw.to(acc).transpose(-1, -2)).to(adj.dtype)
+    if need_x or (need_w and w is not None):
+        gxw = torch.matmul(adj.to(acc).transpose(-1, -2), gy).to(x.dtype)
+        if w is None:
+            gx = gxw if need_x else None
+        else:
+            gx, gw = _w_products(gxw, x, w, need_x, need_w)
+    return ga, gx, gw
+
+
+def _w_products(gxw: torch.Tensor, x: torch.Tensor, w: torch.Tensor, need_x: bool,
+                need_w: bool) -> tuple:
+    """gx = round(gxw Wᵀ) and gW = round(Σ_b x_bᵀ gxw_b), summed in at
+    least f32: plain products, as the JAX package leaves x @ W to XLA."""
+    acc = acc_dtype(x.dtype)
+    g = gxw.to(acc)
+    gx = torch.matmul(g, w.to(acc).transpose(0, 1)).to(x.dtype) if need_x else None
+    gw = (torch.matmul(x.to(acc).reshape(-1, x.shape[-1]).transpose(0, 1),
+                       g.reshape(-1, g.shape[-1])).to(w.dtype) if need_w else None)
+    return gx, gw
+
+
+def fused_adj_matmul_backward(grad: torch.Tensor, adj: torch.Tensor, x: torch.Tensor,
+                              out: Optional[torch.Tensor], leak: Optional[float] = None,
+                              w: Optional[torch.Tensor] = None,
+                              needs=(False, True, True)) -> tuple:
+    """K3's backward: (∂A, ∂x, ∂W) of ``blocked_adj_matmul(adj, x, leak,
+    w)`` for ``grad`` = ∂L/∂out [.., N, H], given the forward's output
+    ``out`` (needed only with ``leak``), each in its input's dtype, None
+    where ``needs`` (∂A, ∂x, ∂W) is False or there is no W.  On CUDA
+    tensors: ``csrc/adj_matmul_backward.cu`` as ``adj_matmul_backward_plan``
+    lays it out (one kernel, two where ∂A is asked; one count), where W is
+    not fused gx and gW as plain products of the kernel's gxw; on CPU
+    tensors ``adj_matmul_backward_plain``."""
+    dev = _check(adj, x, w)
+    tensors = {"grad": grad, "adj": adj} | ({} if leak is None else {"out": out})
+    check_inputs("adj_matmul_backward", **tensors)
+    h = x.shape[-1] if w is None else w.shape[1]
+    want = adj.shape[:-1] + (h,)
+    for name, t in tensors.items():
+        if name != "adj" and t.shape != want:
+            raise ValueError(f"adj_matmul_backward: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(want)}")
+    if dev.type == "cpu":
+        return adj_matmul_backward_plain(grad, adj, x, out, leak, w, needs)
+
+    need_a, need_x, need_w = needs[0], needs[1], needs[2] and w is not None
+    n, m = adj.shape[-2:]
+    batch = adj.shape[0] if adj.dim() == 3 else 1
+    f = None if w is None else w.shape[0]
+    zeros = lambda t, need: torch.zeros_like(t) if need else None
+    if not (need_a or need_x or need_w) or batch * n * m * h == 0:
+        return zeros(adj, need_a), zeros(x, need_x), zeros(w, need_w) if w is not None else None
+    plan = adj_matmul_backward_plan(batch, n, m, h, f, x.dtype, (need_a, need_x, need_w))
+    ga = torch.empty_like(adj) if need_a else None
+    if plan.fuse_w:
+        gx = torch.empty_like(x) if need_x else None
+        gw = torch.empty_like(w) if need_w else None
+        xk, wk, flags = x, w, 2 * need_x + 4 * need_w
+    else:   # the kernel's gxw; a wide F's products with W are plain products
+        gxw = (torch.empty(x.shape[:-1] + (h,), dtype=x.dtype, device=dev)
+               if need_x or need_w else None)
+        gx, gw = gxw, None
+        xk = x if w is None else (project(x, w) if need_a else None)
+        wk, flags = None, 2 * (gxw is not None)
+    flags += int(need_a)
+    part = (torch.empty(plan.parts, f * h, dtype=torch.float32, device=dev)
+            if plan.parts else None)
+    stream = stream_handle(dev)
+    counter = election_counters("adj_matmul_backward", dev, stream, 1) if plan.parts else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = build.load("adj_matmul_backward", _BACKWARD_SIGNATURES).adj_matmul_backward_launch
+    with torch.cuda.device(dev):
+        code = fn(adj.data_ptr(), ptr(xk), ptr(wk), ptr(out), grad.data_ptr(), ptr(gx),
+                  ptr(gw), ptr(ga), ptr(part), ptr(counter), batch, n, m, h, f or 0,
+                  0.0 if leak is None else float(leak), int(leak is not None), flags,
+                  CUDA_DTYPES[x.dtype], ctypes.pointer(plan.as_c()), stream)
+    raise_on_error("adj_matmul_backward", code)
+    fused_adj_matmul_backward.launches += 1
+    if w is not None and not plan.fuse_w:
+        gx, gw = _w_products(gxw, x, w, need_x, need_w)
+    return ga, gx, gw
+
+
+fused_adj_matmul_backward.launches = 0
+
+
 class _AdjMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, adj, x, w, leak):
-        ctx.save_for_backward(adj, x, w)
+        out = blocked_adj_matmul(adj, x, leak, w)
+        ctx.save_for_backward(adj, x, w, None if leak is None else out)
         ctx.leak = leak
-        return blocked_adj_matmul(adj, x, leak, w)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
-        if not wanted:
+        needs = ctx.needs_input_grad[:3]
+        if not any(needs):
             return None, None, None, None
-        with torch.enable_grad():
-            out = adj_matmul_plain(inputs[0], inputs[1], ctx.leak, inputs[2])
-        got = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(got) if t is not None and t.requires_grad else None
-                     for t in inputs) + (None,)
+        adj, x, w, out = ctx.saved_tensors
+        return fused_adj_matmul_backward(grad.contiguous(), adj, x, out, ctx.leak, w,
+                                         needs) + (None,)
 
 
 def adj_matmul(adj: torch.Tensor, x: torch.Tensor, leak: Optional[float] = None,
                w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The differentiable A @ X, or A @ (X W) (+ lrelu): forward K3,
-    backward autograd through the plain version."""
+    """The differentiable A @ X, or A @ (X W) (+ lrelu): forward K3
+    (``blocked_adj_matmul``), backward ``fused_adj_matmul_backward`` for the
+    inputs that need a gradient."""
     return _AdjMatmul.apply(adj, x, w, leak)

@@ -53,7 +53,8 @@ import torch
 
 from . import build
 from ..ckpt import big
-from ._launch import CUDA_DTYPES, check_inputs, raise_on_error, stream_handle
+from ._launch import (CUDA_DTYPES, check_inputs, election_counters, raise_on_error,
+                      stream_handle)
 
 _SIGNATURES = {
     "motif_level3_launch": (
@@ -277,19 +278,6 @@ def motif_level3_backward_plan(batch: int, n: int, rows: int, r: int, h: int,
         scratch={k: shape for k, (cond, shape) in shapes.items() if cond})
 
 
-# the backward's election counters, one buffer per (device, stream): zero
-# before a launch and left zero by it; a larger one replaces it when a plan
-# needs more
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(dev: torch.device, stream: int, size: int) -> torch.Tensor:
-    key = (dev.index, stream)
-    if key not in _COUNTERS or _COUNTERS[key].numel() < size:
-        _COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=dev)
-    return _COUNTERS[key]
-
-
 def fused_motif_level3_backward(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
                                 row0: int = 0, needs=(True,) * 8,
                                 block_rows: Optional[int] = None) -> tuple:
@@ -322,7 +310,8 @@ def fused_motif_level3_backward(grad, adj, phi_r, a_i, v_j, deg, m1d, m1f, bias,
     scratch = {k: torch.empty(*shape, dtype=torch.float32, device=dev)
                for k, shape in plan.scratch.items()}
     stream = stream_handle(dev)
-    counter = _counters(dev, stream, plan.counters) if plan.counters else None
+    counter = (election_counters("motif_level3_backward", dev, stream, plan.counters)
+               if plan.counters else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     flags = sum(1 << i for i, k in enumerate(NAMES) if need[k])
     fn = build.load("motif_level3_backward", _BACKWARD_SIGNATURES).motif_level3_backward_launch

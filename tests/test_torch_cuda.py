@@ -17,8 +17,8 @@ import torch
 import torch.distributed as dist
 
 from snd_vae_tpu_torch.nn.kernels import adj_matmul as am
-from snd_vae_tpu_torch.nn.kernels.adj_matmul import adj_matmul, adj_matmul_plain, \
-    blocked_adj_matmul
+from snd_vae_tpu_torch.nn.kernels.adj_matmul import adj_matmul, adj_matmul_backward_plain, \
+    adj_matmul_plain, blocked_adj_matmul, fused_adj_matmul_backward
 from snd_vae_tpu_torch.nn.kernels.motif_combine import fused_motif_combine, \
     motif_combine_plain
 from snd_vae_tpu_torch.nn.kernels.motif_level3 import fused_motif_level3, \
@@ -77,13 +77,16 @@ def test_cuda_kernels_match_plain_versions():
     x = torch.from_numpy(rng.standard_normal((3, 70, 33)).astype(np.float32)).cuda()
     torch.testing.assert_close(blocked_adj_matmul(adj, x, leak=0.2),
                                adj_matmul_plain(adj, x, leak=0.2), rtol=1e-5, atol=1e-5)
-    # the autograd wrapper launches the kernel and passes gradients back
-    n0 = blocked_adj_matmul.launches
+    # the autograd wrapper launches the kernel forward and the backward
+    # kernel backward, and passes gradients back
+    n0, b0 = blocked_adj_matmul.launches, fused_adj_matmul_backward.launches
     xg = x.clone().requires_grad_(True)
     (gx,) = torch.autograd.grad(adj_matmul(adj, xg, leak=0.2).sum(), [xg])
+    torch.cuda.synchronize()
+    assert blocked_adj_matmul.launches == n0 + 1
+    assert fused_adj_matmul_backward.launches == b0 + 1
     xp = x.clone().requires_grad_(True)
     (want,) = torch.autograd.grad(adj_matmul_plain(adj, xp, leak=0.2).sum(), [xp])
-    assert blocked_adj_matmul.launches == n0 + 1
     torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
 
 
@@ -302,6 +305,110 @@ def test_cuda_fused_matches_plain():
         adj, x, w = (torch.from_numpy(t).cuda() for t in (adj, x, w))
         torch.testing.assert_close(am.blocked_adj_matmul(adj, x, 0.2, w),
                                    am.adj_matmul_plain(adj, x, 0.2, w), rtol=1e-5, atol=1e-5)
+
+
+def _k3_backward_inputs(rng, a_shape, f, h, zero_rows=0):
+    """adj (density 0.3, its first ``zero_rows`` rows all zero: y = 0 there,
+    the tie), x [.., M, F or H], W [F, H] or None, and the upstream
+    gradient, as float64 tensors on the card."""
+    adj = (rng.random(a_shape) < 0.3).astype(np.float64)
+    adj[..., :zero_rows, :] = 0.0
+    x = rng.standard_normal(a_shape[:-2] + (a_shape[-1], h if f is None else f))
+    w = None if f is None else 0.5 * rng.standard_normal((f, h))
+    g = rng.standard_normal(a_shape[:-1] + (h,))
+    return [None if t is None else torch.from_numpy(t).cuda() for t in (adj, x, w, g)]
+
+
+# (A shape, F or None, H): the served GraphConvs of synthetic2 and protein,
+# a graph with zero rows, the fused tiled variant and an unfused ragged one
+K3_BACKWARD_CASES = [((10, 25, 25), 1, 10), ((10, 25, 25), 11, 20), ((50, 50, 50), 11, 20),
+                     ((2, 300, 300), 11, 20), ((3, 45, 70), None, 33), ((130, 70), 20, 9)]
+
+
+@pytest.mark.parametrize("a_shape,f,h", K3_BACKWARD_CASES)
+def test_cuda_adj_matmul_backward_matches_plain(a_shape, f, h):
+    """On a card: K3's backward (∂A, ∂x, ∂W) against its closed form,
+    ``adj_matmul_backward_plain``, on the same inputs: f32 against the
+    closed form in float64 within (M + F + 8)·2^-24 times the closed form
+    on |inputs| (the f32 sums over i, then over H for ∂x and over B·M for
+    ∂W, the ∂A sum over H; each within M + F + B·M terms, bounded below by
+    the looser count), bf16 within 2e-2 of the largest magnitude; one count
+    per call; two calls bit-equal."""
+    _card()
+    rng = np.random.default_rng(3)
+    adj, x, w, g = _k3_backward_inputs(rng, a_shape, f, h, zero_rows=2)
+    batch = a_shape[0] if len(a_shape) == 3 else 1
+    terms = {0: h + (f or 0), 1: a_shape[-2] + h, 2: a_shape[-2] + batch * a_shape[-1]}
+    for dt in (torch.float32, torch.bfloat16):
+        a_, x_, g_ = adj.to(dt), x.to(dt), g.to(dt)
+        w_ = None if w is None else w.to(dt)
+        out = blocked_adj_matmul(a_, x_, 0.2, w_)
+        b0 = fused_adj_matmul_backward.launches
+        got = fused_adj_matmul_backward(g_, a_, x_, out, 0.2, w_, (True, True, True))
+        torch.cuda.synchronize()
+        assert fused_adj_matmul_backward.launches == b0 + 1
+        again = fused_adj_matmul_backward(g_, a_, x_, out, 0.2, w_, (True, True, True))
+        assert all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+        if dt == torch.float32:
+            f64 = lambda t: None if t is None else t.double()
+            want = adj_matmul_backward_plain(g_.double(), a_.double(), x_.double(), out.double(),
+                                             0.2, f64(w_))
+            mag = adj_matmul_backward_plain(g_.double().abs(), a_.double(), x_.double().abs(),
+                                            out.double(), 0.2, None if w_ is None else
+                                            w_.double().abs())
+            for k, (a, b, c) in enumerate(zip(got, want, mag)):
+                if b is None:
+                    assert a is None
+                    continue
+                assert a.dtype == dt and a.shape == b.shape
+                lim = (terms[k] + 8) * 2.0 ** -24 * c.abs()
+                err = (a.double() - b).abs()
+                assert bool((err <= lim).all()), (k, err.max().item())
+        else:
+            want = adj_matmul_backward_plain(g_, a_, x_, out, 0.2, w_)
+            for a, b in zip(got, want):
+                if b is None:
+                    assert a is None
+                    continue
+                assert a.dtype == dt
+                err = (a.float() - b.float()).abs().max().item()
+                assert err <= 2e-2 * b.float().abs().max().item()
+
+
+def test_cuda_adj_matmul_backward_subsets_and_graph_conv():
+    """On a card: each subset of (∂A, ∂x, ∂W) gives the same gradients as
+    all three (bit for bit), only those asked; GraphConv's backward is one
+    launch of the backward kernel per layer and none of the plain version;
+    without W and with an identity act it is the plain transpose product."""
+    from snd_vae_tpu_torch import nn as tops
+
+    _card()
+    rng = np.random.default_rng(4)
+    adj, x, w, g = (t.float() for t in _k3_backward_inputs(rng, (10, 25, 25), 11, 20, 1))
+    out = blocked_adj_matmul(adj, x, 0.2, w)
+    full = fused_adj_matmul_backward(g, adj, x, out, 0.2, w, (True, True, True))
+    for needs in ((False, False, True), (False, True, True), (False, True, False),
+                  (True, False, False)):
+        got = fused_adj_matmul_backward(g, adj, x, out, 0.2, w, needs)
+        for need, a, b in zip(needs, got, full):
+            assert (a is None) if not need else torch.equal(a, b)
+    conv = tops.GraphConv(11, 20, torch.Generator().manual_seed(0)).cuda()
+    xg = x.clone().requires_grad_(True)
+    b0, p0 = fused_adj_matmul_backward.launches, blocked_adj_matmul.launches
+    gx, gw = torch.autograd.grad(conv(adj, xg), [xg, conv.kernel], g)
+    torch.cuda.synchronize()
+    assert (fused_adj_matmul_backward.launches, blocked_adj_matmul.launches) == (b0 + 1, p0 + 1)
+    out = blocked_adj_matmul(adj, x, 0.2, conv.kernel.detach())
+    _, wx, ww = adj_matmul_backward_plain(g, adj, x, out, 0.2, conv.kernel.detach())
+    # gW sums B·M = 250 products, in another order than the closed form's
+    # cuBLAS product: 1e-4
+    torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gw, ww, rtol=1e-4, atol=1e-5)
+    xo = torch.randn(3, 70, 33, device="cuda")
+    a3 = (torch.rand(3, 45, 70, device="cuda") < 0.3).float()
+    g3 = torch.randn(3, 45, 33, device="cuda")
+    _, gx3, _ = fused_adj_matmul_backward(g3, a3, xo, None, None, None, (False, True, False))
+    torch.testing.assert_close(gx3, a3.transpose(1, 2) @ g3, rtol=1e-5, atol=1e-5)
 
 
 def test_cuda_large_graph_kernel_path_matches_library(tmp_path):
