@@ -35,7 +35,10 @@ Phases, one output line each:
                W: {x}), against its closed-form plain version (f32 within
                each gradient's float64 summation bound, bf16 within 2e-2),
                two calls bit-equal, with the replaced autograd chain's ms
-               and kernels timed in turns with it;
+               and kernels timed in turns with it, the plan that ran
+               (small / simt / tc, the i-split, TMA flags) and the
+               library's ms (torch.matmul(A^T, gy) on a precomputed gy,
+               and the W products where W is fused);
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
                10 graphs x 10 trees and sample 100 graphs, counting the
                kernel launches (motif_level3 and adj_matmul twice per
@@ -972,6 +975,18 @@ def adj_backward_bound(a, x, w, leak, needs, dtype) -> tuple:
     return bound(isz * elems, ops, dtype)
 
 
+def library_adj_backward(a, x, w, gy, needs, fuse_w):
+    """The library's yardstick for K3's backward (used nowhere in the port):
+    gxw = A^T gy as one ``torch.matmul`` on a precomputed gy, and where the
+    kernel fuses W the asked-for products gxw W^T and x^T gxw."""
+    gxw = torch.matmul(a.mT, gy)
+    if w is None or not fuse_w:
+        return gxw
+    return (torch.matmul(gxw, w.T) if needs[1] else None,
+            torch.matmul(x.reshape(-1, x.shape[-1]).T, gxw.reshape(-1, gxw.shape[-1]))
+            if needs[2] else None)
+
+
 def check_adj_matmul_backward(am, gen):
     """K3's backward (``fused_adj_matmul_backward``) at every K3 case and a
     graph with zero rows (the tie), for the subsets K3B_NEEDS(_W) asks,
@@ -983,9 +998,14 @@ def check_adj_matmul_backward(am, gen):
     chain, kernel: events behind the spin, 50 calls a turn, each the mean
     of its two), their kernels and device-busy ms per call (profiler), the
     plain version's ms, the bound; GraphConv 1 ({W}) and 2 ({x, W}) of
-    synthetic2 in f32 are the train step's rows (one call each a step)."""
+    synthetic2 in f32 are the train step's rows (one call each a step).
+    Each row records the plan that ran (variant, the i-split, TMA flags) and
+    the library's ms: one ``torch.matmul(A^T, gy)`` on a precomputed gy,
+    plus the products with W asked for where the plan fuses W."""
     names = ("adj", "x", "w")
     rows = []
+    held = am.backward_cluster_capacity(torch.device("cuda"))
+    emit("k3_backward_clusters", {"held": held, "plan_table": am.H100_BWD_CLUSTERS})
     for a_shape, x_shape, hw, leak, dt, served, density, *path in K3_CASES + K3B_TIE_CASES:
         a, x = adj_inputs(a_shape, x_shape, dt, gen, density)
         tie = bool(path) and path[0] == "zero_rows"
@@ -1033,15 +1053,20 @@ def check_adj_matmul_backward(am, gen):
             on_step = served and dt == torch.float32 and needs == (
                 (False, False, True) if f == 1 else (False, True, True))
             shape = [list(a_shape), list(x_shape)] + ([] if w is None else [list(w.shape)])
-            plan = am.adj_matmul_backward_plan(b, n, m, hh, f, dt, needs)
+            aligned = all(t.data_ptr() % 16 == 0 for t in (a, g, out))
+            plan = am.adj_matmul_backward_plan(b, n, m, hh, f, dt, needs, aligned, held)
+            gy = (g if leak is None else am.lrelu_grad(g, out, leak)).contiguous()
+            library_ms = device_ms(lambda: library_adj_backward(a, x, w, gy, needs, plan.fuse_w))
             rows.append(dict(
                 kernel="adj_matmul_backward", shape=shape, dtype=str(dt)[6:],
                 needs=[nm for nm, nd in zip(names, needs) if nd], served=on_step,
                 batch_shape=on_step, leak=leak, density=density,
                 **({"path": path[0]} if path else {}),
                 zero_rows=K3B_ZERO_ROWS if tie else 0,
-                plan={"variant": plan.variant, "fuse_w": plan.fuse_w, "grid": plan.grid,
-                      "smem": plan.smem, "parts": plan.parts, "kernels": plan.kernels},
+                plan={"variant": plan.variant, "fuse_w": plan.fuse_w, "split": plan.split,
+                      "grid": plan.grid, "blocks": plan.blocks, "smem": plan.smem,
+                      "tma_a": plan.tma_a, "tma_g": plan.tma_g, "parts": plan.parts,
+                      "kernels": plan.kernels},
                 max_abs_err=max(e["vs_f64" if dt == torch.float32 else "vs_bf16_plain"]
                                 for e in errs.values()), errors=errs,
                 two_calls_bit_equal=True,
@@ -1049,7 +1074,7 @@ def check_adj_matmul_backward(am, gen):
                 turns_ms=turns, kernels_per_call=k_busy["kernels"],
                 busy_ms=k_busy["busy_ms"], replaced_kernels_per_call=c_busy["kernels"],
                 replaced_busy_ms=c_busy["busy_ms"],
-                plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 launches_per_step=1 if on_step else 0, launches_per_served_batch=0))
     return rows
 

@@ -299,11 +299,24 @@ blocked_adj_matmul.launches = 0
 
 # The backward kernel's sizes, mirrored from csrc/adj_matmul_backward.cu,
 # whose launch refuses a plan that does not match them.
-BWD_THREADS = 256
-BWD_TILE = (64, 64, 32)      # tiled: gxw tile rows k, columns h, and the i step
-BWD_RED = BWD_TILE[1] + 4    # row stride of the rounded gxw tile
+BWD_THREADS = 256                 # small and ∂A
+BWD_SIMT_TILE = (64, 64, 64)      # simt (f32): gxw tile rows k, columns h, and the i step
+BWD_TC_TILE = (128, 128, 64)      # tc (bf16)
+BWD_SIMT_THREADS, BWD_TC_THREADS = 256, 384   # four groups of 64; two consumer + one producer warpgroup
+BWD_STAGES = 4
+# the tiled variants' dynamic shared memory: 1024-byte alignment slack, a
+# ring of BWD_STAGES stages of A, g and out tiles and its mbarriers; simt
+# also a gy tile, tc two mbarriers a stage (full, empty)
+BWD_SIMT_SMEM = 1024 + (BWD_STAGES * 3 + 1) * 64 * 64 * 4 + BWD_STAGES * 8
+BWD_TC_SMEM = 1024 + BWD_STAGES * 3 * 64 * 128 * 2 + 2 * BWD_STAGES * 8
+BWD_VARIANTS = ("small", "simt", "tc")
 DA_TILE = (64, 64, 32)       # ∂A: tile rows i, columns k, and the h step
 DA_STRIDE = 64 + 4           # row stride of ∂A's transposed operands
+# The most clusters of 1, 2, 4 and 8 blocks of each tiled backward variant
+# an H100 SXM holds at once (cudaOccupancyMaxActiveClusters; one block per
+# SM for both), as H100_CLUSTERS; the wrapper plans with what its card
+# reports (``backward_cluster_capacity``).
+H100_BWD_CLUSTERS = {"simt": {1: 132, 2: 66, 4: 30, 8: 15}, "tc": {1: 132, 2: 66, 4: 30, 8: 15}}
 
 
 class BackwardPlan(ctypes.Structure):
@@ -312,8 +325,10 @@ class BackwardPlan(ctypes.Structure):
 
     _fields_ = [("variant", ctypes.c_int), ("fuse_w", ctypes.c_int),
                 ("threads", ctypes.c_int), ("smem", ctypes.c_int),
-                ("grid", ctypes.c_int * 3), ("k_tiles", ctypes.c_int),
-                ("h_tiles", ctypes.c_int), ("parts", ctypes.c_int),
+                ("grid", ctypes.c_int * 3), ("split", ctypes.c_int),
+                ("tile", ctypes.c_int * 3), ("i_bound", ctypes.c_int * (MAX_SPLIT + 1)),
+                ("stages", ctypes.c_int), ("tma_a", ctypes.c_int), ("tma_g", ctypes.c_int),
+                ("k_tiles", ctypes.c_int), ("h_tiles", ctypes.c_int), ("parts", ctypes.c_int),
                 ("da_grid", ctypes.c_int * 3), ("da_smem", ctypes.c_int)]
 
 
@@ -326,6 +341,8 @@ _BACKWARD_SIGNATURES = {
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # leak has_leak flags dtype
         ctypes.POINTER(BackwardPlan), ctypes.c_void_p,                         # plan, stream
     ),
+    "adj_matmul_backward_max_clusters": (ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)),
 }
 
 
@@ -333,10 +350,15 @@ _BACKWARD_SIGNATURES = {
 class AdjMatmulBackwardPlan:
     """One call of csrc/adj_matmul_backward.cu for [batch,n,m] @ [batch,m,h]
     (with ``f``: x [batch,m,f] and W [f,h]) and the gradients ``needs``
-    asks for.  ``variant``: "small" (one block per graph, W always fused)
-    or "tiled" (64 x 64 tiles of gxw over ``k_tiles`` x ``h_tiles``; W fused
-    up to ``MAX_FUSED_F``, a block then walking all ``h_tiles`` column
-    tiles).  ``grid`` / ``smem``: the main kernel's (gx, gxw or gW; zeros
+    asks for.  ``variant``: "small" (one block per graph, W always fused),
+    "simt" (f32 gxw tiles on CUDA cores) or "tc" (bf16 gxw tiles on tensor
+    cores).  A tiled variant's ``tile`` is (rows k, columns h, i step) of one
+    block's gxw tile, over ``k_tiles`` x ``h_tiles`` tiles; the ``split``
+    blocks of a cluster share each tile's sum over i, rank r taking
+    ``i_slices[r]`` = [start, end); ``stages`` is the ring's depth;
+    ``tma_a`` / ``tma_g``: A / g and out loaded by TMA (else by 4-byte
+    copies).  W is fused up to ``MAX_FUSED_F`` rows where h is one column
+    tile.  ``grid`` / ``smem``: the main kernel's (gx, gxw or gW; zeros
     where only ∂A is asked); ``da_grid`` / ``da_smem``: the ∂A kernel's
     (zeros where ∂A is not asked).  ``parts``: rows of the f32 workspace of
     partial gW, [parts, f·h], summed in the launch, which then takes one
@@ -353,14 +375,27 @@ class AdjMatmulBackwardPlan:
     parts: int
     da_grid: Tuple[int, int, int]
     da_smem: int
+    split: int = 1
+    tile: Tuple[int, int, int] = (0, 0, 0)
+    i_slices: Tuple[Tuple[int, int], ...] = ()
+    stages: int = 0
+    tma_a: bool = False
+    tma_g: bool = False
 
     @property
     def kernels(self) -> int:
         return int(self.grid != (0, 0, 0)) + int(self.da_grid != (0, 0, 0))
 
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
     def as_c(self) -> BackwardPlan:
-        return BackwardPlan(0 if self.variant == "small" else 1, self.fuse_w, self.threads,
-                            self.smem, self.grid, self.k_tiles, self.h_tiles, self.parts,
+        bounds = [s for s, _ in self.i_slices] + [self.i_slices[-1][1]]
+        return BackwardPlan(BWD_VARIANTS.index(self.variant), self.fuse_w, self.threads,
+                            self.smem, self.grid, self.split, self.tile,
+                            (*bounds, *[0] * (MAX_SPLIT + 1 - len(bounds))), self.stages,
+                            self.tma_a, self.tma_g, self.k_tiles, self.h_tiles, self.parts,
                             self.da_grid, self.da_smem)
 
 
@@ -370,39 +405,59 @@ def _small_floats(n: int, m: int, h: int, f: int) -> int:
 
 def adj_matmul_backward_plan(batch: int, n: int, m: int, h: int, f: Optional[int] = None,
                              dtype: torch.dtype = torch.float32,
-                             needs=(False, True, True)) -> AdjMatmulBackwardPlan:
+                             needs=(False, True, True), aligned: bool = True,
+                             clusters: Optional[dict] = None) -> AdjMatmulBackwardPlan:
     """The launch plan of ``fused_adj_matmul_backward`` (pure Python) for
     the shapes of ``adj_matmul_plan`` and the gradients ``needs`` (∂A, ∂x,
-    ∂W) asks for.
+    ∂W) asks for.  ``aligned``: A, g and out start on 16-byte boundaries
+    (TMA needs it).  ``clusters``: how many clusters of each size the card
+    holds at once, per tiled variant (default: an H100 SXM's).
 
     A graph whose A, gy, gxw, x and W fit one block's 48 KB (n, m <= 64)
-    takes the small variant: the model's path.  Larger ones take tiles."""
+    takes the small variant: the model's path.  Larger ones take gxw tiles,
+    "simt" in f32 and "tc" in bf16; the sum over i is split over up to 8
+    blocks of a cluster while every tile's cluster still fits the card at
+    once."""
     if dtype not in CUDA_DTYPES:
         raise TypeError(f"adj_matmul_backward: no kernel for {dtype}")
     need_a, need_x, need_w = needs[0], needs[1], needs[2] and f is not None
+    main = need_x or need_w
+    if (need_a or main) and batch > GRID_YZ_MAX:
+        raise ValueError(f"adj_matmul_backward: batch {batch} exceeds the grid")
     small = (n <= SMALL_MAX_NM and m <= SMALL_MAX_NM
              and 4 * _small_floats(n, m, h, f or 0) <= SMALL_MAX_SMEM)
-    fuse = f is not None and (small or f <= MAX_FUSED_F)
+    bf16 = dtype == torch.bfloat16
+    tile = BWD_TC_TILE if bf16 else BWD_SIMT_TILE
+    fuse = f is not None and (small or (f <= MAX_FUSED_F and h <= tile[1]))
     fk = f if fuse else 0
-    if (need_a or not small) and batch > GRID_YZ_MAX:
-        raise ValueError(f"adj_matmul_backward: batch {batch} exceeds the grid")
-    k_tiles, h_tiles = _cdiv(m, BWD_TILE[0]), _cdiv(h, BWD_TILE[1])
+    da = dict(da_grid=(_cdiv(n, DA_TILE[0]) * _cdiv(m, DA_TILE[1]), batch, 1) if need_a
+              else (0, 0, 0),
+              da_smem=4 * (2 * DA_TILE[2] * DA_STRIDE + (DA_TILE[1] + DA_TILE[2]) * fk)
+              if need_a else 0)
     if small:
-        grid, smem, k_tiles, h_tiles = (batch, 1, 1), 4 * _small_floats(n, m, h, fk), 0, 0
-        parts = batch if need_w else 0
-    else:
-        stage = max(2 * BWD_TILE[2] * BWD_TILE[0], BWD_TILE[0] * BWD_RED)
-        grid = (k_tiles * (1 if fuse else h_tiles), batch, 1)
-        smem = 4 * (stage + 2 * BWD_TILE[0] * fk)
-        parts = batch * k_tiles if need_w and fuse else 0
-    main = need_x or need_w
+        return AdjMatmulBackwardPlan(
+            "small", fuse, BWD_THREADS, 4 * _small_floats(n, m, h, fk) if main else 0,
+            (batch, 1, 1) if main else (0, 0, 0), 0, 0, batch if need_w else 0,
+            i_slices=((0, n),), **da)
+
+    variant = "tc" if bf16 else "simt"
+    k_tiles, h_tiles = _cdiv(m, tile[0]), _cdiv(h, tile[1])
+    tiles = k_tiles * h_tiles
+    if main and tiles > GRID_YZ_MAX:
+        raise ValueError(f"adj_matmul_backward: {tiles} tiles exceed the grid")
+    held = (clusters or H100_BWD_CLUSTERS)[variant]
+    split = 1
+    while (split * 2 <= MAX_SPLIT and split * 2 <= _cdiv(n, tile[2])
+           and tiles * batch <= held[split * 2]):
+        split *= 2
+    per16 = 8 if bf16 else 4   # TMA: 16-byte rows
     return AdjMatmulBackwardPlan(
-        variant="small" if small else "tiled", fuse_w=fuse, threads=BWD_THREADS,
-        smem=smem if main else 0, grid=grid if main else (0, 0, 0), k_tiles=k_tiles,
-        h_tiles=h_tiles, parts=parts,
-        da_grid=(_cdiv(n, DA_TILE[0]) * _cdiv(m, DA_TILE[1]), batch, 1) if need_a else (0, 0, 0),
-        da_smem=4 * (2 * DA_TILE[2] * DA_STRIDE + (DA_TILE[1] + DA_TILE[2]) * fk) if need_a
-        else 0)
+        variant, fuse, BWD_TC_THREADS if bf16 else BWD_SIMT_THREADS,
+        (BWD_TC_SMEM if bf16 else BWD_SIMT_SMEM) if main else 0,
+        (split, tiles, batch) if main else (0, 0, 0), k_tiles, h_tiles,
+        split * tiles * batch if need_w and fuse else 0, split=split, tile=tile,
+        i_slices=split_k(n, tile[2], split), stages=BWD_STAGES,
+        tma_a=aligned and m % per16 == 0, tma_g=aligned and h % per16 == 0, **da)
 
 
 def lrelu_grad(grad: torch.Tensor, out: torch.Tensor, leak: float) -> torch.Tensor:
@@ -483,38 +538,78 @@ def fused_adj_matmul_backward(grad: torch.Tensor, adj: torch.Tensor, x: torch.Te
     zeros = lambda t, need: torch.zeros_like(t) if need else None
     if not (need_a or need_x or need_w) or batch * n * m * h == 0:
         return zeros(adj, need_a), zeros(x, need_x), zeros(w, need_w) if w is not None else None
-    plan = adj_matmul_backward_plan(batch, n, m, h, f, x.dtype, (need_a, need_x, need_w))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (adj, grad) + (() if leak is None else (out,)))
+    plan = adj_matmul_backward_plan(batch, n, m, h, f, x.dtype, (need_a, need_x, need_w),
+                                    aligned, backward_cluster_capacity(dev))
+    fn = build.load("adj_matmul_backward", _BACKWARD_SIGNATURES).adj_matmul_backward_launch
+    ga, gx, gw = backward_call(fn, grad, adj, x, out, leak, w, (need_a, need_x, need_w), plan)
+    fused_adj_matmul_backward.launches += 1
+    if w is not None and not plan.fuse_w:
+        gx, gw = _w_products(gx, x, w, need_x, need_w)
+    return ga, gx, gw
+
+
+def backward_call(fn, grad: torch.Tensor, adj: torch.Tensor, x: torch.Tensor,
+                  out: Optional[torch.Tensor], leak: Optional[float], w: Optional[torch.Tensor],
+                  needs, plan: AdjMatmulBackwardPlan) -> tuple:
+    """One call of ``adj_matmul_backward_launch`` (``fn``) for ``plan``, the
+    outputs and scratch allocated here: (∂A, ∂x, ∂W) where the plan fuses W,
+    else (∂A, gxw, None).  Raises on a launch error."""
+    need_a, need_x, need_w = needs
+    dev, h = adj.device, grad.shape[-1]
+    n, m = adj.shape[-2:]
+    batch = adj.shape[0] if adj.dim() == 3 else 1
+    f = None if w is None else w.shape[0]
     ga = torch.empty_like(adj) if need_a else None
     if plan.fuse_w:
         gx = torch.empty_like(x) if need_x else None
         gw = torch.empty_like(w) if need_w else None
         xk, wk, flags = x, w, 2 * need_x + 4 * need_w
     else:   # the kernel's gxw; a wide F's products with W are plain products
-        gxw = (torch.empty(x.shape[:-1] + (h,), dtype=x.dtype, device=dev)
-               if need_x or need_w else None)
-        gx, gw = gxw, None
+        gx = (torch.empty(x.shape[:-1] + (h,), dtype=x.dtype, device=dev)
+              if need_x or need_w else None)
+        gw = None
         xk = x if w is None else (project(x, w) if need_a else None)
-        wk, flags = None, 2 * (gxw is not None)
+        wk, flags = None, 2 * (gx is not None)
     flags += int(need_a)
     part = (torch.empty(plan.parts, f * h, dtype=torch.float32, device=dev)
             if plan.parts else None)
     stream = stream_handle(dev)
     counter = election_counters("adj_matmul_backward", dev, stream, 1) if plan.parts else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = build.load("adj_matmul_backward", _BACKWARD_SIGNATURES).adj_matmul_backward_launch
     with torch.cuda.device(dev):
         code = fn(adj.data_ptr(), ptr(xk), ptr(wk), ptr(out), grad.data_ptr(), ptr(gx),
                   ptr(gw), ptr(ga), ptr(part), ptr(counter), batch, n, m, h, f or 0,
                   0.0 if leak is None else float(leak), int(leak is not None), flags,
                   CUDA_DTYPES[x.dtype], ctypes.pointer(plan.as_c()), stream)
     raise_on_error("adj_matmul_backward", code)
-    fused_adj_matmul_backward.launches += 1
-    if w is not None and not plan.fuse_w:
-        gx, gw = _w_products(gxw, x, w, need_x, need_w)
     return ga, gx, gw
 
 
 fused_adj_matmul_backward.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_capacity(index: int) -> dict:
+    lib = build.load("adj_matmul_backward", _BACKWARD_SIGNATURES)
+    held = {}
+    with torch.cuda.device(index):
+        for dtype, variant in ((0, "simt"), (1, "tc")):
+            held[variant] = {}
+            for split in (1, 2, 4, 8):
+                count = ctypes.c_int(0)
+                raise_on_error("adj_matmul_backward", lib.adj_matmul_backward_max_clusters(
+                    dtype, split, ctypes.byref(count)))
+                held[variant][split] = count.value
+    return held
+
+
+def backward_cluster_capacity(device: torch.device) -> dict:
+    """How many clusters of 1, 2, 4 and 8 blocks of each tiled backward
+    variant the card holds at once, as ``H100_BWD_CLUSTERS``
+    (cudaOccupancyMaxActiveClusters, asked once per card)."""
+    return _backward_capacity(torch.cuda.current_device() if device.index is None
+                              else device.index)
 
 
 class _AdjMatmul(torch.autograd.Function):

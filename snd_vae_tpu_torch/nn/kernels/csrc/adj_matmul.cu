@@ -86,11 +86,12 @@
 #include <algorithm>
 #include <cooperative_groups.h>
 #include <cstdint>
-#include <cudaTypedefs.h>
 
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
+using hk::launch_cluster;
+using hk::tensor_map;
 
 namespace {
 
@@ -795,30 +796,6 @@ adj_matmul_tc_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // ------------------------------------------------------------------ host
 
-template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem, int split,
-                   cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-}
-
 // dynamic shared memory of the tiled kernels: simt's stages (and W's) and
 // receive buffer, at least kFMinSmem (one block per SM); tc's 1024-byte
 // alignment slack, stages (and W's) and mbarriers
@@ -834,36 +811,6 @@ size_t tc_smem(bool w, int f) {
   const int stages = w ? kTStagesW : kTStages;
   return 1024 + static_cast<size_t>(stages) * (kTABytes + kTBBytes) +
          (w ? kTBBytes + static_cast<size_t>(f) * kTn * 4 : 0) + 2 * stages * 8;
-}
-
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-// a [d2][d1][d0] tensor of bf16 (dtype 1) or f32 (dtype 0), boxes of box0
-// x box1 x 1, zero fill out of bounds
-bool tensor_map(CUtensorMap* map, const void* ptr, int dtype, uint64_t d0, uint64_t d1,
-                uint64_t d2, uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (!encode) return false;
-  const uint64_t esz = dtype ? 2 : 4;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * esz, d0 * d1 * esz};
-  const cuuint32_t box[3] = {box0, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, dtype ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the dynamic shared memory of the small variant: xw in f32, and A, X and
@@ -1000,32 +947,8 @@ extern "C" int adj_matmul_launch(const void* a, const void* x, const void* w, vo
 // (without W) the card holds at once, from cudaOccupancyMaxActiveClusters:
 // the figures adj_matmul_plan's MAX_CLUSTERS table holds.
 extern "C" int adj_matmul_max_clusters(int dtype, int split, int* clusters) {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cfg.gridDim = dim3(split);
-  cudaError_t e;
-  if (dtype == 0) {
-    cfg.blockDim = dim3(kFThreads);
-    cfg.dynamicSmemBytes = simt_smem(false, 0);
-    e = cudaFuncSetAttribute(adj_matmul_simt_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(cfg.dynamicSmemBytes));
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(clusters, adj_matmul_simt_kernel<false>, &cfg);
-  } else {
-    cfg.blockDim = dim3(kTThreads);
-    cfg.dynamicSmemBytes = tc_smem(false, 0);
-    e = cudaFuncSetAttribute(adj_matmul_tc_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(cfg.dynamicSmemBytes));
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(clusters, adj_matmul_tc_kernel<false>, &cfg);
-  }
-  return static_cast<int>(e);
+  return dtype == 0 ? hk::max_clusters(adj_matmul_simt_kernel<false>, kFThreads,
+                                       simt_smem(false, 0), split, clusters)
+                    : hk::max_clusters(adj_matmul_tc_kernel<false>, kTThreads, tc_smem(false, 0),
+                                       split, clusters);
 }

@@ -1,14 +1,16 @@
 // Hopper building blocks for the port's kernels, as inline PTX: 4- and
 // 16-byte cp.async with zero fill, mbarriers, the cluster barrier and
 // loads from another block's shared memory, 3-D TMA loads, wgmma
-// descriptors and the bf16 m64n128k16 wgmma.  Header only; each .cu that
-// includes it compiles it for sm_90a.
+// descriptors and the bf16 m64n128k16 wgmma (A K-major or MN-major); on the
+// host, 3-D tensor maps and a launch with a cluster dimension.  Header only;
+// each .cu that includes it compiles it for sm_90a.
 #pragma once
 
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 
 namespace hk {
 
@@ -147,8 +149,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64] += A(64x16, K-major) * B(16x128, MN-major), both bf16 with the
-// 128-byte swizzle, f32 accumulators in the wgmma register layout
+// d[64] += A(64x16) * B(16x128, MN-major), both bf16 with the 128-byte
+// swizzle, f32 accumulators in the wgmma register layout; A K-major
+// (kTransA = 0) or MN-major (kTransA = 1: the tile holds A's transpose, rows
+// of 64 along m, one row per k)
+template <int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a,
                                                       uint64_t desc_b) {
   asm volatile(
@@ -160,7 +165,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -173,7 +178,85 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA));
+}
+
+// ---- host: tensor maps and cluster launches ----
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// a [d2][d1][d0] tensor of bf16 (dtype 1) or f32 (dtype 0), boxes of box0
+// x box1 x 1, zero fill out of bounds
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int dtype, uint64_t d0, uint64_t d1,
+                       uint64_t d2, uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return false;
+  const uint64_t esz = dtype ? 2 : 4;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * esz, d0 * d1 * esz};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, dtype ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a launch whose blocks form clusters of `split` along x (dynamic shared
+// memory above 48 KB allowed first); returns a cudaError_t
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem, int split,
+                   cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// how many clusters of `split` blocks of `kernel` (threads, smem) the card
+// holds at once (cudaOccupancyMaxActiveClusters)
+template <typename Kernel>
+int max_clusters(Kernel kernel, int threads, size_t smem, int split, int* clusters) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(split);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  return static_cast<int>(e);
 }
 
 }  // namespace hk

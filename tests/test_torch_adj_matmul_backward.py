@@ -215,10 +215,13 @@ def test_bad_backward_inputs_rejected(case):
 SERVED = [("synthetic2", 10, 25, 25, 10, 1), ("synthetic2", 10, 25, 25, 20, 11),
           ("protein", 50, 50, 50, 10, 1), ("protein", 50, 50, 50, 20, 11),
           ("mnist", 2, 50, 50, 10, 1), ("mnist", 2, 50, 50, 20, 11)]
-# chip_smoke.py's K3_CASES off the model's path: (batch, n, m, h, f)
+# chip_smoke.py's K3_CASES off the model's path, (batch, n, m, h, f), and
+# shapes whose strides TMA cannot take in one dtype or both (h = 20 and 17,
+# m = 303: cp.async into the same layout)
 TILED = [(2, 1024, 1024, 20, 11), (1, 2048, 2048, 128, None), (1, 8192, 8192, 128, None),
          (3, 45, 70, 33, None), (1, 2047, 2047, 100, None), (1, 2048, 2048, 128, 128),
-         (1, 64, 65, 3, None), (4000, 30, 300, 5, 2)]
+         (1, 64, 65, 3, None), (4000, 30, 300, 5, 2), (2, 300, 300, 20, 11),
+         (1, 2048, 2048, 128, 11), (1, 301, 303, 17, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -241,21 +244,64 @@ def test_plan_small_serves_the_models(path, batch, n, m, h, f, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,n,m,h,f", TILED)
 def test_plan_tiled_is_legal(batch, n, m, h, f, dtype):
-    """Larger shapes take 64 x 64 tiles of gxw; W fused up to F = 16 (a
-    block then walks every column tile, and the partial gW is one per graph
-    and k-tile), else the grid runs over column tiles too and gW is a plain
-    product; every launch fits the grid and the 48 KB of static shared
-    memory."""
-    p = am.adj_matmul_backward_plan(batch, n, m, h, f, dtype, (True, True, True))
-    assert p.variant == "tiled" and p.threads == am.BWD_THREADS
-    k_tiles, h_tiles = -(-m // 64), -(-h // 64)
-    assert (p.k_tiles, p.h_tiles) == (k_tiles, h_tiles)
-    assert p.fuse_w == (f is not None and f <= am.MAX_FUSED_F)
-    assert p.grid == (k_tiles * (1 if p.fuse_w else h_tiles), batch, 1)
-    assert p.parts == (batch * k_tiles if p.fuse_w else 0)
-    assert p.da_grid == (-(-n // 64) * k_tiles, batch, 1) and p.kernels == 2
-    assert max(p.smem, p.da_smem) <= am.SMALL_MAX_SMEM
-    assert p.grid[1] <= am.GRID_YZ_MAX and p.grid[0] < 2 ** 31
+    """Larger shapes take gxw tiles: "simt" (64 x 64, f32) or "tc" (128 x
+    128, bf16), 64 i-rows a stage in a ring of 4; W fused up to F = 16 where
+    h is one column tile (the partial gW one per block), else gW is a plain
+    product.  The sum over i is split over a cluster of the most blocks
+    (a power of two <= 8, at most one per i-step) whose clusters the card
+    still holds at once; the i-slices cover [0, n) in rank order on i-step
+    boundaries, none empty; every launch fits the grid and the 227 KB of
+    shared memory; TMA is planned exactly where the rows are 16-byte
+    multiples and the data aligned."""
+    for aligned in (True, False):
+        p = am.adj_matmul_backward_plan(batch, n, m, h, f, dtype, (True, True, True), aligned)
+        bf16 = dtype == torch.bfloat16
+        assert p.variant == ("tc" if bf16 else "simt")
+        assert p.threads == (am.BWD_TC_THREADS if bf16 else am.BWD_SIMT_THREADS)
+        assert p.tile == (am.BWD_TC_TILE if bf16 else am.BWD_SIMT_TILE)
+        assert p.stages == am.BWD_STAGES == 4
+        rows, cols, step = p.tile
+        k_tiles, h_tiles = -(-m // rows), -(-h // cols)
+        assert (p.k_tiles, p.h_tiles) == (k_tiles, h_tiles)
+        assert p.fuse_w == (f is not None and f <= am.MAX_FUSED_F and h <= cols)
+        tiles = k_tiles * h_tiles
+        assert p.grid == (p.split, tiles, batch)
+        assert p.parts == (p.split * tiles * batch if p.fuse_w else 0)
+        assert p.da_grid == (-(-n // 64) * -(-m // 64), batch, 1) and p.kernels == 2
+        # the split: a power of two the card holds, the largest that fits
+        held = am.H100_BWD_CLUSTERS[p.variant]
+        steps = -(-n // step)
+        assert p.split in (1, 2, 4, 8) and p.split <= steps
+        assert p.split == 1 or tiles * batch <= held[p.split]
+        assert p.split == 8 or 2 * p.split > steps or tiles * batch > held[2 * p.split]
+        # the i-slices
+        assert len(p.i_slices) == p.split
+        assert p.i_slices[0][0] == 0 and p.i_slices[-1][1] == n
+        for (lo, hi), (nxt, _) in zip(p.i_slices, p.i_slices[1:] + ((n, n),)):
+            assert lo % step == 0 and lo < hi == nxt
+        # shared memory and the grid
+        assert p.smem == (am.BWD_TC_SMEM if bf16 else am.BWD_SIMT_SMEM) <= am.SMEM_PER_BLOCK
+        assert p.da_smem <= am.SMALL_MAX_SMEM
+        assert p.grid[1] <= am.GRID_YZ_MAX and p.grid[2] <= am.GRID_YZ_MAX
+        per16 = 8 if bf16 else 4
+        assert p.tma_a == (aligned and m % per16 == 0)
+        assert p.tma_g == (aligned and h % per16 == 0)
+
+
+@pytest.mark.parametrize("dtype,shape,split,blocks", [
+    (torch.float32, (1, 2048, 2048, 128, None), 2, 128),
+    (torch.bfloat16, (1, 2048, 2048, 128, None), 4, 64),
+    (torch.float32, (1, 8192, 8192, 128, None), 1, 256),
+    (torch.bfloat16, (1, 8192, 8192, 128, None), 2, 128),
+    (torch.float32, (2, 1024, 1024, 20, 11), 2, 64),
+    (torch.bfloat16, (2, 1024, 1024, 20, 11), 4, 64),
+    (torch.float32, (1, 2047, 2047, 100, None), 2, 128),
+    (torch.bfloat16, (3, 45, 70, 33, None), 1, 3)])
+def test_plan_splits_the_sum_over_rows(dtype, shape, split, blocks):
+    """The split at the shapes that run the tiled kernels: at N = 2048, h =
+    128 the 64 f32 tiles (16 bf16) become 128 (64) blocks, one wave."""
+    p = am.adj_matmul_backward_plan(*shape, dtype)
+    assert (p.split, p.grid[0] * p.grid[1] * p.grid[2]) == (split, blocks)
 
 
 @pytest.mark.parametrize("needs", NEEDS)
@@ -269,17 +315,25 @@ def test_plan_launches_only_what_is_asked(needs):
 
 def test_plan_as_launched():
     """The struct handed to the launch carries the plan unchanged."""
-    for args in ((10, 25, 25, 20, 11), (2, 1024, 1024, 20, 11), (1, 2047, 2047, 100, None)):
-        p = am.adj_matmul_backward_plan(*args, torch.float32, (True, True, True))
-        c = p.as_c()
-        assert c.variant == (0 if p.variant == "small" else 1) and c.fuse_w == p.fuse_w
-        assert (c.threads, c.smem, c.k_tiles, c.h_tiles, c.parts, c.da_smem) == (
-            p.threads, p.smem, p.k_tiles, p.h_tiles, p.parts, p.da_smem)
-        assert tuple(c.grid) == p.grid and tuple(c.da_grid) == p.da_grid
+    for args in ((10, 25, 25, 20, 11), (2, 1024, 1024, 20, 11), (1, 2047, 2047, 100, None),
+                 (1, 8192, 8192, 128, None)):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = am.adj_matmul_backward_plan(*args, dtype, (True, True, True))
+            c = p.as_c()
+            assert c.variant == am.BWD_VARIANTS.index(p.variant) and c.fuse_w == p.fuse_w
+            assert (c.threads, c.smem, c.k_tiles, c.h_tiles, c.parts, c.da_smem) == (
+                p.threads, p.smem, p.k_tiles, p.h_tiles, p.parts, p.da_smem)
+            assert tuple(c.grid) == p.grid and tuple(c.da_grid) == p.da_grid
+            assert (c.split, tuple(c.tile), c.stages, c.tma_a, c.tma_g) == (
+                p.split, p.tile, p.stages, p.tma_a, p.tma_g)
+            bounds = [lo for lo, _ in p.i_slices] + [p.i_slices[-1][1]]
+            assert list(c.i_bound) == bounds + [0] * (am.MAX_SPLIT + 1 - len(bounds))
 
 
 def test_plan_rejects_what_no_grid_holds():
     with pytest.raises(ValueError):
         am.adj_matmul_backward_plan(70_000, 100, 100, 8, None, torch.float32)
+    with pytest.raises(ValueError):   # more gxw row tiles than the grid's y
+        am.adj_matmul_backward_plan(1, 100, 64 * 65_536 + 1, 8, None, torch.float32)
     with pytest.raises(TypeError):
         am.adj_matmul_backward_plan(1, 100, 100, 8, None, torch.float64)

@@ -411,6 +411,104 @@ def test_cuda_adj_matmul_backward_subsets_and_graph_conv():
     torch.testing.assert_close(gx3, a3.transpose(1, 2) @ g3, rtol=1e-5, atol=1e-5)
 
 
+def _held_to_closed_form(got, g, adj, x, out, w, leak, needs):
+    """K3's backward ``got`` against ``adj_matmul_backward_plain`` on the
+    same inputs: f32 against float64 within (terms + 8)·2^-24 times the
+    closed form on |inputs| (the longest f32 sum behind each gradient: ∂A H
+    + F, ∂x N + H, ∂W N + B·M), bf16 within 2e-2 of the largest magnitude."""
+    batch = adj.shape[0] if adj.dim() == 3 else 1
+    n, m = adj.shape[-2:]
+    h = x.shape[-1] if w is None else w.shape[1]
+    f = 0 if w is None else w.shape[0]
+    terms = (h + f, n + h, n + batch * m)
+    if x.dtype == torch.float32:
+        f64 = lambda t: None if t is None else t.double()
+        want = adj_matmul_backward_plain(g.double(), adj.double(), x.double(), f64(out), leak,
+                                         f64(w), needs)
+        mag = adj_matmul_backward_plain(g.double().abs(), adj.double(), x.double().abs(),
+                                        f64(out), leak, None if w is None else w.double().abs(),
+                                        needs)
+    else:
+        want = adj_matmul_backward_plain(g, adj, x, out, leak, w, needs)
+        mag = want
+    for k, (a, b, c) in enumerate(zip(got, want, mag)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == x.dtype and a.shape == b.shape
+        if x.dtype == torch.float32:
+            err = (a.double() - b).abs()
+            assert bool((err <= (terms[k] + 8) * 2.0 ** -24 * c.abs()).all()), (k, err.max().item())
+        else:
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= 2e-2 * b.float().abs().max().item(), (k, err)
+
+
+# (A shape, F or None, H) of the tiled variants: GraphConv 2 of synthetic2's
+# widths at N = 1024 (W fused), the large-graph contraction at N = 2048,
+# ragged N, odd strides (cp.async or plain copies in place of TMA), h = 64
+# (bf16: the second column box wholly past h) and h = 128 with W (bf16
+# fused in one tile, f32 two column tiles and the plain W products)
+K3_TILED_CASES = [((2, 1024, 1024), 11, 20), ((2048, 2048), None, 128),
+                  ((2047, 2047), None, 100), ((3, 45, 70), None, 33),
+                  ((2, 300, 301), 11, 17), ((2, 200, 200), 11, 64), ((2, 130, 130), 11, 128)]
+K3_TILED_NEEDS = ((False, True, True), (False, False, True), (False, True, False),
+                  (True, True, True))
+
+
+@pytest.mark.parametrize("leak", [0.2, None])
+@pytest.mark.parametrize("a_shape,f,h", K3_TILED_CASES)
+def test_cuda_adj_matmul_backward_tiled_variants(a_shape, f, h, leak):
+    """On a card: the tiled variants of K3's backward, simt (f32) and tc
+    (bf16), against ``adj_matmul_backward_plain`` (f32 within the float64
+    summation bound, bf16 within 2e-2) with and without W and act, three
+    rows of A all zero (the tie), each subset of the gradients; two calls
+    bit-equal, and the election counter back at 0 after each call."""
+    from snd_vae_tpu_torch.nn.kernels import _launch
+
+    _card()
+    rng = np.random.default_rng(5)
+    adj, x, w, g = _k3_backward_inputs(rng, a_shape, f, h, zero_rows=3)
+    batch = a_shape[0] if len(a_shape) == 3 else 1
+    for dt in (torch.float32, torch.bfloat16):
+        a_, x_, g_ = adj.to(dt), x.to(dt), g.to(dt)
+        w_ = None if w is None else w.to(dt)
+        out = blocked_adj_matmul(a_, x_, leak, w_)
+        plan = am.adj_matmul_backward_plan(batch, *a_shape[-2:], h, f, dt)
+        assert plan.variant == ("simt" if dt == torch.float32 else "tc")
+        for needs in K3_TILED_NEEDS if w is not None else K3_TILED_NEEDS[2:]:
+            got = fused_adj_matmul_backward(g_, a_, x_, out, leak, w_, needs)
+            again = fused_adj_matmul_backward(g_, a_, x_, out, leak, w_, needs)
+            torch.cuda.synchronize()
+            assert all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+            for counter in _launch._COUNTERS.values():
+                assert int(counter.sum().item()) == 0
+            _held_to_closed_form(got, g_, a_, x_, out, w_, leak, needs)
+
+
+def test_cuda_graph_conv_backward_at_1024():
+    """On a card: a GraphConv (11 -> 20) over two graphs of N = 1024, its
+    loss.backward() one launch of the tiled backward (and one of K3), the
+    gradients of x and W held to the closed form."""
+    from snd_vae_tpu_torch import nn as tops
+
+    _card()
+    rng = np.random.default_rng(6)
+    adj, x, _, _ = (t.float() if t is not None else None
+                    for t in _k3_backward_inputs(rng, (2, 1024, 1024), 11, 20, zero_rows=3))
+    conv = tops.GraphConv(11, 20, torch.Generator().manual_seed(0)).cuda()
+    xg = x.clone().requires_grad_(True)
+    b0, p0 = fused_adj_matmul_backward.launches, blocked_adj_matmul.launches
+    out = conv(adj, xg)
+    loss = (out * out).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (fused_adj_matmul_backward.launches, blocked_adj_matmul.launches) == (b0 + 1, p0 + 1)
+    w = conv.kernel.detach()
+    _held_to_closed_form((None, xg.grad, conv.kernel.grad), 2 * out.detach(), adj, x,
+                         out.detach(), w, 0.2, (False, True, True))
+
+
 def test_cuda_large_graph_kernel_path_matches_library(tmp_path):
     """On a card, in an NCCL group of one process: the node-sharded encoder
     (hidden 128, 128) at N = 2048 with K3 (2 launches) against the library
