@@ -63,9 +63,10 @@
 //          64 each) is refilled a stage ahead by TMA (3-D maps, one thread
 //          issues, an mbarrier per stage counts the bytes) where the
 //          strides are 16-byte multiples and the pointers aligned, else by
-//          4-byte cp.async into the same dense layout.  Each group turns
-//          its rows of g into gy in place (grad_y, with out) before it
-//          consumes them.  No TF32: the f32 checks rule it out.
+//          4-byte cp.async into the same dense layout.  Each group forms
+//          gy (grad_y, with out) for its rows into a gy tile before it
+//          consumes them, four values at a time.  No TF32: the f32 checks
+//          rule it out.
 //   tc     (bf16, any larger size): 128 x 128 gxw tiles on tensor cores,
 //          the forward tc's warp roles: a producer warpgroup keeps TMA
 //          loads of A, g and out in flight (a ring of 4 stages of 64
@@ -74,9 +75,13 @@
 //          k-rows each) run wgmma m64n128k16 with f32 accumulators.  A^T is
 //          wgmma's MN-major A operand (A's box [i][k] with the 128-byte
 //          swizzle, the transpose bit set); g and out land in the MN-major B
-//          layout, and the consumers turn g into gy in place (bf16-exact:
-//          grad_y rounds each factor to bf16), fence the writes to the async
-//          proxy and run the MMA on it.
+//          layout, and the consumers turn step j + 1's g into gy in place
+//          while the tensor cores run step j (bf16-exact: grad_y rounds
+//          each factor to bf16; 16 bytes at a time, out's sign by packed
+//          compares, a pair's products rounded by one conversion), fence
+//          the writes to the async proxy and run the MMA on it.
+// Every block forms gy afresh for its slice of i, so the gxw row tiles
+// repeat that pass: with act it is the tiled variants' largest phase.
 // Both tiled variants split the sum over i across the S blocks (S <= 8) of
 // a cluster, balanced slices of whole i-steps; the partial f32 tiles stay
 // in shared memory and each rank sums its 1/S of the rows over the ranks in
@@ -186,30 +191,15 @@ __device__ __forceinline__ float grad_y_at(const T* g, const T* o, int64_t e, fl
   return grad_y<T>(g[e], has_leak ? o[e] : g[e], leak, has_leak);
 }
 
-// grad_y<float> as selects (no branch for a warp to diverge on)
-__device__ __forceinline__ float grad_y_f32(float g, float o, float leak) {
-  const float t = __fmul_rn(0.5f, g);
-  const float tie = __fadd_rn(t, __fmul_rn(leak, t));
-  return o > 0.f ? g : signbit(o) ? __fmul_rn(leak, g) : tie;
-}
-
-// grad_y<bf16> of a pair (two bf16 in 32 bits), the same roundings: g
-// where out > 0, else round(leak * g) (out < 0 or -0.0), the two products
-// rounded by one bf16x2 conversion; a pair that holds a tie (out +0, or a
-// NaN without sign) takes grad_y<bf16> value by value
-__device__ __forceinline__ uint32_t grad_y2(uint32_t g2, uint32_t o2, float leak) {
-  const float g0 = __uint_as_float(g2 << 16), g1 = __uint_as_float(g2 & 0xffff0000u);
-  const float o0 = __uint_as_float(o2 << 16), o1 = __uint_as_float(o2 & 0xffff0000u);
-  if ((!(o0 > 0.f) && !signbit(o0)) || (!(o1 > 0.f) && !signbit(o1))) {
-    const float v0 = grad_y<bf16>(__ushort_as_bfloat16(g2 & 0xffffu),
-                                  __ushort_as_bfloat16(o2 & 0xffffu), leak, 1);
-    const float v1 = grad_y<bf16>(__ushort_as_bfloat16(g2 >> 16), __ushort_as_bfloat16(o2 >> 16),
-                                  leak, 1);
-    return (__float_as_uint(v0) >> 16) | (__float_as_uint(v1) & 0xffff0000u);
-  }
-  const __nv_bfloat162 n = __floats2bfloat162_rn(__fmul_rn(leak, g0), __fmul_rn(leak, g1));
-  const uint32_t keep = (o0 > 0.f ? 0x0000ffffu : 0u) | (o1 > 0.f ? 0xffff0000u : 0u);
-  return (g2 & keep) | (*reinterpret_cast<const uint32_t*>(&n) & ~keep);
+// grad_y<float> of four values: g where out > 0, leak * g where out < 0;
+// four that hold an out of +-0 or NaN take grad_y value by value
+__device__ __forceinline__ float4 grad_y4(float4 g, float4 o, float leak) {
+  if (!((o.x > 0.f || o.x < 0.f) && (o.y > 0.f || o.y < 0.f) && (o.z > 0.f || o.z < 0.f) &&
+        (o.w > 0.f || o.w < 0.f)))
+    return make_float4(grad_y<float>(g.x, o.x, leak, 1), grad_y<float>(g.y, o.y, leak, 1),
+                       grad_y<float>(g.z, o.z, leak, 1), grad_y<float>(g.w, o.w, leak, 1));
+  return make_float4(o.x > 0.f ? g.x : __fmul_rn(leak, g.x), o.y > 0.f ? g.y : __fmul_rn(leak, g.y),
+                     o.z > 0.f ? g.z : __fmul_rn(leak, g.z), o.w > 0.f ? g.w : __fmul_rn(leak, g.w));
 }
 
 struct Args {
@@ -543,10 +533,9 @@ adj_bwd_simt_kernel(const __grid_constant__ CUtensorMap map_a,
       const float4* o4 = reinterpret_cast<const float4*>(g_g + kSTile);
       // only the columns below h: the gy tile's others stay zero
       for (int e = lt; e < kSRows * quads; e += 64) {
-        const int v = e / quads * (kSn / 4) + e % quads;
-        const float4 gv = g4[v], ov = o4[v];
-        gy4[v] = make_float4(grad_y_f32(gv.x, ov.x, p.leak), grad_y_f32(gv.y, ov.y, p.leak),
-                             grad_y_f32(gv.z, ov.z, p.leak), grad_y_f32(gv.w, ov.w, p.leak));
+        const int r = quads == kSn / 4 ? e / (kSn / 4) : e / quads;   // a shift for full rows
+        const int v = r * (kSn / 4) + e - r * quads;
+        gy4[v] = grad_y4(g4[v], o4[v], p.leak);
       }
       asm volatile("bar.sync %0, 64;\n" ::"r"(1 + gr) : "memory");
 #endif
@@ -651,10 +640,41 @@ __device__ void load_tile_manual(unsigned char* dst, const bf16* src, int rows, 
   }
 }
 
-// eight gy from eight g and out (bf16, as 16 bytes each)
+// grad_y<bf16> of eight values (16 bytes of g and of out), the same
+// roundings: g where out > 0, round(leak * g) where out < 0, each pair's two
+// products rounded by one bf16x2 conversion, out's sign read by packed
+// compares; eight that hold an out of +-0 or NaN take grad_y<bf16> value by
+// value
 __device__ __forceinline__ uint4 grad_y8(uint4 g8, uint4 o8, float leak) {
-  return make_uint4(grad_y2(g8.x, o8.x, leak), grad_y2(g8.y, o8.y, leak),
-                    grad_y2(g8.z, o8.z, leak), grad_y2(g8.w, o8.w, leak));
+  uint32_t g[4] = {g8.x, g8.y, g8.z, g8.w};
+  const uint32_t o[4] = {o8.x, o8.y, o8.z, o8.w};
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  uint32_t pos[4], other = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 oj = *reinterpret_cast<const __nv_bfloat162*>(&o[j]);
+    pos[j] = __hgt2_mask(oj, zero);
+    other |= ~(pos[j] | __hlt2_mask(oj, zero));
+  }
+  if (other) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v0 = grad_y<bf16>(__ushort_as_bfloat16(g[j] & 0xffffu),
+                                    __ushort_as_bfloat16(o[j] & 0xffffu), leak, 1);
+      const float v1 = grad_y<bf16>(__ushort_as_bfloat16(g[j] >> 16),
+                                    __ushort_as_bfloat16(o[j] >> 16), leak, 1);
+      g[j] = (__float_as_uint(v0) >> 16) | (__float_as_uint(v1) & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 n =
+          __floats2bfloat162_rn(__fmul_rn(leak, __uint_as_float(g[j] << 16)),
+                                __fmul_rn(leak, __uint_as_float(g[j] & 0xffff0000u)));
+      g[j] = (g[j] & pos[j]) | (*reinterpret_cast<const uint32_t*>(&n) & ~pos[j]);
+    }
+  }
+  return make_uint4(g[0], g[1], g[2], g[3]);
 }
 
 // One block per SM; block (rank, tile, b) sums i over the rank's slice for
@@ -768,7 +788,8 @@ adj_bwd_tc_kernel(const __grid_constant__ CUtensorMap map_a,
         // zero in g, and so in gy
         unsigned char* g_j = smem + sj * kStage + kCTile;
         for (int e = tid; e < kCi * chunks; e += kCConsumers) {
-          const int off = sw_off(e / chunks, (e % chunks) * 8);
+          const int r = chunks == kCn / 8 ? e / (kCn / 8) : e / chunks;   // a shift for full rows
+          const int off = sw_off(r, (e - r * chunks) * 8);
           uint4* gp = reinterpret_cast<uint4*>(g_j + off);
           *gp = grad_y8(*gp, *reinterpret_cast<const uint4*>(g_j + kCTile + off), p.leak);
         }
