@@ -165,6 +165,36 @@ Phases, one output line each:
                snd_vae_tpu_torch.cli --type train --dp 1 --distributed
                --epochs 1`` in a subprocess: it joins, trains to a finite
                loss and writes one checkpoint;
+ 19b. frontier — the JAX package's single-chip frontier configuration
+               (benchmarks/frontier_2048.py:43-47: synthetic2's widths,
+               num_nodes N, B = 2 graphs x S = 2 trees, the separable head
+               by the auto rule) through the port's entry points: (a) at N
+               = 256 f32 one train step on the card against the CPU's
+               (phase 5's tolerances) and one reconstructed batch; (b)
+               Trainer.run for 2 epochs on 4 graphs at N = 1024 f32 and
+               bf16, N = 2048 bf16 and f32 with --remat and
+               --motif-block-rows 256 (2 launches a step of each kernel,
+               motif_level3 4 with remat; K3's plain version never; the
+               losses finite, f32's falling; ms per step, device-busy ms and
+               kernels per step from a profile of the second epoch; the
+               peak of allocated memory), and one f32 step without remat at
+               N = 2048; (c) where a loss is not finite (the untrained
+               init at N = 2048), the first tensor that is not, by module,
+               and the CPU's KL terms on the same weights and batch, which
+               must not be finite either; (d) every call one train step
+               makes of the four kernels, held against its plain version on
+               the card (f32 within the float64 summation bound, bf16
+               within 2e-2, two calls bit-equal; a backward whose step's
+               gradient is not finite on a seeded one) with the plan that
+               ran; (e) a kernel line for each: median device ms over 100
+               launches, the bound, the plain version's ms (10 calls) and,
+               for K3 and its backward, the library's; (f) serve.reconstruct
+               of one batch and serve.sample of 2 graphs at N = 2048 f32
+               (2 + 2 launches a batch, finite outputs, peak memory); (g)
+               the remat step's loss terms against the step without remat
+               (rtol 1e-6), both peaks; the phase's seconds.  ``python3
+               chip_smoke.py --phase frontier`` runs the device, build and
+               frontier lines alone (no kernels or result line);
  20. the launches per path (profile_train: the kernel events in the
                trace of 16b) and the kernels line (JSON); 21. the result
                line (JSON), last.
@@ -1306,12 +1336,14 @@ def autograd_node(event):
     return node
 
 
-def profile_steps(step, batches) -> dict:
+def profile_steps(step, batches, steps: Optional[int] = None) -> dict:
     """One profiled pass of train steps over the batches: wall and
     device-busy ms and kernels per step; the device ms of the kernels each
     train_step range launched; the device ms and kernels of the level-3
     and K3 backwards (their autograd nodes, with any autograd nested in
-    them); the backward's top kernels by device time, all per step."""
+    them); the backward's top kernels by device time, all per step.
+    ``steps``: the train steps the calls make in all, where a call makes
+    more than one (default: one a batch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1322,7 +1354,7 @@ def profile_steps(step, batches) -> dict:
             step(b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n = len(batches)
+    n = steps or len(batches)
     # the ranges' own device-side spans (user annotations) are not kernels
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
@@ -3001,6 +3033,560 @@ def run_cli_dp():
     return {"seconds": secs, "loss": result["loss"], "checkpoints": ckpts}
 
 
+# The frontier: the JAX package's single-chip frontier configuration
+# (benchmarks/frontier_2048.py:43-47: synthetic2's widths, B = 2 graphs x
+# S = 2 trees, the separable head by the auto rule), trained and served on
+# the card.  Each training variant: (N, dtype, remat, motif_block_rows);
+# remat None: one step without remat, which (g) holds the remat step to.
+FRONTIER_VARIANTS = ((1024, "float32", False, None), (1024, "bfloat16", False, None),
+                     (2048, "bfloat16", False, None), (2048, "float32", True, 256),
+                     (2048, "float32", None, None))
+FRONTIER_GRAPHS = 4       # Trainer.run on 4 graphs: 2 steps an epoch
+FRONTIER_EPOCHS = 2
+FRONTIER_PROFILE_STEPS = 2
+FRONTIER_CPU_NODES = 256  # the card's step against the CPU's
+FRONTIER_PLAIN_REPS = 10  # the plain versions' timing at these shapes (up to ~0.1 s a call)
+FRONTIER_PLAIN_ROWS = 256  # row blocks of the float64 references
+FRONTIER_WRAPPERS = (("motif_level3", "ml", "fused_motif_level3"),
+                     ("motif_level3_backward", "ml", "fused_motif_level3_backward"),
+                     ("adj_matmul", "am", "blocked_adj_matmul"),
+                     ("adj_matmul_backward", "am", "fused_adj_matmul_backward"))
+
+
+def frontier_config(n: int, dtype: str = "float32", remat: bool = False,
+                    block_rows: Optional[int] = None):
+    """``benchmarks/frontier_2048.py:43-47`` in the port's config: the
+    synthetic2 preset in ``dtype`` with ``num_nodes=n``, ``sampling_num=2``
+    and ``remat``, and a TrainConfig of its defaults but ``batch_size=2``;
+    with ``motif_block_rows``."""
+    from snd_vae_tpu_torch.config import synthetic2_preset
+
+    cfg = synthetic2_preset(compute_dtype=dtype, dataset_path=str(ROOT / "dataset")).with_(
+        num_nodes=n, sampling_num=2, remat=remat, motif_block_rows=block_rows)
+    return cfg.with_(train=cfg.train.__class__(batch_size=2))
+
+
+class capture_calls:
+    """While installed, the kernel wrappers (``FRONTIER_WRAPPERS``) keep
+    copies of the arguments of their first ``first`` calls (one train step
+    calls each twice) in ``calls[name]``.  Each wrapper's launch counter
+    stays where ``zero_counts`` / ``read_counts`` look for it."""
+
+    def __init__(self, ml, am, first: int = 2):
+        self.mods, self.first = {"ml": ml, "am": am}, first
+        self.calls = {name: [] for name, _, _ in FRONTIER_WRAPPERS}
+
+    def __enter__(self):
+        self.saved = []
+        for name, mod, attr in FRONTIER_WRAPPERS:
+            module = self.mods[mod]
+            fn = getattr(module, attr)
+            kept = self.calls[name]
+
+            def wrapped(*args, _fn=fn, _kept=kept, **kwargs):
+                if len(_kept) < self.first:
+                    copy_ = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t
+                    _kept.append(([copy_(a) for a in args],
+                                  {k: copy_(v) for k, v in kwargs.items()}))
+                return _fn(*args, **kwargs)
+
+            # the wrapper body counts its launch under its module's name: here
+            wrapped.launches = fn.launches
+            self.saved.append((module, attr, fn))
+            setattr(module, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+
+def level3_plain_blocked(ml, x):
+    """``motif_level3_plain`` of x, row block by row block (the float64
+    reference at N = 2048 would otherwise hold several [4,N,N,h] tensors)."""
+    adj, phi, a_i = x[0], x[1], x[2]
+    n = adj.shape[1]
+    return torch.cat([ml._level3_rows(adj, adj[:, s:s + FRONTIER_PLAIN_ROWS],
+                                      phi[:, s:s + FRONTIER_PLAIN_ROWS],
+                                      a_i[:, s:s + FRONTIER_PLAIN_ROWS], *x[3:])
+                      for s in range(0, n, FRONTIER_PLAIN_ROWS)], dim=1)
+
+
+def frontier_k1(ml, args, kwargs, dt) -> dict:
+    x = [t for t in args if isinstance(t, torch.Tensor)]
+    row0 = ([0] + [t for t in args if isinstance(t, int)])[-1]
+    check(row0 == 0 and x[1].shape[1] == x[0].shape[1],
+          f"frontier motif_level3: a window from row {row0}, expected every row")
+    N, R, h = x[0].shape[1], x[1].shape[-1], x[2].shape[-1]
+    kern = lambda: ml.fused_motif_level3(*x)
+    got, again = kern(), kern()
+    check(torch.equal(got, again), f"frontier motif_level3 {list(x[2].shape)}: two calls differ")
+    extra = {}
+    if dt == torch.float32:
+        err, extra["plain_f32_err_vs_f64"] = compare_f64_bound(
+            got, x, 2 * N + 2 * R + 2, lambda *t: level3_plain_blocked(ml, t))
+    else:
+        err = compare(got, level3_plain_blocked(ml, x), dt)
+    b_ms, b_by = level3_bound(x, dt)
+    return dict(shape=list(x[1].shape[:3]) + [h], max_abs_err=err, ms=device_ms(kern),
+                plain_ms=device_ms(lambda: ml.motif_level3_plain(*x), reps=FRONTIER_PLAIN_REPS),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra)
+
+
+def finite_grad(g: torch.Tensor) -> tuple:
+    """A backward's captured gradient, or where it holds a non-finite value
+    (a step whose loss is not finite: bf16 at N = 2048) one drawn from a
+    seed in its shape and dtype, so that the kernel is held on the
+    step's other inputs; with which it is."""
+    if bool(torch.isfinite(g).all()):
+        return g, "step"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return torch.randn(g.shape, generator=gen, device="cuda").to(g.dtype), "seeded"
+
+
+def frontier_k2(ml, args, kwargs, dt) -> dict:
+    (g, grad_from), x = finite_grad(args[0]), args[1:]
+    needs, row0 = kwargs.get("needs", MODEL_NEEDS), kwargs.get("row0", 0)
+    check(tuple(needs) == MODEL_NEEDS and row0 == 0,
+          f"frontier motif_level3_backward: asked {needs} at row {row0}, expected the "
+          "model's gradients of every row")
+    B, n, N, R = x[1].shape
+    h = x[2].shape[-1]
+    kern = lambda: ml.fused_motif_level3_backward(g, *x, needs=needs)
+    got, again = kern(), kern()
+    check(all(a is None or torch.equal(a, c) for a, c in zip(got, again)),
+          f"frontier motif_level3_backward {[B, N, h]}: two calls differ")
+    blocked = lambda gg, xx: ml.motif_level3_backward_plain(gg, *xx, needs=needs,
+                                                            block_rows=FRONTIER_PLAIN_ROWS)
+    errs = {}
+    if dt == torch.float32:
+        x64, g64 = [t.double() for t in x], g.double()
+        want = blocked(g64, x64)
+        mag = blocked(g64.abs(), [t.abs() for t in x64])
+        for name, k, w, mg in zip(GRAD_NAMES, got, want, mag):
+            if w is None:
+                continue
+            lim = (grad_terms(name, B, n, N, R, h) + 8) * 2.0 ** -24 * mg
+            err = (k.double() - w).abs()
+            check(bool((err <= lim).all()), f"frontier motif_level3_backward {[B, N, h]} {name}:"
+                  f" f32 error {err.max().item()} beyond the summation bound")
+            errs[name] = err.max().item()
+    else:
+        want = blocked(g.float(), [t.float() for t in x])
+        for name, k, w in zip(GRAD_NAMES, got, want):
+            if w is not None:
+                errs[name] = compare(k, w.to(dt), dt)
+    plan = ml.motif_level3_backward_plan(B, N, n, R, h, needs)
+    b = level3_backward_bound(x[0], R, h, needs, dt)
+    return dict(shape=[B, N, N, h], needs=[k for k, nd in zip(GRAD_NAMES, needs) if nd],
+                grad=grad_from, errors=errs, max_abs_err=max(errs.values()),
+                plan={"tiles": plan.tiles, "clusters": plan.clusters, "cluster": plan.cluster,
+                      "h_chunk": plan.h_chunk, "counters": plan.counters,
+                      "scratch": plan.scratch, "kernels": plan.kernels},
+                ms=device_ms(kern),
+                plain_ms=device_ms(lambda: ml.motif_level3_backward_plain(g, *x, needs=needs),
+                                   reps=FRONTIER_PLAIN_REPS),
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None)
+
+
+def frontier_k3(am, args, kwargs, dt) -> dict:
+    a, x, leak, w = (list(args) + [None, None])[:4]
+    leak, w = kwargs.get("leak", leak), kwargs.get("w", w)
+    b, n, m = a.shape
+    f, h = x.shape[-1], w.shape[1]
+    kern = lambda: am.blocked_adj_matmul(a, x, leak, w)
+    got, again = kern(), kern()
+    check(torch.equal(got, again), f"frontier adj_matmul {list(a.shape)}: two calls differ")
+    if dt == torch.float32:
+        err, p32 = compare_f64_bound(got, [a, x, w], m + f,
+                                     lambda aa, xx, ww: am.adj_matmul_plain(aa, xx, leak, ww))
+    else:
+        err, p32 = compare(got, am.adj_matmul_plain(a, x, leak, w), dt), None
+    isz = a.element_size()
+    b_ms, b_by = bound(isz * (b * n * m + b * m * f + f * h + b * n * h),
+                       2 * b * n * m * h + 2 * b * m * f * h + 2 * b * n * h, dt)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, x))
+    plan = am.adj_matmul_plan(b, n, m, h, f, dt, aligned,
+                              am.cluster_capacity(torch.device("cuda")))
+    lib = lambda: torch.nn.functional.leaky_relu(torch.bmm(a, torch.matmul(x, w)), leak)
+    return dict(shape=[list(a.shape), list(x.shape), list(w.shape)], max_abs_err=err,
+                plain_f32_err_vs_f64=p32,
+                plan={"variant": plan.variant, "split": plan.split, "blocks": plan.blocks,
+                      "smem": plan.smem, "fuse_w": plan.fuse_w, "tma_a": plan.tma_a,
+                      "tma_x": plan.tma_x},
+                ms=device_ms(kern),
+                plain_ms=device_ms(lambda: am.adj_matmul_plain(a, x, leak, w)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib))
+
+
+def frontier_k3b(am, args, kwargs, dt) -> dict:
+    g, a, x, out, leak, w, needs = args
+    g, grad_from = finite_grad(g)
+    b, n, m = a.shape
+    f, h = x.shape[-1], w.shape[1]
+    kern = lambda: am.fused_adj_matmul_backward(g, a, x, out, leak, w, needs)
+    got, again = kern(), kern()
+    check(all(u is None or torch.equal(u, v) for u, v in zip(got, again)),
+          f"frontier adj_matmul_backward {list(a.shape)} {needs}: two calls differ")
+    want = am.adj_matmul_backward_plain(g, a, x, out, leak, w, needs)
+    errs = {}
+    for k, name in enumerate(("adj", "x", "w")):
+        if want[k] is None:
+            check(got[k] is None, f"frontier adj_matmul_backward: {name} not asked")
+            continue
+        if dt == torch.float32:
+            fn = (lambda gg, aa, xx, oo, ww, k=k: am.adj_matmul_backward_plain(
+                gg, aa, xx, oo, leak, ww, needs)[k])
+            errs[name], _ = compare_f64_bound(got[k], [g, a, x, out, w],
+                                              adj_backward_terms(k, b, n, m, f, h), fn)
+        else:
+            errs[name] = compare(got[k], want[k], dt)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, g, out))
+    plan = am.adj_matmul_backward_plan(b, n, m, h, f, dt, needs, aligned,
+                                       am.backward_cluster_capacity(torch.device("cuda")))
+    b_ms, b_by = adj_backward_bound(a, x, w, leak, needs, dt)
+    gy = am.lrelu_grad(g, out, leak).contiguous()
+    return dict(shape=[list(a.shape), list(x.shape), list(w.shape)],
+                needs=[nm for nm, nd in zip(("adj", "x", "w"), needs) if nd], grad=grad_from,
+                errors=errs,
+                max_abs_err=max(errs.values()),
+                plan={"variant": plan.variant, "fuse_w": plan.fuse_w, "split": plan.split,
+                      "grid": plan.grid, "blocks": plan.blocks, "smem": plan.smem,
+                      "tma_a": plan.tma_a, "tma_g": plan.tma_g, "parts": plan.parts,
+                      "kernels": plan.kernels},
+                ms=device_ms(kern),
+                plain_ms=device_ms(lambda: am.adj_matmul_backward_plain(
+                    g, a, x, out, leak, w, needs)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(lambda: library_adj_backward(a, x, w, gy, needs,
+                                                                  plan.fuse_w)))
+
+
+def frontier_kernels(ml, am, calls, path, dt) -> list:
+    """(d), (e): every call that one train step made of the four wrappers,
+    held against its plain version on the card (f32 within the float64
+    summation bound, bf16 within 2e-2 of the largest magnitude, two calls
+    bit-equal), with the plan that ran, its median device ms over 100
+    launches, the plain version's ms, the bound and the library's ms."""
+    hold = {"motif_level3": lambda a, k: frontier_k1(ml, a, k, dt),
+            "motif_level3_backward": lambda a, k: frontier_k2(ml, a, k, dt),
+            "adj_matmul": lambda a, k: frontier_k3(am, a, k, dt),
+            "adj_matmul_backward": lambda a, k: frontier_k3b(am, a, k, dt)}
+    rows = []
+    for name, kept in calls.items():
+        for i, (args, kwargs) in enumerate(kept):
+            row = hold[name](args, kwargs)
+            rows.append(dict(kernel=name, path=path, call=i, dtype=str(dt)[6:], served=False,
+                             batch_shape=False, two_calls_bit_equal=True,
+                             launches_per_step=1) | row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def nonfinite_site(state, batch, dtype) -> dict:
+    """(c): where the first non-finite value of train step 1 arises on the
+    card: the first module (in the order their forwards return) whose
+    output holds one, in the step's forward (ε drawn from ``state``'s
+    generator as the step draws it), else the first of the posterior's
+    statistics, the latents, the decoded heads and the loss's terms that
+    holds one; with the largest magnitude of each statistic."""
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.losses import elbo_loss
+
+    found = []
+
+    def hook(name):
+        def fn(mod, inputs, output):
+            outs = [t for t in torch.utils._pytree.tree_leaves(output)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point()]
+            if not found and any(not bool(torch.isfinite(t).all()) for t in outs):
+                found.append(f"module {name} ({type(mod).__name__})")
+        return fn
+
+    model = state.model
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    try:
+        with torch.no_grad():
+            out = tt._forward(state, batch, None)
+            _, aux = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
+                               torch.zeros((), device=batch.adj.device))
+    finally:
+        for h in handles:
+            h.remove()
+    stats = {f: getattr(out.stats, f) for f in ("mean_sg", "logstd_sg", "mean_s", "logstd_s",
+                                                "mean_g", "logstd_g")}
+    tensors = ([(f"stats.{k}", v) for k, v in stats.items()]
+               + [(f"latents.{k}", getattr(out.latents, k)) for k in ("z_sg", "z_s", "z_g")]
+               + [(f"decoded.{k}", getattr(out.decoded, k))
+                  for k in ("adj_prob", "coords", "node_feat")]
+               + [(f"loss.{k}", v) for k, v in aux.items()])
+    if not found:
+        found += [name for name, t in tensors if not bool(torch.isfinite(t.float()).all())][:1]
+    return {"first": found[0] if found else None,
+            "nonfinite_loss_terms": [k for k, v in aux.items()
+                                     if not bool(torch.isfinite(v).all())],
+            "stats_max_abs": {k: v.float().abs().max().item() for k, v in stats.items()}}
+
+
+def cpu_kl_terms(cfg, batch, dtype) -> dict:
+    """(c) on the CPU: the posterior's statistics of the same seed weights
+    and batch in ``dtype`` (the encoder; its plain versions) and the KL
+    terms of the loss from them, which enter the loss as a sum: a
+    non-finite one makes the loss non-finite whatever the decoder gives."""
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    from snd_vae_tpu_torch.losses import kl_diag_gaussian
+    from snd_vae_tpu_torch.models import build_model
+
+    model = build_model(cfg.with_(compute_dtype="float32"), device="cpu")
+    params = {n: p.to(dtype) for n, p in model.named_parameters()}
+    with torch.no_grad(), _reparametrize_module(model, params):
+        stats = model.encode(batch.to("cpu", dtype))
+    kl = {b: kl_diag_gaussian(getattr(stats, f"mean_{b}").float(),
+                              getattr(stats, f"logstd_{b}").float()).item()
+          for b in ("sg", "s", "g")}
+    return {"kl": kl, "finite": all(math.isfinite(v) for v in kl.values()),
+            "stats_max_abs": {f"{k}_{b}": getattr(stats, f"{k}_{b}").float().abs().max().item()
+                              for b in ("sg", "s", "g") for k in ("mean", "logstd")}}
+
+
+def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows) -> tuple:
+    """(b): Trainer.run for 2 epochs on 4 graphs of the frontier config,
+    counted (2 launches a step of each kernel; motif_level3 4 with remat;
+    K3's plain version never), the per-step losses, the peak of allocated
+    memory, and a profile of the second epoch (2 steps after a warm-up
+    step): ms per step, device-busy ms and kernels per step; the calls of
+    the first step (``capture_calls``).  Returns (the variant's line, the
+    calls)."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+
+    cfg = frontier_config(n, dt_name, remat, block_rows)
+    B = cfg.train.batch_size
+    per_epoch = FRONTIER_GRAPHS // B
+    steps = FRONTIER_EPOCHS * per_epoch
+    res = {"N": n, "dtype": dt_name, "remat": remat, "motif_block_rows": block_rows,
+           "batch": [B, cfg.sampling_num, n], "adj_head_factored": cfg.adj_factored_engaged}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+        losses, first, run_epoch = [], {}, trainer.run_epoch
+
+        def epoch_profiled(epoch):
+            # the second epoch runs under the profiler: its wall and device time
+            if epoch == 1:
+                kept = []
+                res["profile"] = profile_steps(lambda _: kept.append(run_epoch(epoch)), [None],
+                                               steps=per_epoch)
+                storer = kept[0]
+            else:
+                storer = run_epoch(epoch)
+            losses.extend(storer["loss"])
+            if not first:
+                first.update({k: v[0] for k, v in storer.items()})
+            return storer
+
+        trainer.run_epoch = epoch_profiled
+        with capture_calls(ml, am) as cap:
+            zero_counts(ml, mc, am)
+            t0 = time.perf_counter()
+            trainer.run(FRONTIER_EPOCHS, verbose=False)
+            res["run_s"] = time.perf_counter() - t0
+            launches = read_counts(ml, mc, am)
+        res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        check(launches == per(steps, ml3=4 if remat else 2, k3=2, bwd=2, k3b=2),
+              f"frontier N={n} {dt_name} remat={remat}: launches {launches} over {steps} steps")
+        means = [statistics.mean(losses[e * per_epoch:(e + 1) * per_epoch])
+                 for e in range(FRONTIER_EPOCHS)]
+        finite = all(math.isfinite(v) for v in losses)
+        # at N >= 1536 the loss may read non-finite from the untrained init,
+        # as JAX's bf16 does (CLAUDE.md, "Single-chip frontier"): then (c)
+        # below holds the card to the CPU
+        check(finite or n >= 1536, f"frontier N={n} {dt_name}: losses {losses} not all finite")
+        if dt_name == "float32" and finite:
+            check(means[1] < means[0], f"frontier N={n} f32: loss did not fall: {means}")
+        prof = res.pop("profile")
+        res.update(launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+                   step_losses=losses, first_step_aux=first, epoch_mean_loss=means,
+                   losses_finite=finite,
+                   ms_per_step=prof["wall_ms_per_step"],
+                   profile={k: prof[k] for k in (
+                       "device_busy_ms_per_step", "device_busy_share", "kernels_per_step",
+                       "device_ms_per_step_by_range", "level3_backward_ms_per_step",
+                       "adj_matmul_backward_ms_per_step", "top_backward_kernels")})
+        del trainer
+        if not finite:
+            # (c) where the first non-finite value arises, in step 1 from the
+            # seed weights, and the CPU's loss on the same weights and batch
+            fresh = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+            first = data.slice_batch(0, B)
+            res["nonfinite"] = {"card": nonfinite_site(fresh.state, first,
+                                                       getattr(torch, dt_name))}
+            del fresh
+            torch.cuda.empty_cache()
+            cpu = cpu_kl_terms(cfg, first, getattr(torch, dt_name))
+            res["nonfinite"]["cpu"] = cpu
+            terms = res["nonfinite"]["card"]["nonfinite_loss_terms"]
+            check(not cpu["finite"] and any(t.endswith("_kl") for t in terms),
+                  f"frontier N={n} {dt_name}: the card's loss is not finite "
+                  f"({res['nonfinite']['card']}) where the CPU's KL terms are {cpu['kl']}")
+    torch.cuda.empty_cache()
+    return res, cap.calls
+
+
+def frontier_one_step(ml, mc, am, data, n, dt_name) -> dict:
+    """One train step of the frontier config without remat from the seed
+    weights (the Trainer's first: the same ε), counted, with its loss, ms
+    and peak of allocated memory: the step (g) holds the remat step to."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+
+    cfg = frontier_config(n, dt_name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+        zero_counts(ml, mc, am)
+        t0 = time.perf_counter()
+        aux = tt.train_step(trainer.state, trainer.batched._map(lambda t: t[0]),
+                            torch.zeros((), device="cuda"))
+        first = {k: v.item() for k, v in aux.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(ml, mc, am)
+        check(launches == per(1, ml3=2, k3=2, bwd=2, k3b=2),
+              f"frontier N={n} {dt_name} one step: launches {launches}")
+        res = {"N": n, "dtype": dt_name, "remat": False, "steps": 1, "launches": launches,
+               "step_losses": [first["loss"]], "first_step_aux": first, "first_step_ms": ms,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def frontier_serve(ml, mc, am, n: int) -> dict:
+    """(f): serve.reconstruct of one batch (2 graphs x 2 trees) and
+    serve.sample of 2 graphs at N, f32, from the seed weights: launches (2
+    of motif_level3 and 2 of adj_matmul a batch, none to sample), finite
+    outputs of the expected shapes, each call's ms and the peak memory."""
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import build_model
+    from snd_vae_tpu_torch.serve import reconstruct, sample
+
+    cfg = frontier_config(n)
+    B = cfg.train.batch_size
+    torch.cuda.empty_cache()
+    batch = load_dataset(cfg, "test", num_graphs=B, device="cuda")
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
+    res = {"N": n, "dtype": "float32", "batch": [B, cfg.sampling_num, n]}
+    for name, fn, want in (
+            ("reconstruct", lambda: reconstruct(model, batch), per(1, ml3=2, k3=2)),
+            ("sample", lambda: sample(model, B, gen), per(0))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(ml, mc, am)
+        out = fn()
+        launches = read_counts(ml, mc, am)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(launches == want, f"frontier serve {name}: launches {launches}, expected {want}")
+        d = out.decoded if name == "reconstruct" else out
+        check(d.adj_prob.shape == (B, n, n, 2) and d.coords.shape == (B, n, 2)
+              and d.node_feat.shape == (B, n, 1), f"frontier serve {name}: shapes")
+        check(all(bool(torch.isfinite(t).all()) for t in (d.adj_prob, d.coords, d.node_feat)),
+              f"frontier serve {name}: outputs not finite")
+        res[name] = {"launches": launches, "ms": ms, "peak_allocated_bytes": peak}
+    return res
+
+
+def frontier_vs_cpu(n: int) -> dict:
+    """(a): one f32 train step at N on the card against the same step on
+    the CPU from the same seed weights (``card_vs_cpu_step``: phase 5's
+    tolerances), and one reconstructed batch against the CPU's."""
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import build_model
+    from snd_vae_tpu_torch.serve import reconstruct
+
+    cfg = frontier_config(n)
+    batch = load_dataset(cfg, "train", num_graphs=cfg.train.batch_size, device="cuda")
+    t0 = time.perf_counter()
+    step = card_vs_cpu_step(cfg, batch)
+    model, cpu = build_model(cfg, device="cuda"), build_model(cfg, device="cpu")
+    recon = held_to_cpu(reconstruct(model, batch), reconstruct(cpu, batch.to("cpu")), False)
+    return {"N": n, "step_max_abs_err": step, "reconstruct_max_abs_err": recon,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_frontier(ml, mc, am) -> tuple:
+    """The frontier phase, (a)-(g) (see the module docstring).  Returns its
+    line and its kernel rows."""
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {"vs_cpu": frontier_vs_cpu(FRONTIER_CPU_NODES)}
+    emit("frontier_vs_cpu", out["vs_cpu"])
+    train, rows, data = [], [], {}
+    for n, dt_name, remat, block_rows in FRONTIER_VARIANTS:
+        if n not in data:
+            data.clear()
+            t = time.perf_counter()
+            data[n] = load_dataset(frontier_config(n), "train", num_graphs=FRONTIER_GRAPHS,
+                                   device="cuda")
+            emit("frontier_data", {"N": n, "graphs": FRONTIER_GRAPHS,
+                                   "load_s": time.perf_counter() - t})
+        if remat is None:       # one step without remat, for (g)
+            try:
+                res, calls = frontier_one_step(ml, mc, am, data[n], n, dt_name), {}
+            except torch.cuda.OutOfMemoryError as e:
+                torch.cuda.empty_cache()
+                res, calls = {"N": n, "dtype": dt_name, "remat": False, "fits": False,
+                              "error": str(e).splitlines()[0][:200]}, {}
+        else:
+            res, calls = frontier_train(ml, mc, am, data[n], n, dt_name, remat, block_rows)
+        emit("frontier_train", res | {"phase_s": time.perf_counter() - t0})
+        train.append(res)
+        if calls:
+            kernel_rows = frontier_kernels(ml, am, calls, f"frontier_{n}", getattr(torch, dt_name))
+            for r in kernel_rows:
+                emit("kernel", r)
+            rows += kernel_rows
+            emit("frontier_kernels_held", {"N": n, "dtype": dt_name,
+                                           "phase_s": time.perf_counter() - t0})
+        del calls
+        torch.cuda.empty_cache()
+    data.clear()
+    out["train"] = train
+    # (g) remat against no remat at N = 2048 f32: the first step's loss
+    f32 = {r["remat"]: r for r in train if r["N"] == 2048 and r["dtype"] == "float32"}
+    if f32[False].get("fits", True):
+        # each term of the loss at rtol 1e-6; one that is not finite (the
+        # init's graph KL at this N, see (c)) the same in both
+        a, b = f32[True]["first_step_aux"], f32[False]["first_step_aux"]
+        check(a.keys() == b.keys(), "frontier remat: the loss terms differ")
+        for k in a:
+            same = (abs(a[k] - b[k]) <= 1e-6 * abs(b[k]) if math.isfinite(b[k])
+                    else str(a[k]) == str(b[k]))
+            check(same, f"frontier remat: {k} {a[k]} against {b[k]} without remat")
+        out["remat_vs_none"] = {
+            "first_step_aux": {k: [a[k], b[k]] for k in a},
+            "max_rel_diff": max((abs(a[k] - b[k]) / abs(b[k]) for k in a
+                                 if math.isfinite(b[k]) and b[k]), default=0.0),
+            "peak_allocated_bytes": [f32[True]["peak_allocated_bytes"],
+                                     f32[False]["peak_allocated_bytes"]]}
+    out["serve"] = frontier_serve(ml, mc, am, 2048)
+    emit("frontier_serve", out["serve"])
+    out["seconds"] = time.perf_counter() - t0
+    emit("frontier", {k: v for k, v in out.items() if k in ("remat_vs_none", "seconds")})
+    return out, rows
+
+
 def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
     """One kernel's line: its times summed over the shapes one served batch
     of the disentangled model (or one train step's forward: the same
@@ -3043,7 +3629,14 @@ def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
     return entry
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phase", choices=("all", "frontier"), default="all",
+                        help="frontier: the device, build and frontier lines only, "
+                             "without the kernels and result lines")
+    only_frontier = parser.parse_args(argv).phase == "frontier"
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3074,6 +3667,9 @@ def main() -> int:
     ptxas = {k: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln] for k, log in build.build_log.items()}
     emit("build", {"seconds": secs, "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
+    if only_frontier:
+        run_frontier(ml, mc, am)
+        return 0
 
     # 2b. the native data-path library, which every loader below samples with
     emit("native", run_native())
@@ -3170,6 +3766,10 @@ def main() -> int:
             dist.destroy_process_group()
     emit("cli_dp", run_cli_dp())
 
+    # 19b. the frontier: the JAX package's single-chip frontier configuration
+    frontier, frontier_rows = run_frontier(ml, mc, am)
+    rows += frontier_rows
+
     # 20. launches per path (the f32 runs, each counted from 0), the kernels
     # line; 21. the result line (the card's line just before)
     by_path = {"serve": serving["float32"]["launches"],
@@ -3201,6 +3801,11 @@ def main() -> int:
                "profile_train": {k: v // (BACKWARD_KERNELS if k == "motif_level3_backward"
                                           else 1)
                                  for k, v in cli_profile["trace_kernel_events"].items()}}
+    by_path |= {f"frontier_{r['N']}_{r['dtype']}{'_remat' if r['remat'] else ''}":
+                r["launches"] for r in frontier["train"] if "launches" in r}
+    by_path["frontier_serve"] = {k: a + b for (k, a), b in zip(
+        frontier["serve"]["reconstruct"]["launches"].items(),
+        frontier["serve"]["sample"]["launches"].values())}
     emit("launches", by_path)
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})

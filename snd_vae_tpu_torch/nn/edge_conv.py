@@ -51,10 +51,68 @@ from .basic import acc_dtype, same_pad
 def _row_col_convs(xc: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]):
     """The SAME row conv of an NCHW map with ``w`` [O, C, 1, k] and the
     column conv with its transpose, each with ``bias``."""
-    H, W, k = xc.shape[2], xc.shape[3], w.shape[-1]
-    row = F.conv2d(F.pad(xc, same_pad(W, k, 1)), w, bias)
-    col = F.conv2d(F.pad(xc, (0, 0) + same_pad(H, k, 1)), w.transpose(2, 3), bias)
-    return row, col
+    return _RowColConv.apply(xc, w, bias)
+
+
+def _pads(H: int, W: int, k: int) -> Tuple[tuple, tuple]:
+    """F.pad's SAME padding of the row conv (along W) and of the column
+    conv (along H) of an [.., H, W] map with a kernel of k taps."""
+    return same_pad(W, k, 1), (0, 0) + same_pad(H, k, 1)
+
+
+def _conv_grads(g: torch.Tensor, xc: torch.Tensor, kernel: torch.Tensor, pad: tuple,
+                need_x: bool, need_w: bool) -> tuple:
+    """(∂x, ∂kernel) of ``F.conv2d(F.pad(xc, pad), kernel)`` (stride 1,
+    SAME) for its output gradient ``g``; None where not asked.  ∂x in f32
+    and f64 is a forward convolution: the correlation of g, padded by the
+    pads swapped, with the kernel flipped along its taps and its channel
+    axes swapped (∂x[t] = Σ_v g[t + v - pr]·kernel[k - 1 - v] for pads (pl,
+    pr)); in bf16 the library's data gradient of the padded map, cropped.
+    ∂kernel is the library's weight gradient of the padded map."""
+    conv_backward = lambda x, mask: torch.ops.aten.convolution_backward(
+        g, x, kernel, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
+    gx = gw = None
+    if need_x and g.dtype in (torch.float32, torch.float64):
+        swapped = tuple(p for i in range(0, len(pad), 2) for p in (pad[i + 1], pad[i]))
+        gx = F.conv2d(F.pad(g, swapped), kernel.flip(-2, -1).transpose(0, 1))
+    elif need_x:
+        gx = conv_backward(F.pad(xc, pad), [True, False, False])[0]
+        axis = 2 if len(pad) == 4 else 3          # (0, 0, pl, pr) pads H, (pl, pr) W
+        gx = gx.narrow(axis, pad[-2], xc.shape[axis])
+    if need_w:
+        gw = conv_backward(F.pad(xc, pad), [False, True, False])[1]
+    return gx, gw
+
+
+class _RowColConv(torch.autograd.Function):
+    """``_row_col_convs`` with its backward written out (``_conv_grads``).
+    The forward is the two F.conv2d calls on the SAME-padded map.  Autograd
+    would take cuDNN's data gradient, whose f32 kernel for a 1 x N kernel at
+    N = 2048 ran for minutes on an H100 (a forward conv of the same size:
+    2.3 s; PERF.md, "Frontier"), so in f32 the map's gradient is a forward
+    convolution.
+    Only the unpadded map is saved (autograd kept both padded copies, 2 x
+    3.4 GB at N = 2048 f32); the gradients re-pad it, one direction at a
+    time."""
+
+    @staticmethod
+    def forward(ctx, xc, w, bias):
+        pad_row, pad_col = _pads(xc.shape[2], xc.shape[3], w.shape[-1])
+        ctx.save_for_backward(xc, w)
+        ctx.has_bias = bias is not None
+        return (F.conv2d(F.pad(xc, pad_row), w, bias),
+                F.conv2d(F.pad(xc, pad_col), w.transpose(2, 3), bias))
+
+    @staticmethod
+    def backward(ctx, g_row, g_col):
+        xc, w = ctx.saved_tensors
+        pad_row, pad_col = _pads(xc.shape[2], xc.shape[3], w.shape[-1])
+        need_x, need_w, need_b = ctx.needs_input_grad
+        gx_r, gw_r = _conv_grads(g_row, xc, w, pad_row, need_x, need_w)
+        gx_c, gw_c = _conv_grads(g_col, xc, w.transpose(2, 3), pad_col, need_x, need_w)
+        gb = g_row.sum((0, 2, 3)) + g_col.sum((0, 2, 3)) if ctx.has_bias and need_b else None
+        return (gx_r + gx_c if need_x else None,
+                gw_r + gw_c.transpose(2, 3) if need_w else None, gb)
 
 
 def _row_col_conv_rows(rows: torch.Tensor, whole: torch.Tensor, start: int,
