@@ -170,31 +170,34 @@ Phases, one output line each:
                num_nodes N, B = 2 graphs x S = 2 trees, the separable head
                by the auto rule) through the port's entry points: (a) at N
                = 256 f32 one train step on the card against the CPU's
-               (phase 5's tolerances) and one reconstructed batch; (b)
-               Trainer.run for 2 epochs on 4 graphs at N = 1024 f32 and
-               bf16, N = 2048 bf16 and f32 with --remat and
-               --motif-block-rows 256 (2 launches a step of each kernel,
-               motif_level3 4 with remat; K3's plain version never; the
-               losses finite, f32's falling; ms per step, device-busy ms and
-               kernels per step from a profile of the second epoch; the
-               peak of allocated memory), and one f32 step without remat at
-               N = 2048; (c) where a loss is not finite (the untrained
-               init at N = 2048), the first tensor that is not, by module,
-               and the CPU's KL terms on the same weights and batch, which
-               must not be finite either; (d) every call one train step
-               makes of the four kernels, held against its plain version on
-               the card (f32 within the float64 summation bound, bf16
-               within 2e-2, two calls bit-equal; a backward whose step's
-               gradient is not finite on a seeded one) with the plan that
-               ran; (e) a kernel line for each: median device ms over 100
-               launches, the bound, the plain version's ms (10 calls) and,
-               for K3 and its backward, the library's; (f) serve.reconstruct
-               of one batch and serve.sample of 2 graphs at N = 2048 f32
-               (2 + 2 launches a batch, finite outputs, peak memory); (g)
-               the remat step's loss terms against the step without remat
-               (rtol 1e-6), both peaks; the phase's seconds.  ``python3
-               chip_smoke.py --phase frontier`` runs the device, build and
-               frontier lines alone (no kernels or result line);
+               (phase 5's tolerances) and one reconstructed batch; for each
+               variant, N = 1024 f32 and bf16, N = 2048 bf16 and f32 with
+               --remat and --motif-block-rows 256, first one train step
+               without remat from the seed weights (2 launches of each
+               kernel; its loss terms and peak memory), then (b)
+               Trainer.run: 2 epochs on 4 graphs at N = 1024, one step on
+               2 graphs at N = 2048, where the untrained loss is not finite
+               and any later step would run on NaN weights (2 launches a
+               step of each kernel, motif_level3 4 with remat; K3's plain
+               version never; the losses finite but at N = 2048, f32's
+               epoch mean falling; ms per step, device-busy ms and kernels
+               per step from a profile of the last epoch; the peak of
+               allocated memory); (c) where the first step's loss is not
+               finite (allowed at N = 2048 alone), the first tensor that is
+               not, by module, and the CPU's graph KL on the same weights
+               and batch, which must not be finite either; (d) every call
+               the first step makes of the four kernels (its arguments kept
+               in host memory), held against its plain version on the card
+               (f32 within the float64 summation bound, bf16 within 2e-2,
+               two calls bit-equal; a backward whose step's gradient is not
+               finite on a seeded one) with the plan that ran; (e) a kernel
+               line for each: median device ms over 100 launches, the
+               bound, the plain version's ms (10 calls) and, for K3 and its
+               backward, the library's; (f) serve.reconstruct of one batch
+               and serve.sample of 2 graphs at N = 2048 f32 (2 + 2 launches
+               a batch, finite outputs, peak memory, the call's ms); (g)
+               the remat run's loss terms against the first step's without
+               remat (rtol 1e-6), both peaks; the phase's seconds;
  20. the launches per path (profile_train: the kernel events in the
                trace of 16b) and the kernels line (JSON); 21. the result
                line (JSON), last.
@@ -3036,14 +3039,17 @@ def run_cli_dp():
 # The frontier: the JAX package's single-chip frontier configuration
 # (benchmarks/frontier_2048.py:43-47: synthetic2's widths, B = 2 graphs x
 # S = 2 trees, the separable head by the auto rule), trained and served on
-# the card.  Each training variant: (N, dtype, remat, motif_block_rows);
-# remat None: one step without remat, which (g) holds the remat step to.
-FRONTIER_VARIANTS = ((1024, "float32", False, None), (1024, "bfloat16", False, None),
-                     (2048, "bfloat16", False, None), (2048, "float32", True, 256),
-                     (2048, "float32", None, None))
-FRONTIER_GRAPHS = 4       # Trainer.run on 4 graphs: 2 steps an epoch
-FRONTIER_EPOCHS = 2
-FRONTIER_PROFILE_STEPS = 2
+# the card.  Each training variant: (N, dtype, remat, motif_block_rows,
+# graphs, epochs).  Each follows a first step without remat from the seed
+# weights (``frontier_first_step``): it warms the card up at the variant's
+# shapes, gives the calls of (d), is the step (c) reads where the loss is
+# not finite and the step (g) holds the remat step to.  At N = 2048 the
+# untrained loss is not finite (see (c)), so every step after the first
+# runs on NaN weights: there Trainer.run takes one step, from the seed
+# weights again.
+FRONTIER_VARIANTS = ((1024, "float32", False, None, 4, 2), (1024, "bfloat16", False, None, 4, 2),
+                     (2048, "bfloat16", False, None, 2, 1), (2048, "float32", True, 256, 2, 1))
+FRONTIER_NONFINITE_N = 2048  # the one N whose untrained loss may read non-finite, per (c)
 FRONTIER_CPU_NODES = 256  # the card's step against the CPU's
 FRONTIER_PLAIN_REPS = 10  # the plain versions' timing at these shapes (up to ~0.1 s a call)
 FRONTIER_PLAIN_ROWS = 256  # row blocks of the float64 references
@@ -3069,8 +3075,9 @@ def frontier_config(n: int, dtype: str = "float32", remat: bool = False,
 class capture_calls:
     """While installed, the kernel wrappers (``FRONTIER_WRAPPERS``) keep
     copies of the arguments of their first ``first`` calls (one train step
-    calls each twice) in ``calls[name]``.  Each wrapper's launch counter
-    stays where ``zero_counts`` / ``read_counts`` look for it."""
+    calls each twice) in ``calls[name]``, in host memory, so that the
+    step's peak of device memory holds none of them.  Each wrapper's launch
+    counter stays where ``zero_counts`` / ``read_counts`` look for it."""
 
     def __init__(self, ml, am, first: int = 2):
         self.mods, self.first = {"ml": ml, "am": am}, first
@@ -3085,7 +3092,7 @@ class capture_calls:
 
             def wrapped(*args, _fn=fn, _kept=kept, **kwargs):
                 if len(_kept) < self.first:
-                    copy_ = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t
+                    copy_ = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t
                     _kept.append(([copy_(a) for a in args],
                                   {k: copy_(v) for k, v in kwargs.items()}))
                 return _fn(*args, **kwargs)
@@ -3272,10 +3279,12 @@ def frontier_kernels(ml, am, calls, path, dt) -> list:
             "motif_level3_backward": lambda a, k: frontier_k2(ml, a, k, dt),
             "adj_matmul": lambda a, k: frontier_k3(am, a, k, dt),
             "adj_matmul_backward": lambda a, k: frontier_k3b(am, a, k, dt)}
+    to_card = lambda t: t.cuda() if isinstance(t, torch.Tensor) else t
     rows = []
     for name, kept in calls.items():
         for i, (args, kwargs) in enumerate(kept):
-            row = hold[name](args, kwargs)
+            row = hold[name]([to_card(a) for a in args],
+                             {k: to_card(v) for k, v in kwargs.items()})
             rows.append(dict(kernel=name, path=path, call=i, dtype=str(dt)[6:], served=False,
                              batch_shape=False, two_calls_bit_equal=True,
                              launches_per_step=1) | row)
@@ -3328,11 +3337,13 @@ def nonfinite_site(state, batch, dtype) -> dict:
             "stats_max_abs": {k: v.float().abs().max().item() for k, v in stats.items()}}
 
 
-def cpu_kl_terms(cfg, batch, dtype) -> dict:
-    """(c) on the CPU: the posterior's statistics of the same seed weights
-    and batch in ``dtype`` (the encoder; its plain versions) and the KL
-    terms of the loss from them, which enter the loss as a sum: a
-    non-finite one makes the loss non-finite whatever the decoder gives."""
+def cpu_graph_kl(cfg, batch, dtype) -> dict:
+    """(c) on the CPU: the topology branch's posterior (μ, log σ) of the
+    same seed weights and batch in ``dtype`` (the first lines of the
+    model's ``encode``; K3's plain version) and the graph KL from them.
+    The KL terms enter the loss as a sum, so a graph KL that is not finite
+    makes the loss not finite whatever the rest gives; the other branches,
+    which (c) does not read, are left out."""
     from torch.nn.utils.stateless import _reparametrize_module
 
     from snd_vae_tpu_torch.losses import kl_diag_gaussian
@@ -3340,34 +3351,104 @@ def cpu_kl_terms(cfg, batch, dtype) -> dict:
 
     model = build_model(cfg.with_(compute_dtype="float32"), device="cpu")
     params = {n: p.to(dtype) for n, p in model.named_parameters()}
+    b = batch.to("cpu", dtype)
     with torch.no_grad(), _reparametrize_module(model, params):
-        stats = model.encode(batch.to("cpu", dtype))
-    kl = {b: kl_diag_gaussian(getattr(stats, f"mean_{b}").float(),
-                              getattr(stats, f"logstd_{b}").float()).item()
-          for b in ("sg", "s", "g")}
-    return {"kl": kl, "finite": all(math.isfinite(v) for v in kl.values()),
-            "stats_max_abs": {f"{k}_{b}": getattr(stats, f"{k}_{b}").float().abs().max().item()
-                              for b in ("sg", "s", "g") for k in ("mean", "logstd")}}
+        g = b.features
+        for conv, bn in zip(model.g_convs, model.g_bns):
+            g = torch.cat([bn(conv(b.adj, g)), b.features], dim=-1)
+        hidden = model.g_lin1(model.encoder_g_bn(g).reshape(b.batch_size, -1))
+        mean, logstd = model.g_lin_mean(hidden), model.g_lin_std(hidden)
+    kl = kl_diag_gaussian(mean.float(), logstd.float()).item()
+    return {"graph_kl": kl, "finite": math.isfinite(kl),
+            "stats_max_abs": {"mean_g": mean.float().abs().max().item(),
+                              "logstd_g": logstd.float().abs().max().item()}}
 
 
-def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows) -> tuple:
-    """(b): Trainer.run for 2 epochs on 4 graphs of the frontier config,
-    counted (2 launches a step of each kernel; motif_level3 4 with remat;
-    K3's plain version never), the per-step losses, the peak of allocated
-    memory, and a profile of the second epoch (2 steps after a warm-up
-    step): ms per step, device-busy ms and kernels per step; the calls of
-    the first step (``capture_calls``).  Returns (the variant's line, the
-    calls)."""
+def same_terms(a: dict, b: dict) -> tuple:
+    """Whether two steps' loss terms agree: each at rtol 1e-6, one that is
+    not finite (the init's graph KL at N = 2048, see (c)) the same in
+    both; with the largest relative difference of the finite ones."""
+    same = a.keys() == b.keys() and all(
+        abs(a[k] - b[k]) <= 1e-6 * abs(b[k]) if math.isfinite(b[k]) else str(a[k]) == str(b[k])
+        for k in a)
+    rel = max((abs(a[k] - b[k]) / abs(b[k]) for k in a if math.isfinite(b[k]) and b[k]),
+              default=0.0)
+    return same, rel
+
+
+def frontier_first_step(ml, mc, am, data, n, dt_name) -> tuple:
+    """The first train step of the frontier config without remat from the
+    seed weights (a Trainer's: its first batch and ε), counted (2 launches
+    of each kernel), with its loss terms, wall ms and peak of allocated
+    memory, and the arguments of each kernel wrapper's calls
+    (``capture_calls``: copied to the host, which the ms includes).  Where
+    its loss is not finite, (c): where the first non-finite value arises
+    in this step's forward on the card (a Trainer from the same seed), and
+    the CPU's graph KL on the same weights and batch; the check fails
+    unless N is ``FRONTIER_NONFINITE_N``, the graph KL is the card's one
+    non-finite term of the loss and the CPU's is not finite either.
+    Returns (its line, the calls)."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+
+    cfg = frontier_config(n, dt_name)
+    dt = getattr(torch, dt_name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+        with capture_calls(ml, am) as cap:
+            zero_counts(ml, mc, am)
+            t0 = time.perf_counter()
+            aux = tt.train_step(trainer.state, trainer.batched._map(lambda t: t[0]),
+                                torch.zeros((), device="cuda"))
+            first = {k: v.item() for k, v in aux.items()}
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts(ml, mc, am)
+        check(launches == per(1, ml3=2, k3=2, bwd=2, k3b=2),
+              f"frontier N={n} {dt_name} first step: launches {launches}")
+        res = {"N": n, "dtype": dt_name, "remat": False, "launches": launches,
+               "first_step_aux": first, "first_step_ms": ms,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del trainer, aux
+        if not math.isfinite(first["loss"]):
+            fresh = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
+            batch = data.slice_batch(0, cfg.train.batch_size)
+            res["nonfinite"] = {"card": nonfinite_site(fresh.state, batch, dt)}
+            del fresh
+            torch.cuda.empty_cache()
+            cpu = cpu_graph_kl(cfg, batch, dt)
+            res["nonfinite"]["cpu"] = cpu
+            terms = set(res["nonfinite"]["card"]["nonfinite_loss_terms"]) - {"loss"}
+            check(n == FRONTIER_NONFINITE_N and terms == {"graph_kl"} and not cpu["finite"],
+                  f"frontier N={n} {dt_name}: the card's loss is not finite "
+                  f"({res['nonfinite']['card']}) where the CPU's graph KL is {cpu['graph_kl']}")
+    torch.cuda.empty_cache()
+    return res, cap.calls
+
+
+def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows, epochs) -> dict:
+    """(b): Trainer.run of the frontier config for ``epochs`` on ``data``
+    (B = 2 graphs a step), counted (2 launches a step of each kernel;
+    motif_level3 4 with remat; K3's plain version never), with the per-step
+    losses, the peak of allocated memory and a profile of the last epoch:
+    ms per step, device-busy ms and kernels per step.  The first step of
+    the variant (``frontier_first_step``) has warmed the card up; at N =
+    2048 the run is one step from the seed weights.  The losses are finite
+    (but at ``FRONTIER_NONFINITE_N``, where the first step's passed (c)),
+    and over two epochs f32's epoch mean falls."""
     import tempfile
 
     from snd_vae_tpu_torch import train as tt
 
     cfg = frontier_config(n, dt_name, remat, block_rows)
     B = cfg.train.batch_size
-    per_epoch = FRONTIER_GRAPHS // B
-    steps = FRONTIER_EPOCHS * per_epoch
+    per_epoch = data.adj.shape[0] // B
+    steps = epochs * per_epoch
     res = {"N": n, "dtype": dt_name, "remat": remat, "motif_block_rows": block_rows,
-           "batch": [B, cfg.sampling_num, n], "adj_head_factored": cfg.adj_factored_engaged}
+           "batch": [B, cfg.sampling_num, n], "adj_head_factored": cfg.adj_factored_engaged,
+           "epochs": epochs, "steps": steps}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
@@ -3375,8 +3456,8 @@ def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows) -> tuple:
         losses, first, run_epoch = [], {}, trainer.run_epoch
 
         def epoch_profiled(epoch):
-            # the second epoch runs under the profiler: its wall and device time
-            if epoch == 1:
+            # the last epoch runs under the profiler: its wall and device time
+            if epoch == epochs - 1:
                 kept = []
                 res["profile"] = profile_steps(lambda _: kept.append(run_epoch(epoch)), [None],
                                                steps=per_epoch)
@@ -3389,79 +3470,30 @@ def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows) -> tuple:
             return storer
 
         trainer.run_epoch = epoch_profiled
-        with capture_calls(ml, am) as cap:
-            zero_counts(ml, mc, am)
-            t0 = time.perf_counter()
-            trainer.run(FRONTIER_EPOCHS, verbose=False)
-            res["run_s"] = time.perf_counter() - t0
-            launches = read_counts(ml, mc, am)
-        res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
-        check(launches == per(steps, ml3=4 if remat else 2, k3=2, bwd=2, k3b=2),
-              f"frontier N={n} {dt_name} remat={remat}: launches {launches} over {steps} steps")
-        means = [statistics.mean(losses[e * per_epoch:(e + 1) * per_epoch])
-                 for e in range(FRONTIER_EPOCHS)]
-        finite = all(math.isfinite(v) for v in losses)
-        # at N >= 1536 the loss may read non-finite from the untrained init,
-        # as JAX's bf16 does (CLAUDE.md, "Single-chip frontier"): then (c)
-        # below holds the card to the CPU
-        check(finite or n >= 1536, f"frontier N={n} {dt_name}: losses {losses} not all finite")
-        if dt_name == "float32" and finite:
-            check(means[1] < means[0], f"frontier N={n} f32: loss did not fall: {means}")
-        prof = res.pop("profile")
-        res.update(launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
-                   step_losses=losses, first_step_aux=first, epoch_mean_loss=means,
-                   losses_finite=finite,
-                   ms_per_step=prof["wall_ms_per_step"],
-                   profile={k: prof[k] for k in (
-                       "device_busy_ms_per_step", "device_busy_share", "kernels_per_step",
-                       "device_ms_per_step_by_range", "level3_backward_ms_per_step",
-                       "adj_matmul_backward_ms_per_step", "top_backward_kernels")})
-        del trainer
-        if not finite:
-            # (c) where the first non-finite value arises, in step 1 from the
-            # seed weights, and the CPU's loss on the same weights and batch
-            fresh = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
-            first = data.slice_batch(0, B)
-            res["nonfinite"] = {"card": nonfinite_site(fresh.state, first,
-                                                       getattr(torch, dt_name))}
-            del fresh
-            torch.cuda.empty_cache()
-            cpu = cpu_kl_terms(cfg, first, getattr(torch, dt_name))
-            res["nonfinite"]["cpu"] = cpu
-            terms = res["nonfinite"]["card"]["nonfinite_loss_terms"]
-            check(not cpu["finite"] and any(t.endswith("_kl") for t in terms),
-                  f"frontier N={n} {dt_name}: the card's loss is not finite "
-                  f"({res['nonfinite']['card']}) where the CPU's KL terms are {cpu['kl']}")
-    torch.cuda.empty_cache()
-    return res, cap.calls
-
-
-def frontier_one_step(ml, mc, am, data, n, dt_name) -> dict:
-    """One train step of the frontier config without remat from the seed
-    weights (the Trainer's first: the same ε), counted, with its loss, ms
-    and peak of allocated memory: the step (g) holds the remat step to."""
-    import tempfile
-
-    from snd_vae_tpu_torch import train as tt
-
-    cfg = frontier_config(n, dt_name)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
-        trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
         zero_counts(ml, mc, am)
         t0 = time.perf_counter()
-        aux = tt.train_step(trainer.state, trainer.batched._map(lambda t: t[0]),
-                            torch.zeros((), device="cuda"))
-        first = {k: v.item() for k, v in aux.items()}
-        ms = (time.perf_counter() - t0) * 1e3
+        trainer.run(epochs, verbose=False)
+        res["run_s"] = time.perf_counter() - t0
         launches = read_counts(ml, mc, am)
-        check(launches == per(1, ml3=2, k3=2, bwd=2, k3b=2),
-              f"frontier N={n} {dt_name} one step: launches {launches}")
-        res = {"N": n, "dtype": dt_name, "remat": False, "steps": 1, "launches": launches,
-               "step_losses": [first["loss"]], "first_step_aux": first, "first_step_ms": ms,
-               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
         del trainer
+    check(launches == per(steps, ml3=4 if remat else 2, k3=2, bwd=2, k3b=2),
+          f"frontier N={n} {dt_name} remat={remat}: launches {launches} over {steps} steps")
+    means = [statistics.mean(losses[e * per_epoch:(e + 1) * per_epoch]) for e in range(epochs)]
+    finite = all(math.isfinite(v) for v in losses)
+    check(finite or n == FRONTIER_NONFINITE_N,
+          f"frontier N={n} {dt_name}: losses {losses} not all finite")
+    if dt_name == "float32" and epochs > 1:
+        check(means[1] < means[0], f"frontier N={n} f32: loss did not fall: {means}")
+    prof = res.pop("profile")
+    res.update(launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+               step_losses=losses, first_step_aux=first, epoch_mean_loss=means,
+               losses_finite=finite, ms_per_step=prof["wall_ms_per_step"],
+               profiled_steps=per_epoch,
+               profile={k: prof[k] for k in (
+                   "device_busy_ms_per_step", "device_busy_share", "kernels_per_step",
+                   "device_ms_per_step_by_range", "level3_backward_ms_per_step",
+                   "adj_matmul_backward_ms_per_step", "top_backward_kernels")})
     torch.cuda.empty_cache()
     return res
 
@@ -3470,7 +3502,8 @@ def frontier_serve(ml, mc, am, n: int) -> dict:
     """(f): serve.reconstruct of one batch (2 graphs x 2 trees) and
     serve.sample of 2 graphs at N, f32, from the seed weights: launches (2
     of motif_level3 and 2 of adj_matmul a batch, none to sample), finite
-    outputs of the expected shapes, each call's ms and the peak memory."""
+    outputs of the expected shapes, the peak memory and the wall ms of the
+    one call (the f32 steps at N have run these shapes before)."""
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
     from snd_vae_tpu_torch.serve import reconstruct, sample
@@ -3488,13 +3521,11 @@ def frontier_serve(ml, mc, am, n: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(ml, mc, am)
+        t0 = time.perf_counter()
         out = fn()
         launches = read_counts(ml, mc, am)
-        peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
         check(launches == want, f"frontier serve {name}: launches {launches}, expected {want}")
         d = out.decoded if name == "reconstruct" else out
         check(d.adj_prob.shape == (B, n, n, 2) and d.coords.shape == (B, n, 2)
@@ -3532,54 +3563,46 @@ def run_frontier(ml, mc, am) -> tuple:
     (ROOT / "build").mkdir(exist_ok=True)
     out = {"vs_cpu": frontier_vs_cpu(FRONTIER_CPU_NODES)}
     emit("frontier_vs_cpu", out["vs_cpu"])
-    train, rows, data = [], [], {}
-    for n, dt_name, remat, block_rows in FRONTIER_VARIANTS:
-        if n not in data:
-            data.clear()
+    firsts, train, rows, loaded = [], [], [], {}
+    for n, dt_name, remat, block_rows, graphs, epochs in FRONTIER_VARIANTS:
+        if (n, graphs) not in loaded:
+            loaded.clear()
+            torch.cuda.empty_cache()
             t = time.perf_counter()
-            data[n] = load_dataset(frontier_config(n), "train", num_graphs=FRONTIER_GRAPHS,
-                                   device="cuda")
-            emit("frontier_data", {"N": n, "graphs": FRONTIER_GRAPHS,
-                                   "load_s": time.perf_counter() - t})
-        if remat is None:       # one step without remat, for (g)
-            try:
-                res, calls = frontier_one_step(ml, mc, am, data[n], n, dt_name), {}
-            except torch.cuda.OutOfMemoryError as e:
-                torch.cuda.empty_cache()
-                res, calls = {"N": n, "dtype": dt_name, "remat": False, "fits": False,
-                              "error": str(e).splitlines()[0][:200]}, {}
-        else:
-            res, calls = frontier_train(ml, mc, am, data[n], n, dt_name, remat, block_rows)
-        emit("frontier_train", res | {"phase_s": time.perf_counter() - t0})
-        train.append(res)
-        if calls:
-            kernel_rows = frontier_kernels(ml, am, calls, f"frontier_{n}", getattr(torch, dt_name))
-            for r in kernel_rows:
-                emit("kernel", r)
-            rows += kernel_rows
-            emit("frontier_kernels_held", {"N": n, "dtype": dt_name,
-                                           "phase_s": time.perf_counter() - t0})
+            loaded[n, graphs] = load_dataset(frontier_config(n), "train", num_graphs=graphs,
+                                             device="cuda")
+            emit("frontier_data", {"N": n, "graphs": graphs, "load_s": time.perf_counter() - t})
+        data = loaded[n, graphs]
+        first, calls = frontier_first_step(ml, mc, am, data, n, dt_name)
+        emit("frontier_first_step", first | {"phase_s": time.perf_counter() - t0})
+        kernel_rows = frontier_kernels(ml, am, calls, f"frontier_{n}", getattr(torch, dt_name))
         del calls
-        torch.cuda.empty_cache()
-    data.clear()
-    out["train"] = train
-    # (g) remat against no remat at N = 2048 f32: the first step's loss
-    f32 = {r["remat"]: r for r in train if r["N"] == 2048 and r["dtype"] == "float32"}
-    if f32[False].get("fits", True):
-        # each term of the loss at rtol 1e-6; one that is not finite (the
-        # init's graph KL at this N, see (c)) the same in both
-        a, b = f32[True]["first_step_aux"], f32[False]["first_step_aux"]
-        check(a.keys() == b.keys(), "frontier remat: the loss terms differ")
-        for k in a:
-            same = (abs(a[k] - b[k]) <= 1e-6 * abs(b[k]) if math.isfinite(b[k])
-                    else str(a[k]) == str(b[k]))
-            check(same, f"frontier remat: {k} {a[k]} against {b[k]} without remat")
-        out["remat_vs_none"] = {
-            "first_step_aux": {k: [a[k], b[k]] for k in a},
-            "max_rel_diff": max((abs(a[k] - b[k]) / abs(b[k]) for k in a
-                                 if math.isfinite(b[k]) and b[k]), default=0.0),
-            "peak_allocated_bytes": [f32[True]["peak_allocated_bytes"],
-                                     f32[False]["peak_allocated_bytes"]]}
+        for r in kernel_rows:
+            emit("kernel", r)
+        rows += kernel_rows
+        emit("frontier_kernels_held", {"N": n, "dtype": dt_name,
+                                       "phase_s": time.perf_counter() - t0})
+        res = frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows, epochs)
+        # the run's first step against the first step without remat: with
+        # remat this is (g); without, the same step again
+        same, rel = same_terms(res["first_step_aux"], first["first_step_aux"])
+        res["first_step_vs_first"] = {"same": same, "max_rel_diff": rel}
+        if remat:
+            check(same, f"frontier remat N={n}: first-step loss terms "
+                        f"{res['first_step_aux']} against {first['first_step_aux']} without")
+            out["remat_vs_none"] = {
+                "N": n, "dtype": dt_name, "max_rel_diff": rel,
+                "first_step_aux": {k: [v, first["first_step_aux"][k]]
+                                   for k, v in res["first_step_aux"].items()},
+                "peak_allocated_bytes": [res["peak_allocated_bytes"],
+                                         first["peak_allocated_bytes"]]}
+        emit("frontier_train", res | {"phase_s": time.perf_counter() - t0})
+        firsts.append(first)
+        train.append(res)
+    del data
+    loaded.clear()
+    torch.cuda.empty_cache()
+    out["first_steps"], out["train"] = firsts, train
     out["serve"] = frontier_serve(ml, mc, am, 2048)
     emit("frontier_serve", out["serve"])
     out["seconds"] = time.perf_counter() - t0
@@ -3629,14 +3652,7 @@ def kernel_entry(name, source, replaces, tpu_fn, rows, launches_by_path):
     return entry
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", choices=("all", "frontier"), default="all",
-                        help="frontier: the device, build and frontier lines only, "
-                             "without the kernels and result lines")
-    only_frontier = parser.parse_args(argv).phase == "frontier"
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3667,9 +3683,6 @@ def main(argv=None) -> int:
     ptxas = {k: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln] for k, log in build.build_log.items()}
     emit("build", {"seconds": secs, "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
-    if only_frontier:
-        run_frontier(ml, mc, am)
-        return 0
 
     # 2b. the native data-path library, which every loader below samples with
     emit("native", run_native())
@@ -3801,8 +3814,10 @@ def main(argv=None) -> int:
                "profile_train": {k: v // (BACKWARD_KERNELS if k == "motif_level3_backward"
                                           else 1)
                                  for k, v in cli_profile["trace_kernel_events"].items()}}
+    by_path |= {f"frontier_{r['N']}_{r['dtype']}_first_step": r["launches"]
+                for r in frontier["first_steps"]}
     by_path |= {f"frontier_{r['N']}_{r['dtype']}{'_remat' if r['remat'] else ''}":
-                r["launches"] for r in frontier["train"] if "launches" in r}
+                r["launches"] for r in frontier["train"]}
     by_path["frontier_serve"] = {k: a + b for (k, a), b in zip(
         frontier["serve"]["reconstruct"]["launches"].items(),
         frontier["serve"]["sample"]["launches"].values())}

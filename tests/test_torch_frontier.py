@@ -6,8 +6,9 @@ separable adjacency head by the auto rule), on the CPU:
   * one train step at N = 128 against ``jax.value_and_grad`` of the JAX
     model (compiled without XLA's ``algsimp``, as
     ``tests/test_torch_train.py`` explains): the loss and every gradient in
-    float64 at rtol 1e-8 (``exact_f64``) and in f32 at rtol 1e-4, with and
-    without ``remat`` and ``motif_block_rows=64``;
+    float64 at rtol 1e-8 (``exact_f64``) and in f32 at rtol 1e-4 (atol 3e-4
+    of each gradient's largest magnitude), with and without ``remat`` and
+    ``motif_block_rows=64``;
   * the kernels' launch plans at the shapes this configuration gives them
     at N = 256, 1024 and 2048 (the card's ``chip_smoke.py`` frontier phase
     trains there): tiled variants within the grid's and shared memory's
@@ -109,12 +110,12 @@ def test_frontier_step_matches_jax_f64(exact_f64, remat):
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_frontier_step_matches_jax_f32(remat):
-    """F32: the loss and every gradient at rtol 1e-4, atol 1e-3 of each
+    """F32: the loss and every gradient at rtol 1e-4, atol 3e-4 of each
     gradient's largest magnitude: the decoder's first Dense layers sum the
     adjacency head's gradient over the N² = 16,384 pairs, which the two
     packages order differently (their largest gap read 1.7e-4 of the
     largest magnitude, at d_g_lin1's kernel)."""
-    _assert_step(np.float32, remat, 1e-4, 1e-3)
+    _assert_step(np.float32, remat, 1e-4, 3e-4)
 
 
 # ---------------------------------------------------------------------------
