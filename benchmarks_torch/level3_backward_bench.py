@@ -24,7 +24,8 @@ this checkout; give another checkout, e.g. the parent commit unpacked with
            ``SIZES``: N = 256 at B = 1, 4, 8, 16 (more row tiles than one
            cluster holds; the grid from below one wave to several), the
            kernel phase's other shapes off the path, and synthetic2's
-           layer 2, on random graphs of density 0.4;
+           layer 2, on random graphs of density 0.4, each with its bound
+           (``chip_smoke.level3_backward_bound`` of those graphs);
   --k2     ``chip_smoke.check_level3_backward``: every case of the K2 phase,
            its checks, ms and bound;
   --train  ``chip_smoke.run_training``: the synthetic2 Trainer in f32 and
@@ -108,8 +109,10 @@ def sizes(cs, ml) -> dict:
     for B, N, h, R in SIZES:
         x = cs.level3_inputs(B, N, h, R, torch.float32, gen, 0.4)
         g = torch.randn(B, N, h, generator=gen, device="cuda")
-        out[f"{B},{N},{h},{R}"] = cs.device_ms(
-            lambda: ml.fused_motif_level3_backward(g, *x, needs=cs.MODEL_NEEDS))
+        out[f"{B},{N},{h},{R}"] = {
+            "ms": cs.device_ms(lambda: ml.fused_motif_level3_backward(
+                g, *x, needs=cs.MODEL_NEEDS)),
+            **cs.level3_backward_bound(x[0], R, h, cs.MODEL_NEEDS, torch.float32)}
     return out
 
 

@@ -126,14 +126,14 @@ Phases, one output line each:
                events; the traced epoch's wall time
                and its train_epoch range against an untraced f32 epoch of
                phase 5;
- 16c. trace_twice — in this process, which has traced before: two
+ 16c. trace_twice — in this process, which has traced before: eight
                Trainers' Trainer.run(profile_dir=...) on 40 graphs, each
                trace's kernel events equal to the wrappers' launches in
-               the traced epoch (the profiler warms up on a discarded
-               step of 20 ms of tiny kernels); a bare profiler (no
-               warm-up) and one warmed up on four tiny kernels
-               beside them, reported; host launches without a kernel
-               record;
+               the traced epoch, and the count of launches without a
+               device record that Trainer.run wrote beside it equal to the
+               trace's own, 0; a bare profiler (no warm-up) and one warmed
+               up on four tiny kernels beside them, reported; host
+               launches without a kernel record and when they ran;
  17. large_graph — in an NCCL process group of one (a FileStore in a
                temporary directory) and ``make_mesh(1, 1)``: the
                node-sharded GCN encoder (hidden 128, 128) on symmetric
@@ -157,7 +157,13 @@ Phases, one output line each:
                windows put together against the full launch, device ms per
                window, each a ``kernel`` line); one rank's rows of the
                third-order conv's layer 2 at N = 256 for m = 1, 2, 4 (peak
-               memory, device ms); the Trainer at synthetic2 full width on
+               memory, device ms); E2E layer 2 of the frontier on rank 0's
+               and rank 3's rows at m = 4, f32 and bf16 (at N = 512 held
+               against the whole map's rows and gradients; at N = 2048
+               device ms and device-busy ms, the backward's kernels and the
+               peak, each f32 rank faster than the whole map's forward and
+               backward);
+               the Trainer at synthetic2 full width on
                that mesh through the model-axis code, 2 + 2 launches per
                step, per-epoch losses equal to a mesh-less Trainer's at rtol
                1e-6 beside two mesh-less runs' spread;
@@ -669,31 +675,26 @@ def backward_kernels_ms(ml, fn, calls: int = 20, takes: int = 3):
     """The level-3 backward's kernels that calls of ``fn`` launch, by
     name: device ms per launch and launches per call (profiler, over
     ``calls`` calls; the wrapper's count is restored after), and the traces
-    taken.  The profiler first takes a discarded warm-up step of
-    ``TRACE_WARMUP_S`` of tiny kernels, each waited for, as the Trainer's
-    tracing does: without it a trace in a process that has traced before
-    may lose the records of its first milliseconds of kernels (PERF.md,
-    fault 3.2).  Even so, now and then a trace of this phase holds no
-    kernel record at all while the wrapper counted its launches; such a
-    trace is taken again, up to ``takes`` traces."""
+    taken.  The profiler first takes a discarded warm-up step, one call of
+    ``fn``, as the Trainer's tracing warms up on its epoch's first step's
+    kernels: a trace in a process that has traced before may lose the
+    records of the first kernels launched after the device's tracing
+    turns on (PERF.md, faults 3.2 and 3.5).  A trace of this phase that
+    holds no kernel record at all while the wrapper counted its launches
+    is taken again, up to ``takes`` traces."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-
-    from snd_vae_tpu_torch.train import TRACE_WARMUP_S
 
     before = ml.fused_motif_level3_backward.launches
     fn()
     torch.cuda.synchronize()
     for take in range(1, takes + 1):
-        start = ml.fused_motif_level3_backward.launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            x = torch.zeros(1, device="cuda")
-            end = time.perf_counter() + TRACE_WARMUP_S
-            while time.perf_counter() < end:
-                x.add_(1)
-                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
             prof.step()                 # the warm-up ends, the trace starts
+            start = ml.fused_motif_level3_backward.launches
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -2504,46 +2505,78 @@ def run_cli_profile(untraced_epoch_s: float):
 
 
 TRACE_GRAPHS = 40         # trace_twice: 4 steps an epoch
+TRAINER_TRACES = 8        # trace_twice: Trainer traces in this process
 
 
 def trace_records(path) -> dict:
     """A Chrome trace's kernel events by wrapper and, to see which records
-    go missing, the kernel launches on the host (CUDA runtime events named
-    ``*LaunchKernel*``) whose correlation id no device event
-    carries: their count and positions in launch order."""
+    go missing, the kernel launches on the host (CUDA runtime and driver
+    events named ``*LaunchKernel*``) whose correlation id no device event
+    carries: their count and positions in launch order, and when they ran.
+    Times in µs from the trace's start (its "Iteration Start" instant where
+    it has one, else its first launch): of the first launch, of the first
+    kernel record and of the lost launches; the margins between the
+    window's edges and the device's records (the first record's start
+    after the "Iteration Start" instant, the "Record Window End" instant
+    after the last record's end: the profiler keeps only the records
+    inside the window); and the device's start of each kept record less
+    its launch's host time (min, median and max: below 0 the two clocks
+    disagree)."""
     events = json.loads(Path(path).read_text())["traceEvents"]
-    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
                        and "LaunchKernel" in e.get("name", "")), key=lambda e: e.get("ts", 0))
-    on_device = {e.get("args", {}).get("correlation") for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    on_device = {e.get("args", {}).get("correlation") for e in device}
     missing = [i for i, e in enumerate(launches)
                if e.get("args", {}).get("correlation") not in on_device]
     kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    instants = [(e.get("name"), e.get("ts")) for e in events if e.get("ph") == "i"]
+    starts = [ts for name, ts in instants if "Start" in (name or "")]
+    t0 = float(starts[0]) if starts else (float(launches[0]["ts"]) if launches else 0.0)
+    launch_ts = {e.get("args", {}).get("correlation"): float(e["ts"]) for e in launches}
+    lag = sorted(float(e["ts"]) - launch_ts[c] for e in device
+                 if (c := e.get("args", {}).get("correlation")) in launch_ts)
+    ends = [ts for name, ts in instants if "Window End" in (name or "")]
+    last_end = max((float(e["ts"]) + float(e.get("dur", 0)) for e in device), default=None)
     return {"kernel_events": trace_kernel_events(events), "host_launches": len(launches),
             "launches_without_kernel": len(missing), "missing_positions": missing[:20],
             "last_missing_position": missing[-1] if missing else None,
             "missing_names": [launches[i].get("name") for i in missing[:5]],
+            "missing_us": [float(launches[i]["ts"]) - t0 for i in missing[:20]],
             "first_kernels": [e.get("name", "")[:40] for e in kernels[:4]],
+            "instants": instants[:4],
+            "first_launch_us": float(launches[0]["ts"]) - t0 if launches else None,
+            "first_kernel_us": float(kernels[0]["ts"]) - t0 if kernels else None,
             "first_launch_to_first_kernel_us": (kernels[0]["ts"] - launches[0]["ts"]
-                                                if kernels and launches else None)}
+                                                if kernels and launches else None),
+            "first_record_after_start_us": (min(float(e["ts"]) for e in device) - t0
+                                            if device and starts else None),
+            "window_end_after_last_record_us": (float(ends[0]) - last_end
+                                                if ends and last_end is not None else None),
+            "kernel_after_launch_us": ([lag[0], statistics.median(lag), lag[-1]]
+                                       if lag else None)}
 
 
 def run_trace_twice(ml, mc, am):
-    """Fault 3.2 in a process that has traced before (this one: every
-    profile above).  Two Trainers (synthetic2 full width, f32, 40 graphs of
-    the train split, 4 steps an epoch) each run 2 epochs with
-    ``profile_dir``, the package's own tracing: each trace's kernel events
-    of every wrapper must equal the wrappers' launches in the traced epoch
-    (half the run's), in both traces: the Trainer's profiler warms up on a
-    discarded step that keeps the card busy for ``TRACE_WARMUP_S``.
+    """Faults 3.2 and 3.5 in a process that has traced before (this one:
+    every profile above).  ``TRAINER_TRACES`` Trainers (synthetic2 full
+    width, f32, 40 graphs of the train split, 4 steps an epoch) each run 2
+    epochs with ``profile_dir``, the package's own tracing: each trace's
+    kernel events of every wrapper must equal the wrappers' launches in the
+    traced epoch, in every trace (the Trainer's profiler warms up on a
+    discarded forward and backward of the epoch's first batch, whose
+    launches the run's count holds too, and keeps ``TRACE_MARGIN_S`` of
+    idle card at each end of its window), and the count of launches without
+    a device record written beside each trace must be the trace's own.
     Before them, as the diagnostic of what that repairs, only reported,
     the same epoch twice under a bare ``torch.profiler.profile`` started at
     the epoch's first launch (the Trainer's tracing before the warm-up),
     and twice under a profiler whose discarded warm-up step is only four
     tiny kernels and one synchronize (too short a warm-up).  For every
     trace, the host launches without a kernel record, their positions in
-    launch order, and the time from the first launch to the first kernel
-    record."""
+    launch order, the time from the first launch to the first kernel
+    record, the window's margins and the clocks' lags
+    (``trace_records``)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
@@ -2581,23 +2614,36 @@ def run_trace_twice(ml, mc, am):
             rec = trace_records(path)
             out[variant].append(dict(rec, expected_events=events_of(launches),
                                      equal=rec["kernel_events"] == events_of(launches)))
-        for k in range(2):
+        for k in range(TRAINER_TRACES):
             tr = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/trainer_{k}")
             zero_counts(ml, mc, am)
             tr.run(2, verbose=False, profile_dir=f"{workdir}/trainer_{k}/profile")
             launches = read_counts(ml, mc, am)
-            check(launches == per(2 * nb, 2, 2, 2, 2), f"trace_twice launches {launches}")
+            # 2 epochs of steps and the warm-up's forward and backward (2 of each)
+            check(launches == per(2 * nb + 1, 2, 2, 2, 2), f"trace_twice launches {launches}")
             want = events_of(per(nb, 2, 2, 2, 2))
             rec = trace_records(f"{workdir}/trainer_{k}/profile/trace_rank0.json")
-            out["trainer"].append(dict(rec, expected_events=want,
+            written = json.loads(Path(f"{workdir}/trainer_{k}/profile/"
+                                      "trace_rank0.launches.json").read_text())
+            out["trainer"].append(dict(rec, expected_events=want, written=written,
                                        equal=rec["kernel_events"] == want))
     return out
 
 
 def check_trace_twice(out) -> None:
+    """Every Trainer trace holds exactly the wrappers' launches, and the
+    count of launches without a device record that ``Trainer.run`` wrote
+    beside it is the trace's own (0)."""
     for k, rec in enumerate(out["trainer"]):
         check(rec["equal"], f"trace_twice: trace {k} holds {rec['kernel_events']} kernel "
               f"events, the wrappers launched {rec['expected_events']}")
+        check(rec["written"] == {"host_launches": rec["host_launches"],
+                                 "launches_without_device_record":
+                                     rec["launches_without_kernel"]}
+              and rec["launches_without_kernel"] == 0,
+              f"trace_twice: trace {k} wrote {rec['written']}, its Chrome trace holds "
+              f"{rec['host_launches']} launches, {rec['launches_without_kernel']} without "
+              "a device record")
 
 
 LARGE_GRAPH_NODES = (2048, 8192)   # benchmarks/large_graph_bench.py's graphs
@@ -2937,6 +2983,183 @@ def tp_rank_rows(ml, mc, am, gen) -> dict:
     return out
 
 
+E2E_ROWS_SIZES = (512, 2048)   # E2E layer 2 at the frontier: held at 512, timed at 2048
+E2E_ROWS_M = 4
+E2E_ROWS_RANKS = (0, E2E_ROWS_M - 1)
+
+
+def conv_kernels(prof) -> dict:
+    """The device kernels of a profile with their count and ms, by name."""
+    from torch.autograd import DeviceType
+
+    return {e.key[:60]: [e.count, e.self_device_time_total / 1e3]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def e2e_rows_step(N, dt, gen, rank=None):
+    """E2E layer 2 of the frontier (x [2,N,N,50] -> 20 channels, k_h = N,
+    ``e_d_hidden = (50, 20)``) as one model rank of m = 4 computes it
+    without a process group: ``_row_col_conv_rows`` of rank ``rank``'s rows
+    (``node_block``; rank 3 holds the short last block, its window padded
+    below) and the whole map; with ``rank`` None the single-process
+    ``_RowColConv`` of the whole map.  Returns (forward, backward, leaves,
+    output gradients): the forward makes the outputs from fresh leaves,
+    the backward takes them with seeded output gradients."""
+    from snd_vae_tpu_torch.nn.edge_conv import _row_col_conv_rows, _row_col_convs
+    from snd_vae_tpu_torch.parallel.mesh import node_block
+
+    x = torch.randn(2, N, N, 50, generator=gen, device="cuda").to(dt)
+    w = (0.02 * torch.randn(20, 50, 1, N, generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn(20, generator=gen, device="cuda")).to(dt)
+    start, n = (0, N) if rank is None else node_block(N, E2E_ROWS_M, rank)
+    g = [torch.randn(2, 20, n, N, generator=gen, device="cuda").to(dt) for _ in range(2)]
+    leaves = {"rows": x[:, start:start + n].clone().requires_grad_(), "whole": x,
+              "w": w.requires_grad_(), "b": b.requires_grad_()}
+    if rank is not None:
+        x.requires_grad_()
+    else:
+        leaves["whole"] = leaves.pop("rows")
+
+    def forward():
+        if rank is None:
+            return _row_col_convs(leaves["whole"].permute(0, 3, 1, 2), w, b)
+        return _row_col_conv_rows(leaves["rows"].permute(0, 3, 1, 2),
+                                  leaves["whole"].permute(0, 3, 1, 2), start, w, b)
+
+    def backward(out):
+        for t in leaves.values():
+            t.grad = None
+        torch.autograd.backward(out, g)
+
+    return forward, backward, leaves, g, (start, n)
+
+
+def warmed_profile(fn):
+    """``fn()`` under the profiler after a discarded warm-up step of 20 ms
+    of one-element kernels, each waited for (a trace's first kernels can
+    otherwise lose their records), timed by CUDA events around it: (its
+    result, its device ms, its kernels by name with count and ms)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        x = torch.zeros(1, device="cuda")
+        stop = time.perf_counter() + 0.02
+        while time.perf_counter() < stop:
+            x.add_(1)
+            torch.cuda.synchronize()
+        prof.step()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+    return out, start.elapsed_time(end), conv_kernels(prof)
+
+
+def e2e_rows_timed(forward, backward) -> dict:
+    """One forward and one backward, each under ``warmed_profile``: the
+    device ms of each by CUDA events (a few convolutions of ~0.3-4 s each,
+    so the events time the device's work), the device-busy ms of each and
+    the backward's kernels by name from the profiler, and the peak of
+    allocated memory above what was allocated before, over both."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, fwd, fk = warmed_profile(forward)
+    _, bwd, bk = warmed_profile(lambda: backward(out))
+    busy = lambda k: sum(v[1] for v in k.values())
+    return {"forward_ms": fwd, "backward_ms": bwd, "ms": fwd + bwd,
+            "forward_busy_ms": busy(fk), "backward_busy_ms": busy(bk),
+            "peak_above_inputs_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "backward_kernels": bk}
+
+
+def tp_e2e_rows(gen) -> dict:
+    """Fault 3.4's repair on the card: E2E layer 2 of the frontier on one
+    model rank's rows, as ``E2E._rows`` runs it under a model axis, in f32
+    and bf16 at m = 4, for rank 0 and rank 3, forward and backward.  At N =
+    512 each rank's outputs and gradients (∂rows, ∂whole, ∂w, ∂b) are held
+    against the single-process ``_RowColConv`` of the whole map: its
+    output's same rows, and its gradients for output gradients that are the
+    rank's on those rows and zero elsewhere, ∂rows against the row conv's
+    part and ∂whole against the column conv's (f32 at rtol 1e-5, bf16
+    within 2e-2 of the largest magnitude).  At N = 2048 each rank's
+    forward and backward (``e2e_rows_timed``: device ms by events and
+    device-busy ms, the backward's conv kernels, the peak above the
+    inputs) against the whole map's ``_RowColConv``
+    once in f32 in the same call: every f32 rank's device ms must be
+    less (before the repair the window's f32 backward was cuDNN's data
+    gradient of a 1 x N kernel, which ran past 100 s at N = 2048)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for N in E2E_ROWS_SIZES:
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"N{N}_{str(dt)[6:]}"
+            res = {}
+            if N == E2E_ROWS_SIZES[-1] and dt == torch.float32:
+                fwd, bwd, _, _, _ = e2e_rows_step(N, dt, gen)
+                res["whole_map"] = e2e_rows_timed(fwd, bwd)
+                del fwd, bwd
+                torch.cuda.empty_cache()
+            for rank in E2E_ROWS_RANKS:
+                seed = gen.initial_seed() + rank
+                fwd, bwd, leaves, g, (start, n) = e2e_rows_step(
+                    N, dt, torch.Generator(device="cuda").manual_seed(seed), rank)
+                r = {"rows": [start, n]}
+                if N == E2E_ROWS_SIZES[0]:
+                    outs = fwd()
+                    bwd(outs)
+                    got = {k: t.grad.float() for k, t in leaves.items()}
+                    x = leaves["whole"].detach()
+                    ref_fwd, ref_bwd, ref_leaves, _, _ = e2e_rows_step(
+                        N, dt, torch.Generator(device="cuda").manual_seed(seed))
+                    with torch.no_grad():
+                        ref_leaves["whole"].copy_(x)
+                        ref_leaves["w"].copy_(leaves["w"])
+                        ref_leaves["b"].copy_(leaves["b"])
+                    ref = ref_fwd()
+                    pad = lambda t: F.pad(t, (0, 0, start, N - start - n))
+                    want = {}
+                    for part, gs in (("row", (pad(g[0]), torch.zeros_like(ref[1]))),
+                                     ("col", (torch.zeros_like(ref[0]), pad(g[1])))):
+                        for t in ref_leaves.values():
+                            t.grad = None
+                        torch.autograd.backward(ref, gs, retain_graph=True)
+                        want[part] = {k: t.grad.float() for k, t in ref_leaves.items()}
+                    pairs = {"row_out": (outs[0], ref[0][:, :, start:start + n]),
+                             "col_out": (outs[1], ref[1][:, :, start:start + n]),
+                             "d_rows": (got["rows"], want["row"]["whole"][:, start:start + n]),
+                             "d_whole": (got["whole"], want["col"]["whole"]),
+                             "d_w": (got["w"], want["row"]["w"] + want["col"]["w"]),
+                             "d_b": (got["b"], want["row"]["b"] + want["col"]["b"])}
+                    errs = {}
+                    for name, (u, v) in pairs.items():
+                        u, v = u.float(), v.float()
+                        errs[name] = (u - v).abs().max().item()
+                        scale = v.abs().max().item()
+                        ok = (errs[name] <= 2e-2 * scale if dt == torch.bfloat16 else
+                              bool(torch.allclose(u, v, rtol=1e-5, atol=1e-5 * scale)))
+                        check(ok, f"tp e2e rows {key} rank {rank} {name}: max |diff| "
+                              f"{errs[name]} of max |ref| {scale}")
+                    r["max_abs_err"] = errs
+                    del ref, ref_leaves, want, got, outs
+                else:
+                    r.update(e2e_rows_timed(fwd, bwd))
+                    if dt == torch.float32:
+                        whole = res["whole_map"]["ms"]
+                        check(r["ms"] < whole,
+                              f"tp e2e rows {key} rank {rank}: {r['ms']} ms, the whole "
+                              f"map's {whole} ms")
+                del fwd, bwd, leaves, g
+                torch.cuda.empty_cache()
+                res[f"rank{rank}"] = r
+            out[key] = res
+    return out
+
+
 def run_tp(ml, mc, am, mesh):
     """The mesh's model axis on one card: K1's row windows (``tp_windows``),
     what one rank holds (``tp_rank_rows``), and the Trainer at synthetic2
@@ -2957,7 +3180,8 @@ def run_tp(ml, mc, am, mesh):
     from snd_vae_tpu_torch.parallel import hints
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    out = {"windows": tp_windows(ml, gen), "rank_rows": tp_rank_rows(ml, mc, am, gen)}
+    out = {"windows": tp_windows(ml, gen), "rank_rows": tp_rank_rows(ml, mc, am, gen),
+           "e2e_rows": tp_e2e_rows(torch.Generator(device="cuda").manual_seed(10))}
     cfg = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
     B = cfg.train.batch_size
     data = load_dataset(cfg, "train", device="cuda")

@@ -62,23 +62,24 @@ def _pads(H: int, W: int, k: int) -> Tuple[tuple, tuple]:
 
 def _conv_grads(g: torch.Tensor, xc: torch.Tensor, kernel: torch.Tensor, pad: tuple,
                 need_x: bool, need_w: bool) -> tuple:
-    """(∂x, ∂kernel) of ``F.conv2d(F.pad(xc, pad), kernel)`` (stride 1,
-    SAME) for its output gradient ``g``; None where not asked.  ∂x in f32
-    and f64 is a forward convolution: the correlation of g, padded by the
-    pads swapped, with the kernel flipped along its taps and its channel
-    axes swapped (∂x[t] = Σ_v g[t + v - pr]·kernel[k - 1 - v] for pads (pl,
-    pr)); in bf16 the library's data gradient of the padded map, cropped.
-    ∂kernel is the library's weight gradient of the padded map."""
+    """(∂x, ∂kernel) of ``F.conv2d(F.pad(xc, pad), kernel)`` (stride 1; F.pad's
+    pads, which may be negative, as a window's crop) for its output
+    gradient ``g``; None where not asked.  ∂x in f32 and f64 is a forward
+    convolution: the correlation of g, padded by k - 1 - p for each pad p
+    of an axis with k taps (the pads swapped where they are SAME's), with
+    the kernel flipped along its taps and its channel axes swapped
+    (∂x[t] = Σ_v g[t + p_lo - v]·kernel[v]); in bf16 the library's data
+    gradient of the padded map, its pads taken off again.  ∂kernel is the
+    library's weight gradient of the padded map."""
     conv_backward = lambda x, mask: torch.ops.aten.convolution_backward(
         g, x, kernel, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
     gx = gw = None
     if need_x and g.dtype in (torch.float32, torch.float64):
-        swapped = tuple(p for i in range(0, len(pad), 2) for p in (pad[i + 1], pad[i]))
-        gx = F.conv2d(F.pad(g, swapped), kernel.flip(-2, -1).transpose(0, 1))
+        g_pad = tuple(kernel.shape[-1 - i // 2] - 1 - p for i, p in enumerate(pad))
+        gx = F.conv2d(F.pad(g, g_pad), kernel.flip(-2, -1).transpose(0, 1))
     elif need_x:
         gx = conv_backward(F.pad(xc, pad), [True, False, False])[0]
-        axis = 2 if len(pad) == 4 else 3          # (0, 0, pl, pr) pads H, (pl, pr) W
-        gx = gx.narrow(axis, pad[-2], xc.shape[axis])
+        gx = F.pad(gx, tuple(-p for p in pad))
     if need_w:
         gw = conv_backward(F.pad(xc, pad), [False, True, False])[1]
     return gx, gw
@@ -120,11 +121,48 @@ def _row_col_conv_rows(rows: torch.Tensor, whole: torch.Tensor, start: int,
     """``_row_col_convs`` for output rows [start, start + n) of a square
     NCHW map: the row conv of ``rows`` (those rows of the map), the column
     conv of the window of the SAME-padded ``whole`` map that they read."""
-    n, N, k = rows.shape[2], whole.shape[2], w.shape[-1]
-    row = F.conv2d(F.pad(rows, same_pad(N, k, 1)), w, bias)
-    window = F.pad(whole, (0, 0) + same_pad(N, k, 1)).narrow(2, start, n + k - 1)
-    col = F.conv2d(window, w.transpose(2, 3), bias)
-    return row, col
+    return _RowColConvRows.apply(rows, whole, start, w, bias)
+
+
+def _window_pads(N: int, n: int, start: int, k: int) -> tuple:
+    """F.pad's pads of an [.., N, N] map that give the window of its
+    SAME-padded rows that output rows [start, start + n) of the column
+    conv read: unpadded rows [start - pl, start + n + pr), each side
+    zero-padded past the map and cropped inside it (a negative pad)."""
+    pl, pr = same_pad(N, k, 1)
+    return (0, 0, pl - start, start + n + pr - N)
+
+
+class _RowColConvRows(torch.autograd.Function):
+    """``_row_col_conv_rows`` with its backward written out, as
+    ``_RowColConv`` has it for the whole map: the forward is the two
+    F.conv2d calls (this rank's rows; the window of the whole map), and in
+    f32 the gradients of the rows and of the whole map are forward
+    convolutions (``_conv_grads``), where autograd took cuDNN's data
+    gradient of the padded rows and window.  The window's gradient lands on
+    rows [start - pl, start + n + pr) of the whole map, clipped to it;
+    the all-gather that made ``whole`` sums it over the ranks in its own
+    backward.  Only ``rows``, ``whole`` and the kernel are saved (autograd
+    kept the padded rows and the window); the gradients pad them again."""
+
+    @staticmethod
+    def forward(ctx, rows, whole, start, w, bias):
+        n, N, k = rows.shape[2], whole.shape[2], w.shape[-1]
+        ctx.save_for_backward(rows, whole, w)
+        ctx.start, ctx.has_bias = start, bias is not None
+        return (F.conv2d(F.pad(rows, same_pad(N, k, 1)), w, bias),
+                F.conv2d(F.pad(whole, _window_pads(N, n, start, k)), w.transpose(2, 3), bias))
+
+    @staticmethod
+    def backward(ctx, g_row, g_col):
+        rows, whole, w = ctx.saved_tensors
+        n, N, k = rows.shape[2], whole.shape[2], w.shape[-1]
+        need_rows, need_whole, _, need_w, need_b = ctx.needs_input_grad
+        g_rows, gw_r = _conv_grads(g_row, rows, w, same_pad(N, k, 1), need_rows, need_w)
+        g_whole, gw_c = _conv_grads(g_col, whole, w.transpose(2, 3),
+                                    _window_pads(N, n, ctx.start, k), need_whole, need_w)
+        gb = g_row.sum((0, 2, 3)) + g_col.sum((0, 2, 3)) if ctx.has_bias and need_b else None
+        return (g_rows, g_whole, None, gw_r + gw_c.transpose(2, 3) if need_w else None, gb)
 
 
 def _conv1d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

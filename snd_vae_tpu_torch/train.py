@@ -78,6 +78,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd import DeviceType
 from torch.distributed.device_mesh import DeviceMesh
 from torch.func import functional_call
 from torch.nn.utils import parametrize
@@ -101,9 +102,23 @@ from .parallel.tensor_parallel import canonical_parameters, slices
 from .serve import reconstruct
 from .utils.logging import LossesLogger, epoch_means
 
-# how long the profiler's discarded warm-up step keeps the device busy
-# before a --profile trace starts
-TRACE_WARMUP_S = 0.02
+# the card idle, the host asleep, at each end of a --profile trace's window,
+# between its edges and the epoch's first and last kernels
+# (``Trainer._profiled_epoch``)
+TRACE_MARGIN_S = 0.1
+
+
+def launches_without_record(prof) -> tuple:
+    """(the kernel launches a finished profile holds on the host, how many
+    of them have no device record): the CUDA runtime or driver calls that
+    launch a kernel (``*LaunchKernel*``) whose correlation id no kernel,
+    memcpy or memset record of the device carries.  On the CPU (0, 0)."""
+    events = prof.profiler.kineto_results.events()
+    on_device = {c for e in events if e.device_type() != DeviceType.CPU
+                 for c in (e.correlation_id(), e.linked_correlation_id())}
+    launches = [e.correlation_id() for e in events
+                if e.device_type() == DeviceType.CPU and "LaunchKernel" in e.name()]
+    return len(launches), sum(c not in on_device for c in launches)
 
 
 @dataclass
@@ -461,36 +476,59 @@ class Trainer:
                               for a in auxes]).cpu().numpy()
         return {k: values[:, j].tolist() for j, k in enumerate(keys)}
 
+    def _warm_up(self, epoch: int) -> None:
+        """The forward and backward of epoch ``epoch``'s first batch, every
+        kernel a step launches but the optimizer's, discarded: no
+        parameter, gradient or optimizer state changes, and the generator
+        of ε and dropout is put back as it was."""
+        state = self.state
+        batch = self.batched._map(lambda t: t[0])
+        batch = batch if self.mesh is None else shard_graphbatch(batch, self.mesh)
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        drawn = state.generator.get_state()
+        with use_mesh(state.mesh):
+            with parametrize.cached():
+                out = _forward(state, batch, None)
+                total, _ = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
+                                     torch.full((), float(epoch), device=self.device),
+                                     node_mask=batch.node_mask)
+            torch.autograd.grad(total, params, allow_unused=True)
+        state.generator.set_state(drawn)
+
     def _profiled_epoch(self, epoch: int):
         """``run_epoch`` under ``torch.profiler`` (the CPU, and the card's
         kernels on a CUDA device) in a ``train_epoch`` range; the device
         is synchronized before the trace stops.  Returns the epoch's aux
-        values and the profile.
+        values, the profile and its kernel launches with how many of them
+        have no device record (``launches_without_record``).
 
-        The profiler first takes a warm-up step that the trace leaves out:
-        ``TRACE_WARMUP_S`` of tiny kernels, each waited for.  Without it, in
-        a process that had traced before, the card's records of the first
-        kernels of a trace (3 to 11 of them, the first ~1-2 ms of device
-        work) were lost, so a trace counted fewer kernels than ran
-        (PERF.md, fault 3.2)."""
+        The profiler keeps a device record only where its time, converted
+        to the host's clock, lies inside the trace's window, and the two
+        clocks can disagree by a millisecond and more, most for the first
+        kernels after the device's activity tracing turns on (PERF.md,
+        faults 3.2 and 3.5).  So the profiler first takes a warm-up step
+        that the trace leaves out: ``_warm_up``, the forward and backward
+        of the epoch's first batch, every kernel the epoch's steps launch
+        but the optimizer's.  And the epoch's kernels keep
+        ``TRACE_MARGIN_S`` of idle card from each edge of the window."""
         cuda = self.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         # one cycle: keeping its events (acc_events) spares torch's warning
         # that a new cycle would clear them
         with profile(activities=activities, acc_events=True,
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            x = torch.zeros(1, device=self.device)
-            end = time.perf_counter() + TRACE_WARMUP_S
-            while time.perf_counter() < end:
-                x.add_(1)
-                if cuda:
-                    torch.cuda.synchronize(self.device)
+            self._warm_up(epoch)
+            if cuda:
+                torch.cuda.synchronize(self.device)
             prof.step()                     # the warm-up ends, the trace starts
+            if cuda:
+                time.sleep(TRACE_MARGIN_S)
             with record_function("train_epoch"):
                 storer = self.run_epoch(epoch)
             if cuda:
                 torch.cuda.synchronize(self.device)
-        return storer, prof
+                time.sleep(TRACE_MARGIN_S)
+        return storer, prof, launches_without_record(prof)
 
     def _save(self, epoch: int) -> None:
         """Every rank gathers the state's whole tensors (collectives under a
@@ -524,7 +562,7 @@ class Trainer:
                 t0 = time.time()
                 prof = None
                 if profile_dir is not None and epoch == prof_epoch:
-                    storer, prof = self._profiled_epoch(epoch)
+                    storer, prof, (launched, unrecorded) = self._profiled_epoch(epoch)
                 else:
                     storer = self.run_epoch(epoch)
                 if verbose:
@@ -536,8 +574,15 @@ class Trainer:
                     rank = dist.get_rank() if dist.is_initialized() else 0
                     path = os.path.join(profile_dir, f"trace_rank{rank}.json")
                     prof.export_chrome_trace(path)
+                    with open(os.path.join(profile_dir, f"trace_rank{rank}.launches.json"),
+                              "w") as f:
+                        json.dump({"host_launches": launched,
+                                   "launches_without_device_record": unrecorded}, f)
                     if verbose:
                         print(f"profile: {path} written in {time.time() - t0:.5f} s")
+                        if unrecorded:
+                            print(f"profile: WARNING: {unrecorded} of {launched} kernel "
+                                  "launches in the trace have no device record")
                 if epoch % cfg.train.checkpoint_every == 0:
                     self._save(epoch)
                 self._maybe_eval(epoch, verbose)

@@ -240,7 +240,8 @@ def test_cli_trains_data_parallel_under_torchrun(tmp_path):
     """``torchrun --nproc_per_node 2 -m snd_vae_tpu_torch.cli --type train
     --dp 2 --distributed --device cpu --profile``: both processes join,
     print the same finite loss, one checkpoint is written, and each
-    process writes its own trace of the (one) epoch."""
+    process writes its own trace of the (one) epoch and, beside it, its
+    count of kernel launches without a device record."""
     _write_dataset(tmp_path / "data")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            "2", "--log-dir", str(tmp_path / "logs"), "--redirects", "3",
@@ -260,7 +261,11 @@ def test_cli_trains_data_parallel_under_torchrun(tmp_path):
     assert results[0]["loss"] == results[1]["loss"] and np.isfinite(results[0]["loss"])
     ckpt = tmp_path / "checkpoints" / "synthetic2_disentangled"
     assert sorted(os.listdir(ckpt)) == ["ckpt_0.pt"]
-    assert sorted(os.listdir(tmp_path / "profile")) == ["trace_rank0.json", "trace_rank1.json"]
+    assert sorted(os.listdir(tmp_path / "profile")) == [
+        "trace_rank0.json", "trace_rank0.launches.json",
+        "trace_rank1.json", "trace_rank1.launches.json"]
     for rank in (0, 1):
         trace = json.loads((tmp_path / "profile" / f"trace_rank{rank}.json").read_text())
         assert sum(e.get("name") == "train_epoch" for e in trace["traceEvents"]) == 1
+        assert json.loads((tmp_path / "profile" / f"trace_rank{rank}.launches.json")
+                          .read_text())["launches_without_device_record"] == 0

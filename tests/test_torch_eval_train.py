@@ -252,7 +252,44 @@ def test_cli_profile_traces_the_second_epoch(tmp_path, small_cli, monkeypatch, e
     trace = json.loads((tmp_path / "profile" / "trace_rank0.json").read_text())
     names = [e.get("name") for e in trace["traceEvents"]]
     assert names.count("train_epoch") == 1 and names.count("train_step.forward") == 2
-    assert sorted(p.name for p in (tmp_path / "profile").iterdir()) == ["trace_rank0.json"]
+    assert sorted(p.name for p in (tmp_path / "profile").iterdir()) == [
+        "trace_rank0.json", "trace_rank0.launches.json"]
+    assert json.loads((tmp_path / "profile" / "trace_rank0.launches.json").read_text()) == {
+        "host_launches": 0, "launches_without_device_record": 0}
+
+
+@pytest.mark.parametrize("model_type", ["disentangled", "base"])
+def test_profiled_run_equals_an_untraced_one(tmp_path, model_type):
+    """Tracing moves no training: 3 epochs with ``profile_dir`` (epoch 1
+    traced, after the profiler's discarded warm-up) give every epoch's
+    losses, every parameter, the Adam moments and the generator of ε and
+    dropout (the joint model at keep 0.8) bit for bit as 3 epochs without;
+    ``_profiled_epoch`` returns the trace's kernel launches and those
+    without a device record, (0, 0) on the CPU, and ``run`` writes them
+    beside the trace."""
+    cfg = _small(dropout_keep_prob=0.8).with_(model_type=model_type)
+    data = load_dataset(cfg, "train", num_graphs=20, device="cpu")
+    runs = {}
+    for name, profile_dir in (("traced", str(tmp_path / "traced" / "profile")),
+                              ("untraced", None)):
+        tr = ttrain.Trainer(cfg, data, device="cpu", workdir=str(tmp_path / name))
+        tr.run(3, verbose=False, profile_dir=profile_dir)
+        with open(tr.logger.jsonl_path) as f:     # each epoch's means, its clock aside
+            runs[name] = ([dict(json.loads(line), time=None) for line in f], tr.state)
+    (logs, state), (want_logs, want) = runs["traced"], runs["untraced"]
+    assert logs == want_logs and len(logs) == 3
+    for (n, p), q in zip(state.model.named_parameters(), want.model.parameters()):
+        assert torch.equal(p, q), n
+    for a, b in zip(state.optimizer.state.values(), want.optimizer.state.values()):
+        assert all(torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq"))
+    assert torch.equal(state.generator.get_state(), want.generator.get_state())
+    written = json.loads((tmp_path / "traced" / "profile" / "trace_rank0.launches.json")
+                         .read_text())
+    assert written == {"host_launches": 0, "launches_without_device_record": 0}
+    tr = ttrain.Trainer(cfg, data, device="cpu", workdir=str(tmp_path / "direct"))
+    storer, prof, counts = tr._profiled_epoch(0)
+    assert counts == ttrain.launches_without_record(prof) == (0, 0)
+    assert len(storer["loss"]) == 2
 
 
 def _png_size(path):

@@ -340,3 +340,124 @@ def test_row_col_convs_keep_the_unpadded_map_and_no_f32_data_gradient():
     with ConvBackwards() as mode:
         (row.sum() + col.sum()).backward()
     assert mode.masks and all(not mask[0] for mask in mode.masks)
+
+
+# ---------------------------------------------------------------------------
+# The same convs on one model rank's rows (E2E under a model axis)
+# ---------------------------------------------------------------------------
+
+RANKS = 4          # N = 10 over 4 model ranks: rows 3, 3, 3, 1 (node_block)
+
+
+def _rank_rows(dtype, rank, k=10, seed=0):
+    """A [2,10,10,3] NHWC map, a 1 x k kernel of 4 outputs and a bias, and
+    model rank ``rank``'s block (start, n) of the 10 rows at m = 4."""
+    from snd_vae_tpu_torch.parallel.mesh import node_block
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 10, 10, 3, generator=g, dtype=torch.float64).to(dtype).requires_grad_()
+    w = torch.randn(4, 3, 1, k, generator=g, dtype=torch.float64).to(dtype).requires_grad_()
+    b = torch.randn(4, generator=g, dtype=torch.float64).to(dtype).requires_grad_()
+    return x, w, b, node_block(10, RANKS, rank)
+
+
+def _conv_rows(fn, x, w, b, start, n):
+    """``fn``(rows, whole, start, w, b) on the NCHW map of ``x`` and its rows."""
+    xc = x.permute(0, 3, 1, 2)
+    return fn(xc[:, :, start:start + n], xc, start, w, b)
+
+
+def _plain_row_col_rows(rows, whole, start, w, b):
+    """The two convs of a rank's rows as plain autograd ops (what
+    ``_row_col_conv_rows`` ran before its backward was written out)."""
+    import torch.nn.functional as F
+
+    from snd_vae_tpu_torch.nn.basic import same_pad
+
+    n, N, k = rows.shape[2], whole.shape[2], w.shape[-1]
+    window = F.pad(whole, (0, 0) + same_pad(N, k, 1)).narrow(2, start, n + k - 1)
+    return (F.conv2d(F.pad(rows, same_pad(N, k, 1)), w, b),
+            F.conv2d(window, w.transpose(2, 3), b))
+
+
+@pytest.mark.parametrize("k", [10, 5])
+@pytest.mark.parametrize("rank", range(RANKS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_row_col_conv_rows_gradients(dtype, rank, k):
+    """``_row_col_conv_rows`` on each rank's rows at m = 4 (rank 3 holds the
+    short last block, its window padded on the other side): the forward
+    bit-equal to the plain convs and to the whole map's rows of
+    ``_row_col_convs``; the gradients of the map (through the rows and the
+    window), the kernel and the bias equal to autograd through the plain
+    convs (float64 1e-12; f32 1e-6 of the largest magnitude; bf16
+    bit-equal, the library's) and, in float64 and f32, to ``_RowColConv``'s
+    for an output gradient that is the rows' and zero elsewhere."""
+    from snd_vae_tpu_torch.nn.edge_conv import _row_col_conv_rows, _row_col_convs
+
+    x, w, b, (start, n) = _rank_rows(dtype, rank, k)
+    got = _conv_rows(_row_col_conv_rows, x, w, b, start, n)
+    want = _conv_rows(_plain_row_col_rows, x, w, b, start, n)
+    whole = _row_col_convs(x.permute(0, 3, 1, 2), w, b)
+    for u, v, full in zip(got, want, whole):
+        assert torch.equal(u, v)
+        if dtype != torch.bfloat16:
+            assert torch.equal(u, full[:, :, start:start + n])
+    gr, gc = (torch.randn(t.shape, generator=torch.Generator().manual_seed(1)).to(dtype)
+              for t in got)
+    grads = [torch.autograd.grad((o[0] * gr).sum() + (o[1] * gc).sum(), (x, w, b))
+             for o in (got, want)]
+    tol = {torch.float64: 1e-12, torch.float32: 1e-6, torch.bfloat16: 0.0}[dtype]
+    close = lambda u, v: (u.double() - v.double()).abs().max() <= tol * v.double().abs().max()
+    for u, v in zip(*grads):
+        assert close(u, v)
+    if dtype != torch.bfloat16:
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, start, 10 - start - n))
+        ref = torch.autograd.grad((whole[0] * pad(gr)).sum() + (whole[1] * pad(gc)).sum(),
+                                  (x, w, b))
+        for u, v in zip(grads[0], ref):
+            assert close(u, v)
+
+
+@pytest.mark.parametrize("rank", [0, RANKS - 1])
+def test_row_col_conv_rows_gradcheck(rank):
+    """Float64 ``gradcheck`` of rank 0's and the last rank's rows (the
+    window cropped at the top, and at the bottom with fewer rows), the
+    rows and the whole map as separate inputs."""
+    from snd_vae_tpu_torch.nn.edge_conv import _row_col_conv_rows
+
+    x, w, b, (start, n) = _rank_rows(torch.float64, rank, k=7)
+    xc = x.detach().permute(0, 3, 1, 2)
+    rows = xc[:, :, start:start + n].clone().requires_grad_()
+    whole = xc.clone().requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda r, m, w, b: _row_col_conv_rows(r, m, start, w, b), (rows, whole, w, b))
+
+
+def test_row_col_conv_rows_keep_the_unpadded_maps_and_no_f32_data_gradient():
+    """E2E under a model axis: a rank's row and column convs keep only the
+    rows and the whole map as they came (autograd kept the padded rows and
+    the padded window), and in f32 ask the library for no data gradient of
+    a convolution: the gradients of the rows and of the whole map are
+    forward convolutions, as on one process."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from snd_vae_tpu_torch.nn.edge_conv import _row_col_conv_rows
+
+    class ConvBackwards(TorchDispatchMode):
+        masks = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket == torch.ops.aten.convolution_backward:
+                self.masks.append(list(args[-1]))
+            return func(*args, **(kwargs or {}))
+
+    for rank in range(RANKS):
+        x, w, b, (start, n) = _rank_rows(torch.float32, rank)
+        shapes = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: shapes.append(tuple(t.shape)) or t, lambda t: t):
+            row, col = _conv_rows(_row_col_conv_rows, x, w, b, start, n)
+        assert sorted(shapes) == sorted([(2, 3, n, 10), (2, 3, 10, 10), (4, 3, 1, 10)]), shapes
+        with ConvBackwards() as mode:
+            (row.sum() + col.sum()).backward()
+        assert mode.masks and all(not mask[0] for mask in mode.masks), mode.masks

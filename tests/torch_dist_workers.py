@@ -271,15 +271,17 @@ def _inspect():
 
 def tp_op(case, mesh=None):
     """One node-sharded op of ``case`` (built by ``tp_op_module`` from its
-    seed, float64) on the whole inputs: under ``mesh`` this rank's rows of
-    the output, a local loss Σ out·g over those rows and the gradients of
-    that loss (the inputs' and the parameters'); without it the whole op."""
+    seed, in the case's ``dtype``, float64 by default) on the whole inputs:
+    under ``mesh`` this rank's rows of the output, a local loss Σ out·g
+    over those rows and the gradients of that loss (the inputs' and the
+    parameters'); without it the whole op."""
     fn, params = tp_op_module(case)
-    inputs = [torch.from_numpy(a).requires_grad_(True) for a in case["inputs"]]
+    dt = getattr(torch, case.get("dtype", "float64"))
+    inputs = [torch.from_numpy(a).to(dt).requires_grad_(True) for a in case["inputs"]]
     with use_mesh(mesh):
         out = fn(*inputs)
         n = case["inputs"][0].shape[1]
-        g = shard_nodes(torch.from_numpy(case["g"]), nodes=n)
+        g = shard_nodes(torch.from_numpy(case["g"]).to(dt), nodes=n)
         grads = torch.autograd.grad((out * g).sum(), inputs + list(params.values()),
                                     allow_unused=True)
         whole = gather_nodes(out.detach(), n)
@@ -304,7 +306,8 @@ def tp_op_module(case):
                                block_rows=case.get("block_rows")).to(F64)
         return (lambda adj, x, rel: m(adj, x, rel)), dict(m.named_parameters())
     if kind in ("e2e", "e2e_sep"):
-        m = E2E(case["C"], case["O"], case["k_h"], g, use_matmul=case.get("use_matmul")).to(F64)
+        m = E2E(case["C"], case["O"], case["k_h"], g, use_matmul=case.get("use_matmul")).to(
+            getattr(torch, case.get("dtype", "float64")))
         for p in m.parameters():          # a bias of zeros would hide its gradient
             with torch.no_grad():
                 p.add_(0.1 * torch.randn(p.shape, generator=g, dtype=F64))

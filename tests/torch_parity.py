@@ -28,7 +28,7 @@ from snd_vae_tpu.models import build_model as jax_build_model
 from snd_vae_tpu_torch import config as tcfg
 from snd_vae_tpu_torch.data.loaders import load_dataset
 from snd_vae_tpu_torch.models import build_model
-from snd_vae_tpu_torch.params import state_dict_from_flax
+from snd_vae_tpu_torch.params import state_dict_from_flax, torch_name, torch_perm
 
 SMALL = dict(
     num_nodes=8, sampling_num=3,
@@ -188,3 +188,18 @@ def setup_models(case, np_dtype, dataset="synthetic2", num_graphs=2, split="test
     assert not result.missing_keys and not result.unexpected_keys, result
     params = unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()}, sep="/")
     return jc, tc, jm, params, tm, arrays
+
+
+def flax_params_from_state_dict(state_dict, shapes):
+    """The inverse of ``snd_vae_tpu_torch.params.state_dict_from_flax``:
+    the port's tensors as the flat ``"module/leaf"`` tree of the flax
+    ``shapes``, each leaf taken from its port name and put back in the
+    flax layout (numpy arrays of their own: a view of a parameter would
+    follow its updates, and JAX's arrays made from it on the CPU too)."""
+    flat = {}
+    for path, leaf in flatten_dict(shapes, sep="/").items():
+        value = state_dict[torch_name(path)].detach().cpu().numpy()
+        flat[path] = np.array(np.transpose(value, np.argsort(torch_perm(
+            path.rsplit("/", 1)[-1], value.ndim))))
+        assert flat[path].shape == tuple(leaf.shape), path
+    return flat
