@@ -64,6 +64,25 @@ Phases, one output line each:
                each backward kernel against the autograd chain it
                replaced, in turns: kernels, device-busy and the backward's
                ms and kernels per step;
+ 5b. graphs  — the default dispatch of Trainer.run (the first step eager,
+               every later one a replay of its CUDA graph) against
+               per_step=True, from the seed weights, for synthetic2 f32
+               and bf16, the joint model with dropout (keep 0.8), protein
+               (100 graphs) and synthetic2 with remat: 2 epochs of each
+               from identical Trainers equal bit for bit (every aux value,
+               parameter, Adam moment and count, the step, the
+               generator), the wrappers' launches (per step: 2 a step;
+               graphs: the eager step and the capture), a profiled
+               replayed epoch's kernel records by name (2 each of K1, K2,
+               K3 and K3's backward a synthetic2 step, protein 0/2/0/2,
+               remat 4/2/2/2 as K1/K3/K2/K3b, no motif_combine; the
+               model's kernels equal per step's), 3 timed epochs of each
+               in turns (steps/s, graphs/s, device-busy ms and busy share,
+               the capture's seconds, peak memory); for synthetic2 f32
+               also cuDNN's deterministic algorithms against its default
+               picks (per-step steps/s in turns), epoch_chunk=2 over 4
+               epochs against 4 one-epoch dispatches, and 3 epochs
+               against 2, a checkpoint and a resume, bit for bit;
   6. joint_serve — the joint model ("base") at synthetic2 width, as 4. (2
                motif_level3 per batch, no adj_matmul, no motif_combine);
   7. joint_train — the joint model: Trainer.run for 2 epochs in f32 (2
@@ -222,8 +241,10 @@ it fails before printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -248,6 +269,7 @@ PROTEIN_SERVE_BATCHES = 2
 PROTEIN_TRAIN_GRAPHS = 100
 SEPARABLE_NODES = 128
 TRAIN_EPOCHS = 2          # the counted run; then 1 warm-up and 2 timed epochs
+GRAPH_EPOCHS = 2          # graphs: the epochs each dispatch trains from the seed weights
 PROFILE_STEPS = 5
 L3_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3.cu"
 L3B_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level3_backward.cu"
@@ -1545,7 +1567,7 @@ def run_training(ml, mc, am):
             trainer = tt.Trainer(run_cfg, data, device="cuda", workdir=workdir)
             # the main path, counted: Trainer.run over 2 epochs
             zero_counts(ml, mc, am)
-            trainer.run(TRAIN_EPOCHS, verbose=False)
+            trainer.run(TRAIN_EPOCHS, verbose=False, per_step=True)
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
             check(launches == per(steps, ml3=2, k3=2, bwd=2, k3b=2),
@@ -1637,7 +1659,7 @@ def run_joint_training(ml, mc, am):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
         trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir)
         zero_counts(ml, mc, am)
-        trainer.run(TRAIN_EPOCHS, verbose=False)
+        trainer.run(TRAIN_EPOCHS, verbose=False, per_step=True)
         launches = read_counts(ml, mc, am)
         steps = TRAIN_EPOCHS * nb
         check(launches == per(steps, ml3=2, bwd=2),
@@ -1664,6 +1686,275 @@ def run_joint_training(ml, mc, am):
     res["card_vs_cpu_max_abs_err"] = card_vs_cpu_step(cfg, data.slice_batch(0, B))
     res["dropout"] = dropout_step(cfg, data.slice_batch(0, B))
     return res
+
+
+GRAPH_TURNS = 3           # graphs: timed alternations of the two dispatches
+# graphs: kernels a step by wrapper on each configuration's path
+GRAPH_KERNELS = {"synthetic2_f32": dict(ml3=2, k3=2, bwd=2, k3b=2),
+                 "synthetic2_bf16": dict(ml3=2, k3=2, bwd=2, k3b=2),
+                 "joint_f32_dropout": dict(ml3=2, bwd=2),
+                 "protein_f32": dict(k3=2, k3b=2),
+                 "synthetic2_f32_remat": dict(ml3=4, k3=2, bwd=2, k3b=2)}
+
+
+# kernel names of the model's products, convolutions and custom kernels,
+# which a replayed step and a per-step step must launch alike
+GRAPH_HEAVY = ("gemm", "sm90", "cutlass", "conv", "cudnn", "motif", "adj_", "bmm", "dot")
+
+
+def graph_configs() -> dict:
+    """The graphs phase's configurations (config, train graphs; None: the
+    whole generated split)."""
+    from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
+
+    s2 = synthetic2_preset(dataset_path=str(ROOT / "dataset"))
+    joint = s2.with_(model_type="base",
+                     train=dataclasses.replace(s2.train, dropout_keep_prob=0.8))
+    return {"synthetic2_f32": (s2, None),
+            "synthetic2_bf16": (s2.with_(compute_dtype="bfloat16"), None),
+            "joint_f32_dropout": (joint, None),
+            "protein_f32": (protein_preset(dataset_path=str(ROOT / "dataset")), 100),
+            "synthetic2_f32_remat": (s2.with_(remat=True), None)}
+
+
+def logged(trainer) -> list:
+    """Each epoch's per-step aux values, as ``Trainer.run`` logs them."""
+    got = []
+    log = trainer.logger.log
+    trainer.logger.log = lambda epoch, storer: (got.append(storer), log(epoch, storer))[1]
+    return got
+
+
+def train_state(trainer) -> dict:
+    st = trainer.state
+    return {"params": [p.detach().clone() for p in st.model.parameters()],
+            "adam": [{k: v.clone() for k, v in st.optimizer.state[p].items()}
+                     for p in st.model.parameters()],
+            "step": st.step, "generator": st.generator.get_state()}
+
+
+def state_differs(a: dict, b: dict) -> list:
+    """What differs between two ``train_state``s (bit for bit)."""
+    out = ["step"] if a["step"] != b["step"] else []
+    out += [f"param {i}" for i, (x, y) in enumerate(zip(a["params"], b["params"]))
+            if not torch.equal(x, y)]
+    out += [f"adam {i} {k}" for i, (x, y) in enumerate(zip(a["adam"], b["adam"]))
+            for k in x if not torch.equal(x[k], y[k])]
+    return out + ([] if torch.equal(a["generator"], b["generator"]) else ["generator"])
+
+
+def dispatch_profile(warm_up, fn, steps: int) -> dict:
+    """One profiled call of ``fn`` (``steps`` train steps): its kernel
+    records by wrapper and in all, device-busy ms and the busy share of the
+    wall, a step.  As ``Trainer._profiled_epoch`` does (faults 3.2, 3.5),
+    the profiler first runs ``warm_up`` (an epoch the trace leaves out),
+    and ``fn``'s kernels keep ``TRACE_MARGIN_S`` of idle card from each
+    edge of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from snd_vae_tpu_torch.train import TRACE_MARGIN_S
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        warm_up()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_MARGIN_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(TRACE_MARGIN_S)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("train_step.")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    return {"by_wrapper": {k: sum(e.count for e in kernels if sub in e.key) / steps
+                           for k, sub in TRACE_KERNEL_NAMES.items()},
+            "by_name": {e.key: e.count / steps for e in kernels},
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall}
+
+
+def run_graphs(ml, mc, am):
+    """The default dispatch (``Trainer.run``: the first step eager, every
+    later one a CUDA-graph replay) against ``per_step=True`` for each of
+    ``graph_configs``, from the seed weights: (a) two epochs of each from
+    identical fresh Trainers, every aux value, parameter, Adam moment and
+    count, the step and the generator of ε and dropout bit for bit; the
+    wrappers' launches (the eager step and the capture: two steps' worth,
+    no plain version); (b) a profiled replayed epoch and a profiled
+    per-step epoch: kernel records a step by wrapper (``GRAPH_KERNELS``,
+    no ``motif_combine``), equal on both paths; (c) ``GRAPH_TURNS``
+    alternations of a timed epoch of each: steps/s, graphs/s, device-busy
+    ms a step and busy share, the capture's seconds and the peak memory.
+    For synthetic2 f32 also: ``epoch_chunk=2`` over 4 epochs against 4
+    one-epoch dispatches, and 3 epochs against 2, a checkpoint and a resume
+    in a fresh Trainer for the third, bit for bit."""
+    import tempfile
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    t_phase = time.perf_counter()
+    out, splits = {}, {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        for name, (cfg, graphs) in graph_configs().items():
+            t_config = time.perf_counter()
+            key = (cfg.dataset, cfg.model_type, graphs)
+            if key not in splits:
+                splits[key] = load_dataset(cfg, "train", device="cuda", num_graphs=graphs)
+            data = splits[key]
+            B = cfg.train.batch_size
+            res = {"graphs": data.batch_size, "batch": B, "compute_dtype": cfg.compute_dtype}
+            trainers, logs, launches, peak = {}, {}, {}, {}
+            for path in ("per_step", "graph"):
+                tr = trainers[path] = tt.Trainer(cfg, data, device="cuda",
+                                                 workdir=f"{workdir}/{name}_{path}")
+                logs[path] = logged(tr)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts(ml, mc, am)
+                tr.run(GRAPH_EPOCHS, verbose=False, per_step=path == "per_step")
+                launches[path] = read_counts(ml, mc, am)
+                peak[path] = torch.cuda.max_memory_allocated()
+            nb = trainers["graph"].batched.adj.shape[0]
+            differs = state_differs(train_state(trainers["graph"]),
+                                    train_state(trainers["per_step"]))
+            check(logs["graph"] == logs["per_step"] and not differs,
+                  f"graphs {name}: the graph epochs differ from the per-step ones: aux "
+                  f"{logs['graph'] == logs['per_step']}, {differs[:8]}")
+            losses = logs["graph"][0]["loss"]
+            check(len(set(losses)) == nb and all(math.isfinite(v) for v in losses),
+                  f"graphs {name}: each replay's own batch, finite losses: {losses}")
+            want = GRAPH_KERNELS[name]
+            check(launches["per_step"] == per(GRAPH_EPOCHS * nb, **want)
+                  and launches["graph"] == per(2, **want),
+                  f"graphs {name}: launches {launches}, expected {want} a step over "
+                  f"{GRAPH_EPOCHS * nb} steps per step and 2 (the eager step, the capture)")
+            res.update(steps_per_epoch=nb, launches=launches, peak_allocated_bytes=peak,
+                       epoch_mean_loss=[statistics.mean(s["loss"]) for s in logs["graph"]])
+
+            # (b) one replayed epoch against one per-step epoch, profiled
+            tg, tp = trainers["graph"], trainers["per_step"]
+            graph = tt.StepGraph(tg, nb)
+            tg.graph_epochs(graph, range(2, 3))          # the eager step and the capture
+            prof = {"graph": dispatch_profile(lambda: tg.graph_epochs(graph, range(3, 4)),
+                                              lambda: tg.graph_epochs(graph, range(4, 5)), nb),
+                    "per_step": dispatch_profile(lambda: tp.run_epoch(2),
+                                                 lambda: tp.run_epoch(3), nb)}
+            names = [prof[p].pop("by_name") for p in ("graph", "per_step")]
+            # the model's kernels a step, equal on both paths; the dispatch's
+            # own small kernels (the batch's gather and the counters in the
+            # graph; global_iter's fill in the per-step epoch) may differ
+            differ = {k: (names[0].get(k, 0), names[1].get(k, 0))
+                      for k in set(names[0]) | set(names[1])
+                      if names[0].get(k, 0) != names[1].get(k, 0)}
+            heavy = [k for k in differ if any(sub in k.lower() for sub in GRAPH_HEAVY)]
+            check(prof["graph"]["by_wrapper"] == prof["per_step"]["by_wrapper"]
+                  == events_of(per(1, **want)) and not heavy,
+                  f"graphs {name}: kernel records a step {prof}, expected {want}; "
+                  f"differing model kernels {heavy}")
+            res.update(profile=prof, capture_s=graph.capture_s,
+                       kernels_differing_per_step={k[:60]: v for k, v in differ.items()})
+
+            # (c) timed epochs in turns
+            secs = {"graph": [], "per_step": []}
+            for epoch in range(5, 5 + GRAPH_TURNS):
+                for path in ("graph", "per_step"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if path == "graph":
+                        tg.graph_epochs(graph, range(epoch, epoch + 1))
+                    else:
+                        tp.run_epoch(epoch)
+                    torch.cuda.synchronize()
+                    secs[path].append(time.perf_counter() - t0)
+            res["timed"] = {path: {"epoch_s": s, "steps_per_s": nb / statistics.median(s),
+                                   "graphs_per_s": nb * B / statistics.median(s)}
+                            for path, s in secs.items()}
+            res["speedup"] = (res["timed"]["graph"]["steps_per_s"]
+                              / res["timed"]["per_step"]["steps_per_s"])
+            if name == "synthetic2_f32":
+                res["cudnn_deterministic"] = cudnn_deterministic_cost(tp, 5 + GRAPH_TURNS)
+            del trainers, tg, tp, graph
+            if name == "synthetic2_f32":
+                res.update(graph_chunks_and_resume(tt, cfg, data, f"{workdir}/{name}"))
+            res["seconds"] = time.perf_counter() - t_config
+            out[name] = res
+            gc.collect()
+            torch.cuda.empty_cache()
+    del splits, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_default_picks():
+    """The port's train steps with cuDNN's default picks in place of the
+    deterministic algorithms ``train_step`` asks for
+    (``device.deterministic_cudnn``): to time what those cost."""
+    from snd_vae_tpu_torch import train as tt
+
+    held = tt.deterministic_cudnn
+    tt.deterministic_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        tt.deterministic_cudnn = held
+
+
+def cudnn_deterministic_cost(trainer, epoch: int) -> dict:
+    """Per-step epochs with cuDNN's deterministic algorithms (the train
+    step's setting, ``device.deterministic_cudnn``) and with its default
+    picks, in turns (on, off, off, on): steps/s of each, the price of a
+    reproducible trajectory."""
+    nb = trainer.batched.adj.shape[0]
+    secs = {"deterministic": [], "default": []}
+    for k, det in enumerate((True, False, False, True)):
+        with contextlib.nullcontext() if det else cudnn_default_picks():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run_epoch(epoch + k)
+            torch.cuda.synchronize()
+        secs["deterministic" if det else "default"].append(time.perf_counter() - t0)
+    return {k: {"epoch_s": v, "steps_per_s": nb / statistics.mean(v)} for k, v in secs.items()}
+
+
+def graph_chunks_and_resume(tt, cfg, data, workdir) -> dict:
+    """``epoch_chunk=2`` over 4 epochs against 4 one-epoch dispatches, and
+    3 epochs against 2, a checkpoint (checkpoint_every=1) and a fresh
+    Trainer resuming for the third, all bit for bit."""
+    runs = {}
+    for name, c, epochs, chunk in (("chunked", cfg, 4, 2), ("single", cfg, 4, 1),
+                                   ("straight", cfg, 3, 1)):
+        tr = tt.Trainer(c, data, device="cuda", workdir=f"{workdir}/{name}")
+        chunks, end = [], tr.chunk_end
+        tr.chunk_end = lambda e, n, k, end=end, chunks=chunks: (
+            lambda s: chunks.append(s - e) or s)(end(e, n, k))
+        logs = logged(tr)
+        tr.run(epochs, verbose=False, epoch_chunk=chunk)
+        runs[name] = (logs, train_state(tr), chunks)
+    every = cfg.with_(train=dataclasses.replace(cfg.train, checkpoint_every=1))
+    tt.Trainer(every, data, device="cuda", workdir=f"{workdir}/resumed").run(2, verbose=False)
+    tr = tt.Trainer(every, data, device="cuda", workdir=f"{workdir}/resumed")
+    logs = logged(tr)
+    tr.run(3, verbose=False)
+    runs["resumed"] = (logs, train_state(tr), None)
+    (lc, sc, chunks), (ls, ss, _) = runs["chunked"], runs["single"]
+    check(chunks == [1, 2, 1] and lc == ls and not state_differs(sc, ss),
+          f"graphs: epoch_chunk=2 {chunks} differs from one epoch a dispatch: "
+          f"{state_differs(sc, ss)[:8]}")
+    (lr, sr, _), (lt, st, _) = runs["resumed"], runs["straight"]
+    check(lr == lt[2:] and not state_differs(sr, st),
+          f"graphs: the resumed third epoch differs: {state_differs(sr, st)[:8]}")
+    return {"chunked_equals_single": True, "chunks": chunks, "resumed_equals_straight": True}
 
 
 def dropout_step(cfg, batch, keep=0.8) -> dict:
@@ -1802,7 +2093,7 @@ def run_train_epochs(ml, mc, am, cfg, graphs, per_step) -> dict:
             trainer = tt.Trainer(cfg.with_(compute_dtype=dtype_name), data, device="cuda",
                                  workdir=workdir)
             zero_counts(ml, mc, am)
-            trainer.run(1, verbose=False)
+            trainer.run(1, verbose=False, per_step=True)
             launches = read_counts(ml, mc, am)
             check(launches == per(nb, **per_step),
                   f"{cfg.dataset}/{cfg.model_type} train {dtype_name}: launches {launches} over "
@@ -2030,7 +2321,7 @@ def run_eval(ml, mc, am):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
         trainer = tt.Trainer(cfg, data, device="cuda", workdir=workdir, eval_batch=held)
         zero_counts(ml, mc, am)
-        trainer.run(TRAIN_EPOCHS, verbose=False)
+        trainer.run(TRAIN_EPOCHS, verbose=False, per_step=True)
         launches = read_counts(ml, mc, am)
         check(launches == per(steps + eval_batches, ml3=2, k3=2)
               | {"motif_level3_backward": 2 * steps, "adj_matmul_backward": 2 * steps},
@@ -2617,7 +2908,7 @@ def run_trace_twice(ml, mc, am):
         for k in range(TRAINER_TRACES):
             tr = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/trainer_{k}")
             zero_counts(ml, mc, am)
-            tr.run(2, verbose=False, profile_dir=f"{workdir}/trainer_{k}/profile")
+            tr.run(2, verbose=False, per_step=True, profile_dir=f"{workdir}/trainer_{k}/profile")
             launches = read_counts(ml, mc, am)
             # 2 epochs of steps and the warm-up's forward and backward (2 of each)
             check(launches == per(2 * nb + 1, 2, 2, 2, 2), f"trace_twice launches {launches}")
@@ -2829,7 +3120,7 @@ def run_dp(ml, mc, am, mesh):
             trainers[name] = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/{name}",
                                         mesh=m)
             zero_counts(ml, mc, am)
-            trainers[name].run(TRAIN_EPOCHS, verbose=False)
+            trainers[name].run(TRAIN_EPOCHS, verbose=False, per_step=True)
             launches = read_counts(ml, mc, am)
             steps = TRAIN_EPOCHS * nb
             check(launches == per(steps, ml3=2, k3=2, bwd=2, k3b=2),
@@ -3194,7 +3485,7 @@ def run_tp(ml, mc, am, mesh):
             hints._INSPECT = lambda tag, a, b, n: sites.__setitem__(tag, sites.get(tag, 0) + 1)
             zero_counts(ml, mc, am)
             try:
-                tr.run(TRAIN_EPOCHS, verbose=False)
+                tr.run(TRAIN_EPOCHS, verbose=False, per_step=True)
             finally:
                 hints._INSPECT = None
             launches = read_counts(ml, mc, am)
@@ -3696,7 +3987,7 @@ def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows, epochs) -> d
         trainer.run_epoch = epoch_profiled
         zero_counts(ml, mc, am)
         t0 = time.perf_counter()
-        trainer.run(epochs, verbose=False)
+        trainer.run(epochs, verbose=False, per_step=True)
         res["run_s"] = time.perf_counter() - t0
         launches = read_counts(ml, mc, am)
         res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
@@ -3928,9 +4219,11 @@ def main() -> int:
     serving = serve_phase(ml, mc, am, s2, {"ml3": 2, "k3": 2})
     emit("serve", serving)
 
-    # 5. the training path
+    # 5. the training path, and 5b. its default dispatch: CUDA-graph replays
     training = run_training(ml, mc, am)
     emit("train", training)
+    graphs = run_graphs(ml, mc, am)
+    emit("graphs", graphs)
 
     # 6.-10. the joint model, scene, the geoGCN / posGCN encoders and the
     # separable adjacency head
@@ -4011,6 +4304,9 @@ def main() -> int:
     # line; 21. the result line (the card's line just before)
     by_path = {"serve": serving["float32"]["launches"],
                "train": training["float32"]["launches"],
+               # the default dispatch: the wrappers run at the eager first
+               # step and at the capture; replays launch without them
+               "graphs_train": graphs["synthetic2_f32"]["launches"]["graph"],
                "joint_serve": joint_serving["float32"]["launches"],
                "joint_train": joint_training["launches"],
                "scene_serve": scene["serve"]["float32"]["launches"],

@@ -3,6 +3,8 @@
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 100
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --eval-every 10
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 2 --profile
+  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --epochs 100 --epoch-chunk 10
+  python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type train --per-step
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_reconstruct
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_generation
   python -m snd_vae_tpu_torch.cli --dataset synthetic2 --type test_disentangle --traverse-mode single
@@ -32,7 +34,11 @@ prints one JSON dict (``test_disentangle``: the path of the figure it drew).
     latest checkpoint there.  ``--eval-every k`` scores the test split every
     k epochs and keeps the best checkpoint by ``--best-metric``.
     ``--profile`` writes a ``torch.profiler`` trace of the second epoch to
-    ``<workdir>/profile/trace_rank<r>.json`` (``Trainer.run``).
+    ``<workdir>/profile/trace_rank<r>.json`` (``Trainer.run``).  On the
+    card in one process each step after the first is a replay of a CUDA
+    graph, with one host sync an epoch, or one a chunk of ``--epoch-chunk``
+    epochs; ``--per-step`` takes one eager step a batch, as the CPU and a
+    mesh do.
   * The other types restore that checkpoint (the latest, or
     ``train.restore_epoch``), as ``snd_vae_tpu/cli.py:145-160`` does; with
     none they warn and use the weights drawn from the seed.
@@ -173,10 +179,12 @@ def restore_for_serving(cfg, workdir: str, device) -> torch.nn.Module:
     return model
 
 
-def run_train(cfg, workdir: str, device, epochs=None, profile: bool = False) -> Dict:
+def run_train(cfg, workdir: str, device, epochs=None, profile: bool = False,
+              per_step: bool = False, epoch_chunk: int = 1) -> Dict:
     """Train, after writing the resolved config as JSON beside the logs;
     with ``eval_every`` > 0 the test split is the held-out batch; with
-    ``profile``, a trace of the second epoch under ``<workdir>/profile``."""
+    ``profile``, a trace of the second epoch under ``<workdir>/profile``;
+    ``per_step`` and ``epoch_chunk`` pick ``Trainer.run``'s dispatch."""
     cfg_path = os.path.join(workdir, cfg.train.log_dir,
                             f"config_{cfg.dataset}_{cfg.model_type}.json")
     os.makedirs(os.path.dirname(cfg_path), exist_ok=True)
@@ -185,7 +193,9 @@ def run_train(cfg, workdir: str, device, epochs=None, profile: bool = False) -> 
     eval_batch = load_dataset(cfg, "test", device=device) if cfg.train.eval_every > 0 else None
     trainer = Trainer(cfg, load_dataset(cfg, "train", device=device), device=device,
                       workdir=workdir, eval_batch=eval_batch)
-    return trainer.run(epochs, profile_dir=os.path.join(workdir, "profile") if profile else None)
+    return trainer.run(epochs, per_step=per_step,
+                       profile_dir=os.path.join(workdir, "profile") if profile else None,
+                       epoch_chunk=epoch_chunk)
 
 
 def run_test_reconstruct(cfg, model, workdir: str) -> Tuple[Dict[str, float], Dict]:
@@ -386,6 +396,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel mesh size: shard the big parameters and the node "
                         "axis of the big activations over this many processes (needs "
                         "--distributed; --dp d --tp m needs d*m processes)")
+    p.add_argument("--per-step", action="store_true", dest="per_step",
+                   help="per-batch dispatch instead of the epoch scan")
+    p.add_argument("--epoch-chunk", type=int, default=1, dest="epoch_chunk",
+                   help="epochs per device dispatch (amortizes dispatch latency)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the second epoch of --type train "
                         "to <workdir>/profile/trace_rank<r>.json")
@@ -417,7 +431,8 @@ def main(argv=None):
 
 def _run(args, cfg, device):
     if args.type == "train":
-        out = dict(run_train(cfg, args.workdir, device, args.epochs, args.profile),
+        out = dict(run_train(cfg, args.workdir, device, args.epochs, args.profile,
+                             args.per_step, args.epoch_chunk),
                    device=str(device))
     elif args.type == "sweep":
         out = run_sweep(cfg, args.workdir, device, args.epochs)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -29,6 +30,25 @@ def full_f32() -> None:
     ``serve.sample``; process-wide."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN takes deterministic algorithms only while the block runs, and
+    its setting before is put back after.  Its default picks include
+    backward-filter algorithms that sum with atomics, under which two runs
+    of one train step from one state differ in the last bits (on an H100
+    every per-step run of synthetic2 did), so neither a resumed run nor a
+    replayed CUDA graph could continue a trajectory bit for bit.  Held by
+    ``train.train_step`` (a captured step keeps the algorithms it was
+    captured with); serving and other code keep cuDNN's default picks.
+    The setting is process-wide while it is held."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def dtype_of(name: Optional[str]) -> torch.dtype:

@@ -534,3 +534,117 @@ def test_cuda_large_graph_kernel_path_matches_library(tmp_path):
         torch.testing.assert_close(pooled[True], pooled[False], rtol=1e-4, atol=1e-6)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# The trainer's default dispatch: CUDA-graph replays of the train step
+# --------------------------------------------------------------------------
+
+def _graph_trainers(tmp_path, names, graphs=20, compute_dtype="float32", **train):
+    """Trainers of synthetic2 at full width on ``graphs`` generated graphs
+    (2 steps an epoch), one per name, from the same seed."""
+    import dataclasses
+
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = synthetic2_preset(dataset_path=str(tmp_path / "dataset"))
+    cfg = cfg.with_(compute_dtype=compute_dtype,
+                    train=dataclasses.replace(cfg.train, **train))
+    data = load_dataset(cfg, "train", num_graphs=graphs, device="cuda")
+    return [tt.Trainer(cfg, data, device="cuda", workdir=str(tmp_path / n)) for n in names]
+
+
+def _logged(trainer):
+    got = []
+    log = trainer.logger.log
+    trainer.logger.log = lambda epoch, storer: (got.append(storer), log(epoch, storer))[1]
+    return got
+
+
+def _train_state(trainer):
+    st = trainer.state
+    return ([p.detach().clone() for p in st.model.parameters()],
+            [{k: v.clone() for k, v in st.optimizer.state[p].items()}
+             for p in st.model.parameters()],
+            st.step, st.generator.get_state())
+
+
+def _assert_same_state(a, b):
+    (pa, oa, sa, ga), (pb, ob, sb, gb) = a, b
+    assert sa == sb
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))
+    assert all(torch.equal(x[k], y[k]) for x, y in zip(oa, ob) for k in x)
+    assert torch.equal(ga, gb)
+
+
+@pytest.mark.parametrize("train", [dict(), dict(reshuffle=True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_graph_epochs_equal_per_step_epochs(tmp_path, dtype, train):
+    """Two epochs of the default dispatch (the first step eager, the rest
+    replays of its capture) against two of ``per_step=True`` from the same
+    seed, and against a second graph run: every aux value, parameter, Adam
+    moment and count, the step and the generator bit for bit; each
+    replay's loss is its own batch's (with ``reshuffle`` each epoch's
+    permuted batches, copied into the graph's static buffers)."""
+    _card()
+    trainers = _graph_trainers(tmp_path, ("graph", "again", "per_step"), compute_dtype=dtype,
+                               **train)
+    logs = [_logged(tr) for tr in trainers]
+    for tr in trainers:
+        tr.run(2, verbose=False, per_step=tr is trainers[2])
+    assert logs[0] == logs[1] == logs[2]
+    assert all(len(set(log["loss"])) == 2 for log in logs[0])
+    for tr in trainers[1:]:
+        _assert_same_state(_train_state(trainers[0]), _train_state(tr))
+
+
+def test_cuda_two_replays_in_a_row_are_equal(tmp_path):
+    """One replay from a state, the state put back in place, the same
+    replay again: the same aux values and state bit for bit (the kernels'
+    election counters are left zero by each launch)."""
+    from snd_vae_tpu_torch import train as tt
+
+    _card()
+    (tr,) = _graph_trainers(tmp_path, ("graph",))
+    graph = tt.StepGraph(tr, 4)
+    tr.graph_epochs(graph, range(0, 1))          # the eager step, the capture, a replay
+    snap = _train_state(tr)
+    runs = []
+    for _ in range(2):
+        params, adam, step, gen = snap
+        for p, q, s, t in zip(tr.state.model.parameters(), params,
+                              (tr.state.optimizer.state[p] for p in tr.state.model.parameters()),
+                              adam):
+            with torch.no_grad():
+                p.copy_(q)
+            for k in s:
+                s[k].copy_(t[k])
+        tr.state.step = step
+        tr.state.generator.set_state(gen)
+        graph.begin()
+        graph.load(tr.batched)
+        graph.step()
+        torch.cuda.synchronize()
+        runs.append((graph.aux[0].clone(), _train_state(tr)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    _assert_same_state(runs[0][1], runs[1][1])
+    assert graph.graph is not None
+
+
+def test_cuda_uncapturable_step_raises(tmp_path, monkeypatch):
+    """A step that reads a device value on the host (legal eagerly, not
+    under capture): the run takes its first step eagerly, then the capture
+    raises naming where it failed, and nothing trains per step instead."""
+    from snd_vae_tpu_torch import train as tt
+
+    _card()
+    (tr,) = _graph_trainers(tmp_path, ("graph",))
+    step = tt.train_step
+    monkeypatch.setattr(tt, "train_step",
+                        lambda st, b, gi: (float(gi), step(st, b, gi))[1])
+    monkeypatch.setattr(tr, "run_epoch", lambda epoch: pytest.fail("ran per step"))
+    with pytest.raises(RuntimeError, match="capturing the train step as a CUDA graph failed"):
+        tr.run(1, verbose=False)
+    assert tr.state.step == 1

@@ -79,7 +79,7 @@ def test_optimizer_matches_jax(name, rng):
     tp = [torch.tensor(p, requires_grad=True) for p in p0]
     cfg = _with_train(tcfg.synthetic2_preset(), optimizer=name, learning_rate=lr)
     topt = ttrain.make_optimizer(cfg, tp)
-    assert isinstance(topt, ttrain.TF1Adam if name == "tf1-adam" else torch.optim.Adam)
+    assert isinstance(topt, ttrain.TF1Adam if name == "tf1-adam" else ttrain.Adam)
     for g in grads:
         for p, x in zip(tp, g):
             p.grad = torch.from_numpy(x)
