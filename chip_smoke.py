@@ -138,19 +138,23 @@ Phases, one output line each:
                IEND and their CRCs), at matplotlib's pixel size for the
                figure, with drawn pixels; the ms each drawing took;
  16b. cli_profile — the CLI's --type train --epochs 2 --profile at
-               synthetic2 full width in a process of its own: the
-               torch.profiler trace of epoch 1 holds one train_epoch range
-               over 20 steps and 40 motif_level3, 40 of its backward, 40
-               adj_matmul, 40 of its backward and no motif_combine kernel
-               events; the traced epoch's wall time
-               and its train_epoch range against an untraced f32 epoch of
-               phase 5;
+               synthetic2 full width in a process of its own, on the
+               default dispatch: the torch.profiler trace of epoch 1 holds
+               one train_epoch range over its 20 replays and 40
+               motif_level3, 40 of its backward, 40 adj_matmul, 40 of its
+               backward and no motif_combine kernel events; the counts
+               written beside it the trace's own (20 replays, each with a
+               record of every kernel, memcpy and memset node of the
+               graph, none missing); the traced epoch's wall time and its
+               train_epoch range against an untraced replayed f32 epoch
+               of phase 5b;
  16c. trace_twice — in this process, which has traced before: eight
-               Trainers' Trainer.run(profile_dir=...) on 40 graphs, each
-               trace's kernel events equal to the wrappers' launches in
-               the traced epoch, and the count of launches without a
-               device record that Trainer.run wrote beside it equal to the
-               trace's own, 0; a bare profiler (no warm-up) and one warmed
+               Trainers' Trainer.run(profile_dir=...) on 40 graphs (the
+               first per step, seven on the default dispatch, tracing
+               replays), each trace's kernel events equal to the wrappers'
+               launches in the traced epoch, and the counts Trainer.run
+               wrote beside it equal to the trace's own, none missing; a
+               bare profiler (no warm-up) and one warmed
                up on four tiny kernels beside them, reported; host
                launches without a kernel record and when they ran;
  17. large_graph — in an NCCL process group of one (a FileStore in a
@@ -167,9 +171,15 @@ Phases, one output line each:
                kernels' gradients through K3's backward (2 launches) against
                the library path's;
  18. dp      — the data-parallel Trainer on that mesh at synthetic2 full
-               width, 2 epochs f32: 2 + 2 launches per step, per-epoch
-               losses equal to a mesh-less Trainer's at rtol 1e-6, the
-               steps/s of both in turns;
+               width, 2 epochs f32 per step: 2 + 2 launches per step,
+               per-epoch losses equal to a mesh-less Trainer's at rtol
+               1e-6, the steps/s of both in turns; and its default
+               dispatch on the mesh (CUDA-graph replays, the NCCL
+               collectives in the graph): 2 epochs from a fresh Trainer
+               bit-equal to the per-step run, epoch_chunk=2 and a resume
+               bit-equal, 2 / 2 / 2 / 2 kernel records a replayed step,
+               steps/s and busy share of both dispatches in turns, the
+               capture's seconds and peak memory;
  18b. tp     — the mesh's model axis: K1's row windows at m = 2 and 4
                ([100,25,25,50] f32 and bf16, [4,256,256,50] f32; every
                rank's window against ``_level3_rows`` on its rows, the
@@ -184,12 +194,16 @@ Phases, one output line each:
                backward);
                the Trainer at synthetic2 full width on
                that mesh through the model-axis code, 2 + 2 launches per
-               step, per-epoch losses equal to a mesh-less Trainer's at rtol
-               1e-6 beside two mesh-less runs' spread;
+               step (per step: the hint sites' reports come from its
+               steps), per-epoch losses equal to a mesh-less Trainer's at
+               rtol 1e-6 beside two mesh-less runs' spread; its default
+               dispatch against it, as in the dp phase;
  19. cli_dp  — ``torchrun --standalone --nproc_per_node 1 -m
                snd_vae_tpu_torch.cli --type train --dp 1 --distributed
-               --epochs 1`` in a subprocess: it joins, trains to a finite
-               loss and writes one checkpoint;
+               --epochs 1 --profile`` in a subprocess: it joins, says it
+               dispatches CUDA-graph replays, trains to a finite loss and
+               writes one checkpoint; its trace of the one epoch (the eager
+               step, the capture, 19 replays) misses no device record;
  19b. frontier — the JAX package's single-chip frontier configuration
                (benchmarks/frontier_2048.py:43-47: synthetic2's widths,
                num_nodes N, B = 2 graphs x S = 2 trees, the separable head
@@ -289,8 +303,17 @@ K3B_TPU_FN = "blocked_adj_matmul (no backward in JAX: jax.vjp of GraphConv)"
 K3B_REPLACED = "autograd through adj_matmul_plain (snd_vae_tpu_torch/nn/kernels/adj_matmul.py)"
 
 
+# wall seconds by phase: the time up to each emitted line from the line
+# before (the first from the import), summed over the phase's lines
+PHASE_SECONDS: dict = {}
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(phase: str, payload) -> None:
     print(f"{phase}: {json.dumps(payload)}", flush=True)
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _LAST_EMIT[0]
+    _LAST_EMIT[0] = now
 
 
 def check(ok: bool, what: str) -> None:
@@ -1688,7 +1711,8 @@ def run_joint_training(ml, mc, am):
     return res
 
 
-GRAPH_TURNS = 3           # graphs: timed alternations of the two dispatches
+GRAPH_TURNS = 3           # graphs: timed replayed epochs, in turns with the per-step ones
+STEP_TURNS = 1            # graphs: timed per-step epochs (each ~10x a replayed one)
 # graphs: kernels a step by wrapper on each configuration's path
 GRAPH_KERNELS = {"synthetic2_f32": dict(ml3=2, k3=2, bwd=2, k3b=2),
                  "synthetic2_bf16": dict(ml3=2, k3=2, bwd=2, k3b=2),
@@ -1780,6 +1804,38 @@ def dispatch_profile(warm_up, fn, steps: int) -> dict:
             "device_busy_share": busy_us / 1e6 / wall}
 
 
+def compare_dispatches(graph_epoch, step_epoch, epoch: int, nb: int,
+                       sync=torch.cuda.synchronize, profile: bool = True) -> dict:
+    """The two dispatches of one Trainer's epochs side by side, from epoch
+    ``epoch`` on: ``graph_epoch(e)`` trains epoch e by replays,
+    ``step_epoch(e)`` per step.  Where ``profile``, a profiled epoch of
+    each (``dispatch_profile``, each after a warm-up epoch: its records by
+    wrapper and by name, busy ms and share a step); then ``GRAPH_TURNS``
+    timed replayed epochs, the first ``STEP_TURNS`` of them each followed
+    by a timed per-step epoch: each path's epoch seconds and steps/s at
+    their median."""
+    out = {}
+    if profile:
+        out["profile"] = {
+            "graph": dispatch_profile(lambda: graph_epoch(epoch), lambda: graph_epoch(epoch + 1),
+                                      nb),
+            "per_step": dispatch_profile(lambda: step_epoch(epoch), lambda: step_epoch(epoch + 1),
+                                         nb)}
+        epoch += 2
+    secs = {"graph": [], "per_step": []}
+    for turn in range(GRAPH_TURNS):
+        for path, fn in (("graph", graph_epoch), ("per_step", step_epoch))[
+                :2 if turn < STEP_TURNS else 1]:
+            sync()
+            t0 = time.perf_counter()
+            fn(epoch + turn)
+            sync()
+            secs[path].append(time.perf_counter() - t0)
+    out["timed"] = {path: {"epoch_s": v, "steps_per_s": nb / statistics.median(v)}
+                    for path, v in secs.items()}
+    return out
+
+
 def run_graphs(ml, mc, am):
     """The default dispatch (``Trainer.run``: the first step eager, every
     later one a CUDA-graph replay) against ``per_step=True`` for each of
@@ -1789,8 +1845,8 @@ def run_graphs(ml, mc, am):
     wrappers' launches (the eager step and the capture: two steps' worth,
     no plain version); (b) a profiled replayed epoch and a profiled
     per-step epoch: kernel records a step by wrapper (``GRAPH_KERNELS``,
-    no ``motif_combine``), equal on both paths; (c) ``GRAPH_TURNS``
-    alternations of a timed epoch of each: steps/s, graphs/s, device-busy
+    no ``motif_combine``), equal on both paths; (c) timed epochs of each
+    in turns (``compare_dispatches``): steps/s, graphs/s, device-busy
     ms a step and busy share, the capture's seconds and the peak memory.
     For synthetic2 f32 also: ``epoch_chunk=2`` over 4 epochs against 4
     one-epoch dispatches, and 3 epochs against 2, a checkpoint and a resume
@@ -1839,14 +1895,14 @@ def run_graphs(ml, mc, am):
             res.update(steps_per_epoch=nb, launches=launches, peak_allocated_bytes=peak,
                        epoch_mean_loss=[statistics.mean(s["loss"]) for s in logs["graph"]])
 
-            # (b) one replayed epoch against one per-step epoch, profiled
+            # (b) one replayed epoch against one per-step epoch, profiled;
+            # (c) timed epochs in turns
             tg, tp = trainers["graph"], trainers["per_step"]
             graph = tt.StepGraph(tg, nb)
             tg.graph_epochs(graph, range(2, 3))          # the eager step and the capture
-            prof = {"graph": dispatch_profile(lambda: tg.graph_epochs(graph, range(3, 4)),
-                                              lambda: tg.graph_epochs(graph, range(4, 5)), nb),
-                    "per_step": dispatch_profile(lambda: tp.run_epoch(2),
-                                                 lambda: tp.run_epoch(3), nb)}
+            both = compare_dispatches(lambda e: tg.graph_epochs(graph, range(e, e + 1)),
+                                      tp.run_epoch, 3, nb)
+            prof = both["profile"]
             names = [prof[p].pop("by_name") for p in ("graph", "per_step")]
             # the model's kernels a step, equal on both paths; the dispatch's
             # own small kernels (the batch's gather and the counters in the
@@ -1861,22 +1917,8 @@ def run_graphs(ml, mc, am):
                   f"differing model kernels {heavy}")
             res.update(profile=prof, capture_s=graph.capture_s,
                        kernels_differing_per_step={k[:60]: v for k, v in differ.items()})
-
-            # (c) timed epochs in turns
-            secs = {"graph": [], "per_step": []}
-            for epoch in range(5, 5 + GRAPH_TURNS):
-                for path in ("graph", "per_step"):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    if path == "graph":
-                        tg.graph_epochs(graph, range(epoch, epoch + 1))
-                    else:
-                        tp.run_epoch(epoch)
-                    torch.cuda.synchronize()
-                    secs[path].append(time.perf_counter() - t0)
-            res["timed"] = {path: {"epoch_s": s, "steps_per_s": nb / statistics.median(s),
-                                   "graphs_per_s": nb * B / statistics.median(s)}
-                            for path, s in secs.items()}
+            res["timed"] = {path: t | {"graphs_per_s": t["steps_per_s"] * B}
+                            for path, t in both["timed"].items()}
             res["speedup"] = (res["timed"]["graph"]["steps_per_s"]
                               / res["timed"]["per_step"]["steps_per_s"])
             if name == "synthetic2_f32":
@@ -1927,34 +1969,103 @@ def cudnn_deterministic_cost(trainer, epoch: int) -> dict:
     return {k: {"epoch_s": v, "steps_per_s": nb / statistics.mean(v)} for k, v in secs.items()}
 
 
-def graph_chunks_and_resume(tt, cfg, data, workdir) -> dict:
-    """``epoch_chunk=2`` over 4 epochs against 4 one-epoch dispatches, and
-    3 epochs against 2, a checkpoint (checkpoint_every=1) and a fresh
-    Trainer resuming for the third, all bit for bit."""
+def graph_chunks_and_resume(tt, cfg, data, workdir, mesh=None, label="graphs",
+                            chunks=True) -> dict:
+    """``epoch_chunk=2`` over 4 epochs against 4 one-epoch dispatches
+    (where ``chunks``), and 3 epochs against 2, a checkpoint
+    (checkpoint_every=1) and a fresh Trainer resuming for the third, all
+    bit for bit; under ``mesh`` when given."""
     runs = {}
     for name, c, epochs, chunk in (("chunked", cfg, 4, 2), ("single", cfg, 4, 1),
-                                   ("straight", cfg, 3, 1)):
-        tr = tt.Trainer(c, data, device="cuda", workdir=f"{workdir}/{name}")
-        chunks, end = [], tr.chunk_end
-        tr.chunk_end = lambda e, n, k, end=end, chunks=chunks: (
-            lambda s: chunks.append(s - e) or s)(end(e, n, k))
+                                   ("straight", cfg, 3, 1))[0 if chunks else 2:]:
+        tr = tt.Trainer(c, data, device="cuda", workdir=f"{workdir}/{name}", mesh=mesh)
+        ends, end = [], tr.chunk_end
+        tr.chunk_end = lambda e, n, k, end=end, ends=ends: (
+            lambda s: ends.append(s - e) or s)(end(e, n, k))
         logs = logged(tr)
         tr.run(epochs, verbose=False, epoch_chunk=chunk)
-        runs[name] = (logs, train_state(tr), chunks)
+        runs[name] = (logs, train_state(tr), ends)
     every = cfg.with_(train=dataclasses.replace(cfg.train, checkpoint_every=1))
-    tt.Trainer(every, data, device="cuda", workdir=f"{workdir}/resumed").run(2, verbose=False)
-    tr = tt.Trainer(every, data, device="cuda", workdir=f"{workdir}/resumed")
+    tt.Trainer(every, data, device="cuda", workdir=f"{workdir}/resumed",
+               mesh=mesh).run(2, verbose=False)
+    tr = tt.Trainer(every, data, device="cuda", workdir=f"{workdir}/resumed", mesh=mesh)
     logs = logged(tr)
     tr.run(3, verbose=False)
     runs["resumed"] = (logs, train_state(tr), None)
-    (lc, sc, chunks), (ls, ss, _) = runs["chunked"], runs["single"]
-    check(chunks == [1, 2, 1] and lc == ls and not state_differs(sc, ss),
-          f"graphs: epoch_chunk=2 {chunks} differs from one epoch a dispatch: "
-          f"{state_differs(sc, ss)[:8]}")
+    out = {}
+    if chunks:
+        (lc, sc, ends), (ls, ss, _) = runs["chunked"], runs["single"]
+        check(ends == [1, 2, 1] and lc == ls and not state_differs(sc, ss),
+              f"{label}: epoch_chunk=2 {ends} differs from one epoch a dispatch: "
+              f"{state_differs(sc, ss)[:8]}")
+        out = {"chunked_equals_single": True, "chunks": ends}
     (lr, sr, _), (lt, st, _) = runs["resumed"], runs["straight"]
     check(lr == lt[2:] and not state_differs(sr, st),
-          f"graphs: the resumed third epoch differs: {state_differs(sr, st)[:8]}")
-    return {"chunked_equals_single": True, "chunks": chunks, "resumed_equals_straight": True}
+          f"{label}: the resumed third epoch differs: {state_differs(sr, st)[:8]}")
+    return out | {"resumed_equals_straight": True}
+
+
+def mesh_graphs(ml, mc, am, label, cfg, data, mesh, stepped, stepped_logs, workdir,
+                chunks=True) -> dict:
+    """The default dispatch under ``mesh`` (the NCCL group of one: its
+    collectives are NCCL kernels in the captured graph) against
+    ``stepped``, a Trainer that took ``GRAPH_EPOCHS`` epochs per step on
+    the mesh from the seed weights (its logged aux values
+    ``stepped_logs``): (a) as many epochs of a fresh Trainer on the mesh
+    through ``Trainer.run``'s default dispatch, every aux value, parameter,
+    Adam moment and count, the step and the generator bit for bit, the
+    wrappers' launches those of the eager first step and the capture (2
+    steps' worth), the run's peak memory; (b) a resume on the mesh and,
+    where ``chunks``, ``epoch_chunk=2`` (``graph_chunks_and_resume``); (c)
+    a profiled replayed epoch and a profiled per-step epoch, then timed
+    epochs of each in turns (``compare_dispatches``): kernel records a step
+    2 / 2 / 2 / 2 on both, device-busy ms and busy share, steps/s; the
+    capture's seconds and the graph's kernel and copy nodes."""
+    from snd_vae_tpu_torch import train as tt
+
+    t0 = time.perf_counter()
+    nb = stepped.batched.adj.shape[0]
+    want = dict(ml3=2, k3=2, bwd=2, k3b=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ml, mc, am)
+    tg = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/graph", mesh=mesh)
+    logs = logged(tg)
+    tg.run(GRAPH_EPOCHS, verbose=False)
+    launches = read_counts(ml, mc, am)
+    res = {"launches": launches, "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    differs = state_differs(train_state(tg), train_state(stepped))
+    check(logs == stepped_logs and not differs,
+          f"{label}: the default dispatch on the mesh differs from per step: aux "
+          f"{logs == stepped_logs}, {differs[:8]}")
+    check(launches == per(2, **want),
+          f"{label}: default dispatch launches {launches}, expected 2 steps' worth (the "
+          "eager step and the capture)")
+    res["equals_per_step"] = True
+    res.update(graph_chunks_and_resume(tt, cfg, data, f"{workdir}/chunks", mesh, label, chunks))
+
+    graph = tt.StepGraph(tg, nb)
+    tg.graph_epochs(graph, range(2, 3))          # the eager step and the capture
+    both = compare_dispatches(lambda e: tg.graph_epochs(graph, range(e, e + 1)),
+                              stepped.run_epoch, 3, nb)
+    prof = both["profile"]
+    for p in prof.values():
+        p.pop("by_name")
+    check(prof["graph"]["by_wrapper"] == prof["per_step"]["by_wrapper"]
+          == events_of(per(1, **want)),
+          f"{label}: kernel records a step {prof}, expected {want}")
+    res["timed"] = both["timed"]
+    res.update(speedup=res["timed"]["graph"]["steps_per_s"]
+               / res["timed"]["per_step"]["steps_per_s"],
+               profile=prof, capture_s=graph.capture_s,
+               kernels_per_replay=graph.kernels_per_replay,
+               copies_per_replay=graph.copies_per_replay,
+               seconds=time.perf_counter() - t0)
+    graph.release()
+    del tg, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def dropout_step(cfg, batch, keep=0.8) -> dict:
@@ -2740,14 +2851,18 @@ def check_png(path, size) -> dict:
 def run_cli_profile(untraced_epoch_s: float):
     """``python -m snd_vae_tpu_torch.cli --type train --epochs 2 --profile``
     at synthetic2 full width, in a process of its own as a user runs it
-    (timeout 600 s): the trace ``<workdir>/profile/trace_rank0.json`` holds
-    one ``train_epoch`` range over epoch 1's 20 steps and their kernel
-    events alone: 40 ``motif_level3``, 40 of its backward (one kernel a
-    call), 40 ``adj_matmul``, 40 of K3's backward, no ``motif_combine``.  The traced
+    (timeout 600 s), on the default dispatch: the trace
+    ``<workdir>/profile/trace_rank0.json`` holds one ``train_epoch`` range
+    over epoch 1's 20 replays (no ``train_step`` range: a replay runs no
+    Python) and their kernel events: 40 ``motif_level3``, 40 of its
+    backward (one kernel a call), 40 ``adj_matmul``, 40 of K3's backward, no
+    ``motif_combine``; the counts written beside it are the trace's own
+    (``check_written_trace``: 20 replays, each with its graph's kernel and
+    copy nodes' records, none missing).  The traced
     epoch's wall time (the profiler's start and stop included) and its
     ``train_epoch`` range, each against
-    ``untraced_epoch_s``, an untraced f32 epoch's seconds from the train
-    phase.  A process that has traced before is the ``trace_twice``
+    ``untraced_epoch_s``, an untraced replayed f32 epoch's seconds from the
+    graphs phase.  A process that has traced before is the ``trace_twice``
     phase's case; this one holds the CLI as a user runs it."""
     import re
     import tempfile
@@ -2778,11 +2893,14 @@ def run_cli_profile(untraced_epoch_s: float):
         host_ranges = lambda name: [e for e in events
                                     if e.get("name") == name and e.get("cat") == "user_annotation"]
         epoch_ranges, steps = host_ranges("train_epoch"), host_ranges("train_step.forward")
-        check(len(epoch_ranges) == 1 and len(steps) == 20,
+        check(len(epoch_ranges) == 1 and not steps,
               f"cli_profile: {len(epoch_ranges)} train_epoch ranges, {len(steps)} "
-              "train_step.forward ranges, expected 1 and 20")
+              "train_step.forward ranges, expected 1 and none (replays)")
         check(trace_counts == events_of(per(20, 2, 2, 2, 2)),
               f"cli_profile trace kernels {trace_counts}, expected 40 / 40 / 0 / 40 / 40")
+        written_counts = json.loads((path.parent / "trace_rank0.launches.json").read_text())
+        rec = trace_records(path)
+        check_written_trace("cli_profile", rec, written_counts, replays=20)
         range_s = epoch_ranges[0]["dur"] / 1e6
         out.update(
             epoch_seconds=secs, traced_epoch_range_seconds=range_s,
@@ -2790,6 +2908,7 @@ def run_cli_profile(untraced_epoch_s: float):
             traced_wall_over_untraced=secs[1] / untraced_epoch_s,
             traced_range_over_untraced=range_s / untraced_epoch_s,
             trace_write_seconds=float(written[0][1]), trace_mb=path.stat().st_size / 2 ** 20,
+            written=written_counts, graph_records=rec["graph_records"],
             trace_kernel_events=trace_counts, trace_all_kernels=len(kernels),
             trace_device_ms=sum(e.get("dur", 0) for e in kernels) / 1e3)
     return out
@@ -2800,10 +2919,14 @@ TRAINER_TRACES = 8        # trace_twice: Trainer traces in this process
 
 
 def trace_records(path) -> dict:
-    """A Chrome trace's kernel events by wrapper and, to see which records
-    go missing, the kernel launches on the host (CUDA runtime and driver
-    events named ``*LaunchKernel*``) whose correlation id no device event
-    carries: their count and positions in launch order, and when they ran.
+    """A Chrome trace's kernel events by wrapper; its graph launches (host
+    events ``*GraphLaunch*``), the device records (kernel, memcpy, memset)
+    that carry their correlation ids, and those that carry an eager
+    launch's; and, to see which records go missing, the kernel launches on
+    the host (CUDA runtime and driver events named ``*LaunchKernel*``,
+    those inside a capture's range left out: they run nothing) whose
+    correlation id no device event carries: their count and positions in
+    launch order, and when they ran.
     Times in µs from the trace's start (its "Iteration Start" instant where
     it has one, else its first launch): of the first launch, of the first
     kernel record and of the lost launches; the margins between the
@@ -2813,11 +2936,20 @@ def trace_records(path) -> dict:
     inside the window); and the device's start of each kept record less
     its launch's host time (min, median and max: below 0 the two clocks
     disagree)."""
+    from snd_vae_tpu_torch.train import CAPTURE_RANGE
+
     events = json.loads(Path(path).read_text())["traceEvents"]
-    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                       and "LaunchKernel" in e.get("name", "")), key=lambda e: e.get("ts", 0))
+    captures = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                if e.get("name") == CAPTURE_RANGE and e.get("cat") == "user_annotation"]
+    api = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    launches = sorted((e for e in api if "LaunchKernel" in e.get("name", "")
+                       and not any(a <= float(e["ts"]) <= b for a, b in captures)),
+                      key=lambda e: e.get("ts", 0))
+    replays = {e.get("args", {}).get("correlation") for e in api
+               if "GraphLaunch" in e.get("name", "")}
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     on_device = {e.get("args", {}).get("correlation") for e in device}
+    eager = {e.get("args", {}).get("correlation") for e in launches}
     missing = [i for i, e in enumerate(launches)
                if e.get("args", {}).get("correlation") not in on_device]
     kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
@@ -2830,6 +2962,11 @@ def trace_records(path) -> dict:
     ends = [ts for name, ts in instants if "Window End" in (name or "")]
     last_end = max((float(e["ts"]) + float(e.get("dur", 0)) for e in device), default=None)
     return {"kernel_events": trace_kernel_events(events), "host_launches": len(launches),
+            "graph_launches": len(replays),
+            "graph_records": sum(e.get("args", {}).get("correlation") in replays
+                                 for e in device),
+            "eager_records": sum(e.get("args", {}).get("correlation") in eager
+                                 for e in device),
             "launches_without_kernel": len(missing), "missing_positions": missing[:20],
             "last_missing_position": missing[-1] if missing else None,
             "missing_names": [launches[i].get("name") for i in missing[:5]],
@@ -2857,8 +2994,10 @@ def run_trace_twice(ml, mc, am):
     traced epoch, in every trace (the Trainer's profiler warms up on a
     discarded forward and backward of the epoch's first batch, whose
     launches the run's count holds too, and keeps ``TRACE_MARGIN_S`` of
-    idle card at each end of its window), and the count of launches without
-    a device record written beside each trace must be the trace's own.
+    idle card at each end of its window), and the counts written beside
+    each trace must be the trace's own (``check_written_trace``).  The
+    first Trainer steps per step; the others trace their default dispatch,
+    epoch 1's replays.
     Before them, as the diagnostic of what that repairs, only reported,
     the same epoch twice under a bare ``torch.profiler.profile`` started at
     the epoch's first launch (the Trainer's tracing before the warm-up),
@@ -2906,35 +3045,55 @@ def run_trace_twice(ml, mc, am):
             out[variant].append(dict(rec, expected_events=events_of(launches),
                                      equal=rec["kernel_events"] == events_of(launches)))
         for k in range(TRAINER_TRACES):
+            stepped = k == 0
             tr = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/trainer_{k}")
             zero_counts(ml, mc, am)
-            tr.run(2, verbose=False, per_step=True, profile_dir=f"{workdir}/trainer_{k}/profile")
+            tr.run(2, verbose=False, per_step=stepped,
+                   profile_dir=f"{workdir}/trainer_{k}/profile")
             launches = read_counts(ml, mc, am)
-            # 2 epochs of steps and the warm-up's forward and backward (2 of each)
-            check(launches == per(2 * nb + 1, 2, 2, 2, 2), f"trace_twice launches {launches}")
+            # the warm-up's forward and backward (2 of each) and 2 epochs of
+            # steps, or, replayed, the eager first step and the capture
+            steps = 2 * nb + 1 if stepped else 3
+            check(launches == per(steps, 2, 2, 2, 2), f"trace_twice launches {launches}")
             want = events_of(per(nb, 2, 2, 2, 2))
             rec = trace_records(f"{workdir}/trainer_{k}/profile/trace_rank0.json")
             written = json.loads(Path(f"{workdir}/trainer_{k}/profile/"
                                       "trace_rank0.launches.json").read_text())
+            check(written["graph_replays"] == (0 if stepped else nb),
+                  f"trace_twice trace {k}: {written['graph_replays']} replays traced")
             out["trainer"].append(dict(rec, expected_events=want, written=written,
+                                       dispatch="per step" if stepped else "replays",
                                        equal=rec["kernel_events"] == want))
     return out
 
 
 def check_trace_twice(out) -> None:
-    """Every Trainer trace holds exactly the wrappers' launches, and the
-    count of launches without a device record that ``Trainer.run`` wrote
-    beside it is the trace's own (0)."""
+    """Every Trainer trace holds exactly the wrappers' launches, and what
+    ``Trainer.run`` wrote beside it is the trace's own
+    (``check_written_trace``)."""
     for k, rec in enumerate(out["trainer"]):
         check(rec["equal"], f"trace_twice: trace {k} holds {rec['kernel_events']} kernel "
               f"events, the wrappers launched {rec['expected_events']}")
-        check(rec["written"] == {"host_launches": rec["host_launches"],
-                                 "launches_without_device_record":
-                                     rec["launches_without_kernel"]}
-              and rec["launches_without_kernel"] == 0,
-              f"trace_twice: trace {k} wrote {rec['written']}, its Chrome trace holds "
-              f"{rec['host_launches']} launches, {rec['launches_without_kernel']} without "
-              "a device record")
+        check_written_trace(f"trace_twice trace {k} ({rec['dispatch']})", rec, rec["written"])
+
+
+def check_written_trace(label, rec, written, replays=None) -> None:
+    """A ``--profile`` trace (``trace_records``) against the counts
+    ``Trainer.run`` wrote beside it: no device record missing by either
+    count; the trace's graph launches the replays written (``replays``
+    when given); the device records carrying their ids the graph's kernel
+    and copy nodes times the replays; the kernel records of the eager
+    launches as many as the launches written."""
+    nodes = written["kernels_per_replay"] + written["copies_per_replay"]
+    check(written["launches_without_device_record"] == 0 and rec["launches_without_kernel"] == 0
+          and rec["graph_launches"] == written["graph_replays"]
+          and (replays is None or written["graph_replays"] == replays)
+          and rec["graph_records"] == nodes * written["graph_replays"]
+          and rec["eager_records"] == rec["host_launches"] == written["host_launches"],
+          f"{label}: wrote {written}; the Chrome trace holds {rec['graph_launches']} graph "
+          f"launches with {rec['graph_records']} device records, {rec['host_launches']} "
+          f"eager launches with {rec['eager_records']}, {rec['launches_without_kernel']} "
+          f"without a record (expected {replays} replays)")
 
 
 LARGE_GRAPH_NODES = (2048, 8192)   # benchmarks/large_graph_bench.py's graphs
@@ -3091,9 +3250,13 @@ def run_large_graph(am, mesh):
 
 def run_dp(ml, mc, am, mesh):
     """The data-parallel Trainer at synthetic2 full width in the NCCL group
-    of one (``mesh=make_mesh(1, 1)``): Trainer.run for 2 epochs f32 from
-    the seed weights, counted (2 motif_level3 and 2 adj_matmul per step, no
-    motif_combine); its per-epoch losses equal to a mesh-less Trainer's
+    of one (``mesh=make_mesh(1, 1)``): Trainer.run for 2 epochs f32 per
+    step from the seed weights, counted (2 motif_level3 and 2 adj_matmul
+    per step, no motif_combine), its peak memory; its default dispatch
+    against it (``mesh_graphs``: CUDA-graph replays with the NCCL
+    collectives captured, bit for bit, chunks and a resume, kernel
+    records, steps/s and busy share of both dispatches in turns, the
+    capture); its per-epoch losses equal to a mesh-less Trainer's
     from the same seed at rtol 1e-6; the steps/s of both over one epoch
     each, run in turns (mesh, plain, plain, mesh, twice) after the counted
     runs.  The difference is the host cost of the collectives: the loss
@@ -3115,10 +3278,13 @@ def run_dp(ml, mc, am, mesh):
     out = {"batch": [B, cfg.sampling_num, cfg.num_nodes], "steps_per_epoch": nb,
            "epochs": TRAIN_EPOCHS}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
-        trainers, means = {}, {}
+        trainers, means, logs = {}, {}, {}
         for name, m in (("mesh", mesh), ("no_mesh", None)):
             trainers[name] = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/{name}",
                                         mesh=m)
+            logs[name] = logged(trainers[name])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             zero_counts(ml, mc, am)
             trainers[name].run(TRAIN_EPOCHS, verbose=False, per_step=True)
             launches = read_counts(ml, mc, am)
@@ -3130,8 +3296,12 @@ def run_dp(ml, mc, am, mesh):
             with open(trainers[name].logger.jsonl_path) as f:
                 means[name] = [json.loads(line)["loss"] for line in f]
             out[name] = {"launches": launches, "epoch_mean_loss": means[name],
-                         "launches_per_step": {k: v / steps for k, v in launches.items()}}
+                         "launches_per_step": {k: v / steps for k, v in launches.items()},
+                         "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
         check(all(math.isfinite(v) for v in means["mesh"]), f"dp losses {means['mesh']}")
+        # the default dispatch on the mesh, against the per-step run above
+        out["mesh_graphs"] = mesh_graphs(ml, mc, am, "dp", cfg, data, mesh, trainers["mesh"],
+                                         logs["mesh"], f"{workdir}/graphs")
         for got, want in zip(means["mesh"], means["no_mesh"]):
             check(abs(got - want) <= 1e-6 * abs(want),
                   f"dp epoch losses {means['mesh']} vs the mesh-less {means['no_mesh']}")
@@ -3457,8 +3627,11 @@ def run_tp(ml, mc, am, mesh):
     full width, f32, on ``make_mesh(1, 1)`` through the model-axis code at
     a model axis of 1 (the hint sites, which report through
     ``hints._INSPECT`` and return their input, as XLA elides a trivial
-    constraint; the canonical parameter order; the whole checkpoint): 2 epochs
-    counted (2 motif_level3 and 2 adj_matmul per step), per-epoch losses
+    constraint, read from this per-step run: the replays of the default
+    dispatch run no Python; the canonical parameter order; the whole
+    checkpoint): 2 epochs per step counted (2 motif_level3 and 2
+    adj_matmul per step), its default dispatch against it
+    (``mesh_graphs``), per-epoch losses
     equal to a mesh-less Trainer's at rtol 1e-6, as the dp phase holds
     them, beside the spread of two mesh-less runs (the card's f32 runs are
     not bit-reproducible: ~1e-8), a checkpoint written and its tensors
@@ -3481,6 +3654,9 @@ def run_tp(ml, mc, am, mesh):
         means = {}
         for name, m in (("tp", mesh), ("no_mesh", None), ("no_mesh_again", None)):
             tr = tt.Trainer(cfg, data, device="cuda", workdir=f"{workdir}/{name}", mesh=m)
+            logs = logged(tr)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             sites = {}
             hints._INSPECT = lambda tag, a, b, n: sites.__setitem__(tag, sites.get(tag, 0) + 1)
             zero_counts(ml, mc, am)
@@ -3503,6 +3679,13 @@ def run_tp(ml, mc, am, mesh):
                 saved = tr.checkpointer.load()["model"]
                 check(all(saved[k].shape == p.shape for k, p in
                           tr.state.model.named_parameters()), "tp checkpoint whole")
+                out[name]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+                # the default dispatch through the model-axis code, against
+                # this per-step run
+                # on the mesh of one the dp phase's Trainer, whose chunks
+                # that phase holds to one epoch a dispatch
+                out["mesh_graphs"] = mesh_graphs(ml, mc, am, "tp", cfg, data, mesh, tr, logs,
+                                                 f"{workdir}/graphs", chunks=False)
         rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(means[a], means[b]))
         for got, want in zip(means["tp"], means["no_mesh"]):
             check(math.isfinite(got) and abs(got - want) <= 1e-6 * abs(want),
@@ -3527,15 +3710,20 @@ def host_us(fn, n: int = 200) -> float:
 
 def run_cli_dp():
     """``torchrun --standalone --nproc_per_node 1 -m snd_vae_tpu_torch.cli
-    --type train --dp 1 --distributed --epochs 1`` in a subprocess (timeout
-    600 s): it prints ``distributed: process 0/1``, a finite loss, and
-    writes one checkpoint."""
+    --type train --dp 1 --distributed --epochs 1 --profile`` in a
+    subprocess (timeout 600 s): it prints ``distributed: process 0/1`` and
+    that it dispatches CUDA-graph replays (``--dp 1`` makes no mesh: the
+    ``dp`` and ``tp`` phases hold the mesh's replays), a finite loss,
+    and writes one checkpoint; its trace of the one epoch holds the eager
+    first step, the capture (whose launches run nothing) and 19 replays,
+    each with its graph's kernel and copy nodes' records, none missing
+    (``check_written_trace``)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc_per_node", "1", "-m", "snd_vae_tpu_torch.cli", "--type", "train",
-               "--dp", "1", "--distributed", "--epochs", "1", "--workdir", workdir,
+               "--dp", "1", "--distributed", "--epochs", "1", "--profile", "--workdir", workdir,
                "--dataset-path", str(ROOT / "dataset")]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -3543,12 +3731,21 @@ def run_cli_dp():
         secs = time.perf_counter() - t0
         lines = proc.stdout.splitlines()
         check(proc.returncode == 0, f"cli_dp exited {proc.returncode}: {proc.stderr[-2000:]}")
-        check("distributed: process 0/1" in lines, f"cli_dp printed {lines[:3]}")
+        # --dp 1 makes no mesh: one process in a group of one
+        dispatch = "dispatch: CUDA-graph replays"
+        check("distributed: process 0/1" in lines and dispatch in lines,
+              f"cli_dp printed {lines[:3]}")
         result = json.loads(lines[-1])
         check(math.isfinite(result["loss"]), f"cli_dp loss {result['loss']}")
         ckpts = sorted(os.listdir(Path(workdir) / "checkpoints" / "synthetic2_disentangled"))
         check(ckpts == ["ckpt_0.pt"], f"cli_dp checkpoints {ckpts}")
-    return {"seconds": secs, "loss": result["loss"], "checkpoints": ckpts}
+        profile = Path(workdir) / "profile"
+        written = json.loads((profile / "trace_rank0.launches.json").read_text())
+        rec = trace_records(profile / "trace_rank0.json")
+        check_written_trace("cli_dp", rec, written, replays=19)
+    return {"seconds": secs, "loss": result["loss"], "checkpoints": ckpts,
+            "dispatch": dispatch[len("dispatch: "):], "profile": written,
+            "trace_kernel_events": rec["kernel_events"]}
 
 
 # The frontier: the JAX package's single-chip frontier configuration
@@ -4263,7 +4460,8 @@ def main() -> int:
     remat = run_remat(ml, mc, am)
     emit("remat", remat)
     emit("cli_eval", run_cli_eval())
-    cli_profile = run_cli_profile(20 / training["float32"]["steps_per_s"])
+    cli_profile = run_cli_profile(
+        statistics.median(graphs["synthetic2_f32"]["timed"]["graph"]["epoch_s"]))
     emit("cli_profile", cli_profile)
     trace_twice = run_trace_twice(ml, mc, am)
     emit("trace_twice", trace_twice)
@@ -4331,6 +4529,10 @@ def main() -> int:
                                "adj_matmul_backward": large_graph["backward_launches"]},
                "dp_train": dp["mesh"]["launches"],
                "tp_train": tp["tp"]["launches"],
+               # the default dispatch on the mesh: the eager step and the
+               # capture; its replays' records read 2 each (dp, tp lines)
+               "dp_graphs_train": dp["mesh_graphs"]["launches"],
+               "tp_graphs_train": tp["mesh_graphs"]["launches"],
                "profile_train": {k: v // (BACKWARD_KERNELS if k == "motif_level3_backward"
                                           else 1)
                                  for k, v in cli_profile["trace_kernel_events"].items()}}
@@ -4342,6 +4544,7 @@ def main() -> int:
         frontier["serve"]["reconstruct"]["launches"].items(),
         frontier["serve"]["sample"]["launches"].values())}
     emit("launches", by_path)
+    emit("phase_seconds", PHASE_SECONDS | {"total": sum(PHASE_SECONDS.values())})
     entry = lambda name, source, tpu_fn, replaces: kernel_entry(
         name, source, replaces, tpu_fn, rows, {path: p[name] for path, p in by_path.items()})
     print(json.dumps({"kernels": [

@@ -33,12 +33,16 @@ prints one JSON dict (``test_disentangle``: the path of the figure it drew).
     ``<workdir>/checkpoints/<dataset>_<model_type>``; it resumes from the
     latest checkpoint there.  ``--eval-every k`` scores the test split every
     k epochs and keeps the best checkpoint by ``--best-metric``.
-    ``--profile`` writes a ``torch.profiler`` trace of the second epoch to
-    ``<workdir>/profile/trace_rank<r>.json`` (``Trainer.run``).  On the
-    card in one process each step after the first is a replay of a CUDA
-    graph, with one host sync an epoch, or one a chunk of ``--epoch-chunk``
-    epochs; ``--per-step`` takes one eager step a batch, as the CPU and a
-    mesh do.
+    On the card, in one process and under any mesh (``--dp``, ``--tp``),
+    each step after the first is a replay of a CUDA graph (under a mesh
+    with its NCCL collectives), with one host sync an epoch, or one a
+    chunk of ``--epoch-chunk`` epochs; ``--per-step`` takes one eager step
+    a batch, as the CPU does.  ``--profile`` writes a ``torch.profiler``
+    trace of the second epoch on that dispatch (its replays, or its eager
+    steps under ``--per-step``) to ``<workdir>/profile/trace_rank<r>.json``
+    and, beside it, ``trace_rank<r>.launches.json``: the eager kernel
+    launches, the graph's replays and the kernels and copies each runs, and
+    how many device records the trace lacks (``Trainer.run``).
   * The other types restore that checkpoint (the latest, or
     ``train.restore_epoch``), as ``snd_vae_tpu/cli.py:145-160`` does; with
     none they warn and use the weights drawn from the seed.
@@ -391,18 +395,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "model's sweep")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel mesh size: train over this many processes, each "
-                        "on its block of every batch (needs --distributed)")
+                        "on its block of every batch (needs --distributed); on the card "
+                        "the step replays as a CUDA graph with its NCCL collectives "
+                        "unless --per-step")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel mesh size: shard the big parameters and the node "
                         "axis of the big activations over this many processes (needs "
-                        "--distributed; --dp d --tp m needs d*m processes)")
+                        "--distributed; --dp d --tp m needs d*m processes); dispatched as "
+                        "--dp is")
     p.add_argument("--per-step", action="store_true", dest="per_step",
-                   help="per-batch dispatch instead of the epoch scan")
+                   help="one eager step a batch instead of the default dispatch (on the "
+                        "card, with or without a mesh, CUDA-graph replays of the step, the "
+                        "counterpart of the epoch scan)")
     p.add_argument("--epoch-chunk", type=int, default=1, dest="epoch_chunk",
-                   help="epochs per device dispatch (amortizes dispatch latency)")
+                   help="epochs per host sync of the default dispatch, with or without a "
+                        "mesh (ignored under --per-step and --profile)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the second epoch of --type train "
-                        "to <workdir>/profile/trace_rank<r>.json")
+                        "on the run's dispatch (replays, or eager steps under --per-step) "
+                        "to <workdir>/profile/trace_rank<r>.json, and its expected and "
+                        "missing device records to trace_rank<r>.launches.json")
     p.add_argument("--distributed", action="store_true",
                    help="join the processes torchrun started into one process group "
                         "(NCCL on the card, gloo with --device cpu)")

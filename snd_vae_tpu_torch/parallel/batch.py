@@ -31,6 +31,14 @@ A tensor whose node axis is sharded enters a global reduction through
 ``node_mean`` / ``model_sum`` (its rows are disjoint over the model ranks);
 one that every model rank holds whole (the truth adjacency, the latents)
 through the data-axis functions alone, so it is counted once.
+
+Every collective here runs as it is captured into the train step's CUDA
+graph (``train.StepGraph``) and replays so: it reads no number on the
+host, its buffers (the gathered parts, the flattened sums) are allocated
+in the graph's pool at capture and reused by each replay, and the groups'
+communicators exist before the capture (the eager first step made them).
+The noise of ``local_rows`` comes from the generator registered with the
+graph, so each replay draws the next global batch's.
 """
 
 from __future__ import annotations

@@ -7,6 +7,15 @@ program over every process's devices.  The port runs one process per card
 joins them into one ``torch.distributed`` process group.  The backend follows
 the device: NCCL on CUDA, gloo on the CPU.  A CUDA request without a card or
 without NCCL raises; nothing falls back to gloo on the CPU.
+
+The group needs no setting for the train step's CUDA-graph capture
+(``train.StepGraph``): NCCL 2.9.6 and later capture collectives, and the
+NCCL process group hands its watchdog only the collectives it runs
+outside a capture, so its asynchronous error handling stays as torch sets
+it (the port captures and replays its step so with torch 2.11.0+cu128 and
+NCCL 2.28.9).  A collective replayed from a graph is not watched:
+``train.wait_for_replays`` holds a chunk of replays under a mesh to NCCL's
+default timeout instead, aborts the groups and raises.
 """
 
 from __future__ import annotations

@@ -20,7 +20,11 @@ a trivial axis, so those paths are unchanged.
 Each ``shard_nodes`` site reports ``(tag, start, stop, n)`` to ``_INSPECT``
 when it is set, the counterpart of JAX's compile-time hook of that name
 (``snd_vae_tpu/parallel/hints.py:63-80``): the tests read it to see which
-sites really hold a part of the node axis.
+sites really hold a part of the node axis.  A site reports from Python, as
+the step's code runs: under the default dispatch on the card that is the
+eager first step and the capture (``train.StepGraph``), not the replays,
+which run the captured kernels alone; per step (``per_step=True``, the CPU)
+every step reports.
 """
 
 from __future__ import annotations

@@ -84,15 +84,16 @@ def replicated(mesh: DeviceMesh) -> Tuple:
     return (Replicate(), Replicate())
 
 
-def shard_graphbatch(batch, mesh: DeviceMesh):
+def shard_graphbatch(batch, mesh: DeviceMesh, axis: int = 0):
     """This process's contiguous block of every batch-axis tensor of a
-    global ``GraphBatch``: rows [r·B/d, (r+1)·B/d) for data rank r of d.
+    global ``GraphBatch``: rows [r·B/d, (r+1)·B/d) of ``axis`` (the graphs;
+    1 for an epoch's batches [nb, B, ...]) for data rank r of d, a view.
     Raises ValueError when d does not divide B."""
     d, r = axis_size(mesh, DATA_AXIS), mesh.get_local_rank(DATA_AXIS)
-    B = batch.batch_size
+    B = batch.adj.shape[axis]
     if B % d:
         raise ValueError(f"a batch of {B} graphs does not split over {d} data ranks")
-    return batch.slice_batch(r * (B // d), B // d)
+    return batch._map(lambda t: t.narrow(axis, r * (B // d), B // d))
 
 
 def param_shardings(params: Mapping[str, torch.Tensor], mesh: DeviceMesh,

@@ -11,7 +11,10 @@ the slice, the optimizer and its moments see only the slice, and reading
 ``module.<name>`` all-gathers the whole tensor over the model axis
 (``_Gathered``), whose backward sums the gradient over the model ranks and
 keeps this rank's block.  ``parametrize.cached()`` around a forward gathers
-each tensor once.
+each tensor once; in the train step's CUDA graph (``train.StepGraph``)
+that gather and its backward's sum over the model ranks are captured with
+the step, and the slices, being the module's parameters, get their
+``.grad`` back from the graph after each chunk as every parameter does.
 
 Checkpoints hold whole tensors under the unsharded names and in the
 unsharded parameter order (``whole_state_dict``, ``whole_optimizer_state``;

@@ -540,9 +540,9 @@ def test_cuda_large_graph_kernel_path_matches_library(tmp_path):
 # The trainer's default dispatch: CUDA-graph replays of the train step
 # --------------------------------------------------------------------------
 
-def _graph_trainers(tmp_path, names, graphs=20, compute_dtype="float32", **train):
+def _graph_trainers(tmp_path, names, graphs=20, compute_dtype="float32", mesh=None, **train):
     """Trainers of synthetic2 at full width on ``graphs`` generated graphs
-    (2 steps an epoch), one per name, from the same seed."""
+    (2 steps an epoch), one per name, from the same seed (on ``mesh``)."""
     import dataclasses
 
     from snd_vae_tpu_torch import train as tt
@@ -553,7 +553,8 @@ def _graph_trainers(tmp_path, names, graphs=20, compute_dtype="float32", **train
     cfg = cfg.with_(compute_dtype=compute_dtype,
                     train=dataclasses.replace(cfg.train, **train))
     data = load_dataset(cfg, "train", num_graphs=graphs, device="cuda")
-    return [tt.Trainer(cfg, data, device="cuda", workdir=str(tmp_path / n)) for n in names]
+    return [tt.Trainer(cfg, data, device="cuda", workdir=str(tmp_path / n), mesh=mesh)
+            for n in names]
 
 
 def _logged(trainer):
@@ -648,3 +649,90 @@ def test_cuda_uncapturable_step_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the train step as a CUDA graph failed"):
         tr.run(1, verbose=False)
     assert tr.state.step == 1
+
+
+def test_cuda_graph_on_mesh_of_one_equals_per_step(tmp_path):
+    """The default dispatch on ``make_mesh(1, 1)`` (an NCCL group of one:
+    the step's collectives become NCCL kernels in the captured graph)
+    against ``per_step=True`` on the same mesh, 2 epochs from the same seed:
+    every aux value, parameter, Adam moment and count, the step and the
+    generator bit for bit; the graph's kernel and copy nodes are counted."""
+    from snd_vae_tpu_torch import train as tt
+
+    _card()
+    initialize_distributed(f"file://{tmp_path}/rendezvous", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        trainers = _graph_trainers(tmp_path, ("graph", "per_step"), mesh=mesh)
+        logs = [_logged(tr) for tr in trainers]
+        made = []
+        step_graph = tt.StepGraph
+        tt.StepGraph = lambda *a: made.append(step_graph(*a)) or made[-1]
+        try:
+            for tr in trainers:
+                tr.run(2, verbose=False, per_step=tr is trainers[1])
+        finally:
+            tt.StepGraph = step_graph
+        assert logs[0] == logs[1] and len(made) == 1
+        _assert_same_state(_train_state(trainers[0]), _train_state(trainers[1]))
+        assert made[0].replays == 3 and made[0].kernels_per_replay > 100
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("epochs", [2, 1])
+def test_cuda_profiled_replayed_epoch_on_mesh_misses_no_record(tmp_path, epochs):
+    """``profile_dir`` on the default dispatch under ``make_mesh(1, 1)``:
+    the trace of epoch 1's 2 replays, or, with one epoch, of the eager first
+    step, the capture and one replay, holds a device record of every kernel
+    launched eagerly and of every kernel and copy node of each replay."""
+    import json
+
+    _card()
+    initialize_distributed(f"file://{tmp_path}/rendezvous", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        (tr,) = _graph_trainers(tmp_path, ("graph",), mesh=mesh)
+        tr.run(epochs, verbose=False, profile_dir=str(tmp_path / "profile"))
+        written = json.loads((tmp_path / "profile" / "trace_rank0.launches.json").read_text())
+        assert written["graph_replays"] == (2 if epochs == 2 else 1)
+        assert written["kernels_per_replay"] > 100 and written["host_launches"] > 0
+        assert written["launches_without_device_record"] == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_failing_run_on_mesh_leaves_no_live_graph(tmp_path, monkeypatch):
+    """A default-dispatch run on ``make_mesh(1, 1)`` that raises after its
+    capture (here its first checkpoint's save) frees the captured graph
+    before the error leaves ``Trainer.run``: with the error's traceback
+    still held, no ``torch.cuda.CUDAGraph`` made by the run is alive, so
+    the process group's teardown meets none (``ROADMAP.md`` §3, fault
+    3.8)."""
+    import gc
+
+    from snd_vae_tpu_torch import train as tt
+
+    _card()
+    initialize_distributed(f"file://{tmp_path}/rendezvous", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        (tr,) = _graph_trainers(tmp_path, ("graph",), mesh=mesh)
+        gc.collect()
+        before = sum(isinstance(o, torch.cuda.CUDAGraph) for o in gc.get_objects())
+        made = []
+        step_graph = tt.StepGraph
+        monkeypatch.setattr(tt, "StepGraph", lambda *a: made.append(step_graph(*a)) or made[-1])
+
+        def fail(epoch):
+            raise OSError("no space left on device")
+
+        monkeypatch.setattr(tr, "_save", fail)
+        with pytest.raises(OSError, match="no space left") as info:
+            tr.run(2, verbose=False)
+        gc.collect()
+        live = sum(isinstance(o, torch.cuda.CUDAGraph) for o in gc.get_objects())
+        assert info.tb is not None and len(made) == 1 and made[0].replays == 1
+        assert made[0].graph is None and made[0].grads is None and live == before
+    finally:
+        dist.destroy_process_group()

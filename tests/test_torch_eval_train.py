@@ -255,7 +255,8 @@ def test_cli_profile_traces_the_second_epoch(tmp_path, small_cli, monkeypatch, e
     assert sorted(p.name for p in (tmp_path / "profile").iterdir()) == [
         "trace_rank0.json", "trace_rank0.launches.json"]
     assert json.loads((tmp_path / "profile" / "trace_rank0.launches.json").read_text()) == {
-        "host_launches": 0, "launches_without_device_record": 0}
+        "host_launches": 0, "graph_replays": 0, "kernels_per_replay": 0,
+        "copies_per_replay": 0, "launches_without_device_record": 0}
 
 
 @pytest.mark.parametrize("model_type", ["disentangled", "base"])
@@ -264,9 +265,9 @@ def test_profiled_run_equals_an_untraced_one(tmp_path, model_type):
     traced, after the profiler's discarded warm-up) give every epoch's
     losses, every parameter, the Adam moments and the generator of ε and
     dropout (the joint model at keep 0.8) bit for bit as 3 epochs without;
-    ``_profiled_epoch`` returns the trace's kernel launches and those
-    without a device record, (0, 0) on the CPU, and ``run`` writes them
-    beside the trace."""
+    ``_profiled_epoch`` returns the trace's kernel launches, its graph
+    replays, the kernels and copies a replay runs and the device records
+    missing, all 0 on the CPU, and ``run`` writes them beside the trace."""
     cfg = _small(dropout_keep_prob=0.8).with_(model_type=model_type)
     data = load_dataset(cfg, "train", num_graphs=20, device="cpu")
     runs = {}
@@ -285,10 +286,12 @@ def test_profiled_run_equals_an_untraced_one(tmp_path, model_type):
     assert torch.equal(state.generator.get_state(), want.generator.get_state())
     written = json.loads((tmp_path / "traced" / "profile" / "trace_rank0.launches.json")
                          .read_text())
-    assert written == {"host_launches": 0, "launches_without_device_record": 0}
+    none = {"host_launches": 0, "graph_replays": 0, "kernels_per_replay": 0,
+            "copies_per_replay": 0, "launches_without_device_record": 0}
+    assert written == none
     tr = ttrain.Trainer(cfg, data, device="cpu", workdir=str(tmp_path / "direct"))
     storer, prof, counts = tr._profiled_epoch(0)
-    assert counts == ttrain.launches_without_record(prof) == (0, 0)
+    assert counts == none and ttrain.launches_without_record(prof) == (0, 0)
     assert len(storer["loss"]) == 2
 
 

@@ -17,6 +17,7 @@ each run, in rank order, and raises with a rank's output when one fails.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -399,8 +400,106 @@ def job_tp_trainer(rank, world, inputs, directory):
     return out
 
 
+# --------------------------------------------------------------------------
+# The default dispatch's step body under a mesh
+# --------------------------------------------------------------------------
+
+def trainer_state(trainer):
+    """(parameters, optimizer state, step, generator state) of a Trainer,
+    copied."""
+    st = trainer.state
+    opt = st.optimizer.state_dict()["state"]
+    return ([p.detach().clone() for p in st.model.parameters()],
+            {i: {k: v.clone() for k, v in s.items()} for i, s in opt.items()},
+            st.step, st.generator.get_state())
+
+
+def _mesh_trainer(case, mesh, workdir, eval_graphs=0):
+    cfg = case["cfg"]
+    data = load_dataset(cfg, "train", num_graphs=case["graphs"], device="cpu")
+    held = load_dataset(cfg, "test", num_graphs=eval_graphs, device="cpu") if eval_graphs else None
+    tr = ttrain.Trainer(cfg, data, device="cpu", workdir=str(workdir), eval_batch=held,
+                        mesh=mesh)
+    if "state_dict" in case:
+        tp.load_whole_state_dict(tr.state.model, case["state_dict"])
+    return tr
+
+
+def _body_against_run_epoch(case, mesh, directory):
+    """2 epochs through ``StepGraph``'s body (in chunks of ``case["chunk"]``
+    epochs) and through ``run_epoch`` from identical Trainers: each one's
+    per-step aux values, its state, and what the graph holds."""
+    got, want = (_mesh_trainer(case, mesh, directory / n) for n in ("graph", "step"))
+    nb, chunk = got.batched.adj.shape[0], case["chunk"]
+    graph = ttrain.StepGraph(got, chunk * nb)
+    storers = []
+    for e in range(0, 2, chunk):
+        storers += got.graph_epochs(graph, range(e, e + chunk))
+    model = got.state.model
+    return {"graph": storers, "step": [want.run_epoch(0), want.run_epoch(1)],
+            "graph_state": trainer_state(got), "step_state": trainer_state(want),
+            "block": tuple(graph.data.adj.shape), "count": int(graph.count),
+            "sliced": sorted(tp.sharded(model)),
+            "slices_are_parameters": {id(t) for t in tp.slices(model)}
+            <= {id(p) for p in model.parameters()}}
+
+
+def _chunked_run(case, mesh, directory):
+    """``Trainer.run`` of ``case["epochs"]`` epochs with ``epoch_chunk``:
+    the chunks ``chunk_end`` gave, and the epochs of the checkpoints, the
+    evaluations and the log lines (rank 0's)."""
+    tr = _mesh_trainer(case, mesh, directory, case["eval_graphs"])
+    chunks, end = [], tr.chunk_end
+    tr.chunk_end = lambda e, n, c: (lambda s: chunks.append(s - e) or s)(end(e, n, c))
+    tr.run(case["epochs"], verbose=False, epoch_chunk=case["epoch_chunk"])
+    if not tr.primary:
+        return {"chunks": chunks}
+    evals = sorted({int(r.split(",")[0]) for r in open(tr.eval_logger.path).read()
+                    .splitlines()[1:]})
+    logs = [json.loads(line)["epoch"] for line in open(tr.logger.jsonl_path)]
+    return {"chunks": chunks, "saves": tr.checkpointer.steps(), "evals": evals, "logs": logs}
+
+
+def _jax_eps_epochs(case, mesh, directory):
+    """``case["epochs"]`` epochs through the body from the given weights,
+    each step's ε this rank's rows of the given global draws: the per-step
+    losses."""
+    tr = _mesh_trainer(case, mesh, directory)
+    d, r = mesh.shape[0], mesh.get_local_rank("data")
+    stream = iter([Latents(**{k: torch.from_numpy(np.array_split(v, d)[r]) for k, v in e.items()})
+                   for e in case["eps"]])
+    step = ttrain.train_step
+    ttrain.train_step = lambda st, b, gi: step(st, b, gi, eps=next(stream))
+    try:
+        nb = tr.batched.adj.shape[0]
+        graph = ttrain.StepGraph(tr, nb)
+        return [np.asarray(s["loss"]) for e in range(case["epochs"])
+                for s in tr.graph_epochs(graph, range(e, e + 1))]
+    finally:
+        ttrain.train_step = step
+
+
+def job_dispatch_mesh(rank, world, inputs, directory):
+    """Each case on its mesh (d, m) of this world: ``body`` the step body
+    against ``run_epoch``, ``chunked`` ``Trainer.run`` with ``epoch_chunk``,
+    ``jax_eps`` the body's losses with the given ε.  Parameters of at least
+    ``inputs["min_size"]`` elements are sliced over the model axis."""
+    run = {"body": _body_against_run_epoch, "chunked": _chunked_run, "jax_eps": _jax_eps_epochs}
+    shard = ttrain.shard_params
+    ttrain.shard_params = lambda model, mesh: shard(model, mesh, inputs["min_size"])
+    out, meshes = {}, {}
+    for name, case in inputs["cases"].items():
+        if case["mesh"] not in meshes:
+            meshes[case["mesh"]] = make_mesh(*case["mesh"], "cpu")
+        out[name] = run[case["kind"]](case, meshes[case["mesh"]],
+                                      directory / "_".join(map(str, name)) if isinstance(
+                                          name, tuple) else directory / name)
+    return out
+
+
 JOBS = {"parallel": job_parallel, "large_graph": job_large_graph, "dp_step": job_dp_step,
-        "tp_ops": job_tp_ops, "tp_step": job_tp_step, "tp_trainer": job_tp_trainer}
+        "tp_ops": job_tp_ops, "tp_step": job_tp_step, "tp_trainer": job_tp_trainer,
+        "dispatch_mesh": job_dispatch_mesh}
 
 
 def main(argv) -> None:
