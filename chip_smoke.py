@@ -2857,8 +2857,8 @@ def run_cli_profile(untraced_epoch_s: float):
     Python) and their kernel events: 40 ``motif_level3``, 40 of its
     backward (one kernel a call), 40 ``adj_matmul``, 40 of K3's backward, no
     ``motif_combine``; the counts written beside it are the trace's own
-    (``check_written_trace``: 20 replays, each with its graph's kernel and
-    copy nodes' records, none missing).  The traced
+    (``check_written_trace``: 20 replays, each with its graph's kernel,
+    copy and stamp nodes' records, none missing).  The traced
     epoch's wall time (the profiler's start and stop included) and its
     ``train_epoch`` range, each against
     ``untraced_epoch_s``, an untraced replayed f32 epoch's seconds from the
@@ -3081,10 +3081,12 @@ def check_written_trace(label, rec, written, replays=None) -> None:
     """A ``--profile`` trace (``trace_records``) against the counts
     ``Trainer.run`` wrote beside it: no device record missing by either
     count; the trace's graph launches the replays written (``replays``
-    when given); the device records carrying their ids the graph's kernel
-    and copy nodes times the replays; the kernel records of the eager
-    launches as many as the launches written."""
-    nodes = written["kernels_per_replay"] + written["copies_per_replay"]
+    when given); the device records carrying their ids the graph's kernel,
+    copy and stamp nodes times the replays (a profiled run's graph holds
+    ``stamps_per_replay`` stamp kernels besides its kernels); the kernel
+    records of the eager launches as many as the launches written."""
+    nodes = (written["kernels_per_replay"] + written["copies_per_replay"]
+             + written.get("stamps_per_replay", 0))
     check(written["launches_without_device_record"] == 0 and rec["launches_without_kernel"] == 0
           and rec["graph_launches"] == written["graph_replays"]
           and (replays is None or written["graph_replays"] == replays)

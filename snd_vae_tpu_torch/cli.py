@@ -42,7 +42,12 @@ prints one JSON dict (``test_disentangle``: the path of the figure it drew).
     steps under ``--per-step``) to ``<workdir>/profile/trace_rank<r>.json``
     and, beside it, ``trace_rank<r>.launches.json``: the eager kernel
     launches, the graph's replays and the kernels and copies each runs, and
-    how many device records the trace lacks (``Trainer.run``).
+    how many device records the trace lacks (``Trainer.run``).  It also
+    stamps every step on the card's clock (``spans``), and at the run's end
+    adds to that file each span's median ms a step of the traced epoch
+    (forward, backward, optimizer, the motif-conv stack, the adjacency
+    head), the run's host spans (``Trainer.counters``) and the stamps a
+    replay runs.
   * The other types restore that checkpoint (the latest, or
     ``train.restore_epoch``), as ``snd_vae_tpu/cli.py:145-160`` does; with
     none they warn and use the weights drawn from the seed.
@@ -414,7 +419,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the second epoch of --type train "
                         "on the run's dispatch (replays, or eager steps under --per-step) "
                         "to <workdir>/profile/trace_rank<r>.json, and its expected and "
-                        "missing device records to trace_rank<r>.launches.json")
+                        "missing device records to trace_rank<r>.launches.json; stamp every "
+                        "step, and at the run's end add to that file each span's median ms "
+                        "a step in the traced epoch (spans), the run's host spans "
+                        "(counters) and stamps_per_replay")
     p.add_argument("--distributed", action="store_true",
                    help="join the processes torchrun started into one process group "
                         "(NCCL on the card, gloo with --device cpu)")

@@ -20,6 +20,13 @@ for ``g_convs_0/kernel``), so ``params.state_dict_from_flax`` carries JAX
 weights across.  With ``cfg.remat`` each motif conv and the adjacency head
 run under ``torch.utils.checkpoint`` (``rematerialized``; the policy of
 ``cfg.remat_policy`` from ``nn/ckpt.py``), so the backward recomputes them.
+
+Under a profiler ``encode`` and ``decode`` run inside the ranges
+``model.encode`` and ``model.decode``, each motif conv inside
+``model.encode.sg_conv.<i>`` and the adjacency head inside
+``model.decode.adj_head`` (``spans.labelled``).  In a stamped train step
+(``spans.stamping``) the motif-conv stack and the adjacency head stamp the
+start and end of their forward and of their backward (``spans.STAMPS``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from .. import spans
 from ..config import Config
 from ..data.graphbatch import GraphBatch
 from ..nn import (
@@ -179,6 +187,7 @@ class DisentangledSNDVAE(nn.Module):
     # ------------------------------------------------------------------ #
     # Encoder (model.py:98-151)                                          #
     # ------------------------------------------------------------------ #
+    @spans.ranged("model.encode")
     def encode(self, batch: GraphBatch) -> LatentStats:
         B, N = batch.batch_size, batch.num_nodes
         feats, coords, adj = batch.features, batch.coords, batch.adj
@@ -222,11 +231,16 @@ class DisentangledSNDVAE(nn.Module):
             sg = batch.feat_samples.reshape(B * S, N, -1)
         else:
             sg = feats[:, None].expand((B, S) + feats.shape[1:]).reshape(B * S, N, -1)
-        for conv, bn in zip(self.sg_convs, self.sg_bns):
+        # the stack's backward ends with its first conv's parameter gradients
+        spans.stamp("sg_conv.forward.start")
+        spans.after_grads("sg_conv.backward.end", self.sg_convs[0])
+        for i, (conv, bn) in enumerate(zip(self.sg_convs, self.sg_bns)):
             # under a model axis the conv returns this rank's node rows: the
             # next layer and the flatten read every node
-            sg = lrelu(bn(rematerialized(self, conv, conv, adj_s, sg, rel_s), nodes=N))
-            sg = gather_nodes(sg, N)
+            with spans.labelled(f"model.encode.sg_conv.{i}"):
+                sg = rematerialized(self, conv, conv, adj_s, sg, rel_s)
+            sg = gather_nodes(lrelu(bn(sg, nodes=N)), N)
+        sg = spans.marked("sg_conv.forward.end", "sg_conv.backward.start", sg)
         sg_ = self.sg_lin1(self.encoder_sg_bn(sg).reshape(B * S, -1))
         z_mean_sg, z_std_sg = self.sg_lin_mean(sg_), self.sg_lin_std(sg_)
 
@@ -275,6 +289,7 @@ class DisentangledSNDVAE(nn.Module):
     # ------------------------------------------------------------------ #
     # Decoder (model.py:172-222)                                         #
     # ------------------------------------------------------------------ #
+    @spans.ranged("model.decode")
     def decode(self, latents: Latents) -> DecodedGraph:
         cfg = self.cfg
         N, nh = cfg.num_nodes, cfg.decoder.node_h_size
@@ -301,8 +316,11 @@ class DisentangledSNDVAE(nn.Module):
             cfg, self.d_s_lin2(sp.reshape(B * N, -1)), reference_linear=False
         ).reshape(B, N, -1)
 
-        adj_prob = rematerialized(self, self, self._adj_head, z_sg_g, coords,
-                                  params=adj_head_params(self))
+        z_in = spans.marked("adj_head.forward.start", "adj_head.backward.end", z_sg_g)
+        with spans.labelled("model.decode.adj_head"):
+            adj_prob = rematerialized(self, self, self._adj_head, z_in, coords,
+                                      params=adj_head_params(self))
+        adj_prob = spans.marked("adj_head.forward.end", "adj_head.backward.start", adj_prob)
         adj = torch.softmax(adj_prob, dim=-1).argmax(dim=-1)
         return DecodedGraph(adj=adj, adj_prob=adj_prob, coords=coords, node_feat=node_feat)
 

@@ -25,6 +25,11 @@ backward's recompute draws nothing.
 Submodule names follow the flax tree (``sg_convs.0.Matrix1``,
 ``d_sg_lin1``, ``s_deconvs.0``, ``d_bn_e.0``, ``d_e_lin2``), so
 ``params.state_dict_from_flax`` carries JAX weights across.
+
+Ranges and stamps as in the disentangled model: ``model.encode``,
+``model.encode.sg_conv.<i>``, ``model.decode`` and
+``model.decode.adj_head`` under a profiler, and the motif-conv stack's and
+the adjacency head's stamps in a stamped train step.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import spans
 from ..config import Config
 from ..data.graphbatch import GraphBatch
 from ..nn import E2E, Conv1D, Dense, dropout, lrelu, make_norm
@@ -131,16 +137,22 @@ class JointSNDVAE(nn.Module):
         masks = masks or {}
         return lambda t, key: dropout(t, keep, generator, masks.get(key))
 
+    @spans.ranged("model.encode")
     def encode(self, batch: GraphBatch, drop=None) -> LatentStats:
         """One joint branch over the truth graph (model_joint.py:72-85)."""
         B, N = batch.batch_size, batch.num_nodes
         sg = batch.features
+        # the stack's backward ends with its first conv's parameter gradients
+        spans.stamp("sg_conv.forward.start")
+        spans.after_grads("sg_conv.backward.end", self.sg_convs[0])
         for i, (conv, bn) in enumerate(zip(self.sg_convs, self.sg_bns)):
             # this rank's node rows under a model axis, gathered for what follows
-            sg = lrelu(bn(rematerialized(self, conv, conv, batch.adj, sg, batch.rel), nodes=N))
-            sg = gather_nodes(sg, N)
+            with spans.labelled(f"model.encode.sg_conv.{i}"):
+                sg = rematerialized(self, conv, conv, batch.adj, sg, batch.rel)
+            sg = gather_nodes(lrelu(bn(sg, nodes=N)), N)
             if drop is not None:
                 sg = drop(sg, ("encode", i))
+        sg = spans.marked("sg_conv.forward.end", "sg_conv.backward.start", sg)
         sg_ = self.sg_lin1(sg.reshape(B, -1))
         return LatentStats(mean_sg=self.sg_lin_mean(sg_)[:, None],
                            logstd_sg=self.sg_lin_std(sg_)[:, None])
@@ -160,6 +172,7 @@ class JointSNDVAE(nn.Module):
         e = e.to(stats.mean_sg.device, stats.mean_sg.dtype).reshape(stats.mean_sg.shape)
         return Latents(z_sg=stats.mean_sg + e * torch.exp(stats.logstd_sg))
 
+    @spans.ranged("model.decode")
     def decode(self, latents: Latents, drop=None) -> DecodedGraph:
         cfg = self.cfg
         N, nh = cfg.num_nodes, cfg.decoder.node_h_size
@@ -189,8 +202,11 @@ class JointSNDVAE(nn.Module):
         else:
             node_feat = torch.sigmoid(node_logits).reshape(B, N, -1)
 
-        adj_prob = rematerialized(self, self, self._adj_head, joint_h, coords,
-                                  params=adj_head_params(self))
+        h_in = spans.marked("adj_head.forward.start", "adj_head.backward.end", joint_h)
+        with spans.labelled("model.decode.adj_head"):
+            adj_prob = rematerialized(self, self, self._adj_head, h_in, coords,
+                                      params=adj_head_params(self))
+        adj_prob = spans.marked("adj_head.forward.end", "adj_head.backward.start", adj_prob)
         adj = torch.softmax(adj_prob, dim=-1).argmax(dim=-1)
         return DecodedGraph(adj=adj, adj_prob=adj_prob, coords=coords, node_feat=node_feat,
                             node_feat_prob=node_feat_prob)

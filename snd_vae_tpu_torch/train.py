@@ -23,7 +23,8 @@ of ``snd_vae_tpu/train.py:49-154``, ``:193-289`` and ``:317-608``.
     SIGTERM/SIGINT trap that checkpoints and stops, the spanning-tree
     resampling and the per-epoch reshuffle of corrected mode; with
     ``profile_dir``, a ``torch.profiler`` trace of the second epoch on the
-    run's dispatch.
+    run's dispatch and every step stamped (``spans``); the run's host spans
+    in ``Trainer.counters``.
 
   * With ``eval_every = k`` > 0 and an ``eval_batch``, every k-th epoch
     ``evaluate_heldout`` scores the held-out split (posterior-mean
@@ -103,6 +104,7 @@ from torch.func import functional_call
 from torch.nn.utils import parametrize
 from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
+from . import spans
 from .checkpoint import Checkpointer, checkpoint_dir, checkpoint_payload
 from .config import Config
 from .data.graphbatch import GraphBatch
@@ -403,7 +405,9 @@ def train_step(state: TrainState, batch: GraphBatch, global_iter,
     the joint model's z_sg only) unless given.  After the call
     each parameter's ``.grad`` holds this step's gradient.  The three
     phases run under ``record_function`` ranges (``train_step.forward``,
-    ``.backward``, ``.optimizer``) for the profiler.  cuDNN takes its
+    ``.backward``, ``.optimizer``) for the profiler, and inside
+    ``spans.stamping`` each opens with its stamp (the last closes with
+    ``train_step.end``).  cuDNN takes its
     deterministic algorithms for the step (``device.deterministic_cudnn``),
     so one state and batch give one update bit for bit.
 
@@ -414,6 +418,7 @@ def train_step(state: TrainState, batch: GraphBatch, global_iter,
     parameter is gathered once per forward (``parametrize.cached``)."""
     with use_mesh(state.mesh), deterministic_cudnn():
         with record_function("train_step.forward"), parametrize.cached():
+            spans.stamp("train_step.forward")
             out = _forward(state, batch, eps)
             total, aux = elbo_loss(state.cfg, out, batch.adj, batch.features, batch.coords,
                                    global_iter, node_mask=batch.node_mask)
@@ -425,13 +430,16 @@ def train_step(state: TrainState, batch: GraphBatch, global_iter,
                                      torch.full((), float(batch.adj.numel()), device=rows.device))
             aux["adj_acc"] = hits / edges
         with record_function("train_step.backward"):
+            spans.stamp("train_step.backward")
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             if state.mesh is not None:
                 average_gradients([p for g in state.optimizer.param_groups for p in g["params"]],
                                   state.mesh, sharded=slices(state.model))
         with record_function("train_step.optimizer"):
+            spans.stamp("train_step.optimizer")
             state.optimizer.step()
+            spans.stamp("train_step.end")
     state.step += 1
     return {k: v.detach() for k, v in aux.items()}
 
@@ -515,8 +523,16 @@ class StepGraph:
     (``wait_for_replays``).  ``capture_s`` is the capture's seconds, from
     the eager step's end on the card (the cache released, the step captured
     and instantiated); ``kernels_per_replay`` and ``copies_per_replay`` the
-    graph's kernel nodes and its memcpy and memset nodes
-    (``graph_device_nodes``); ``replays`` the replays so far."""
+    graph's kernel nodes, the stamps left out, and its memcpy and memset
+    nodes (``graph_device_nodes``); ``replays`` the replays so far.
+
+    With ``stamps``, a ``spans.Stamps`` on ``row`` set before the first
+    step, the body runs inside ``spans.stamping``: the step's stamps
+    (``spans.STAMPS``, ``step.start`` before the batch is gathered and
+    ``step.end`` after its aux values are written) are kernel nodes of the
+    graph, ``stamps_per_replay`` of them, and ``values`` fetches the
+    chunk's stamps in the same copy as its aux values.  Without, the graph
+    is the step's alone."""
 
     def __init__(self, trainer: "Trainer", rows: int):
         self.trainer, self.rows = trainer, rows
@@ -534,6 +550,8 @@ class StepGraph:
         self.capture_s: Optional[float] = None
         self.kernels_per_replay: Optional[int] = None
         self.copies_per_replay: Optional[int] = None
+        self.stamps: Optional[spans.Stamps] = None
+        self.stamps_per_replay: Optional[int] = None
         self.replays = 0
         self._finished: list = []       # under a mesh: an event after each replay
 
@@ -554,16 +572,19 @@ class StepGraph:
         self._loaded = batched if batched is self.trainer.batched else None
 
     def _body(self) -> None:
-        i = torch.remainder(self.row, self.nb).view(1)
-        batch = self.data._map(lambda t: t.index_select(0, i)[0])
-        global_iter = torch.div(self.count, self.nb, rounding_mode="floor").float()
-        aux = train_step(self.trainer.state, batch, global_iter)
-        if self.keys is None:
-            self.keys = list(aux)
-            self.aux = torch.zeros((self.rows, len(self.keys)), dtype=torch.float64,
-                                   device=self.row.device)
-        values = torch.stack([aux[k].double() for k in self.keys])
-        self.aux.index_copy_(0, self.row.view(1), values.view(1, -1))
+        with spans.stamping(self.stamps):
+            spans.stamp("step.start")
+            i = torch.remainder(self.row, self.nb).view(1)
+            batch = self.data._map(lambda t: t.index_select(0, i)[0])
+            global_iter = torch.div(self.count, self.nb, rounding_mode="floor").float()
+            aux = train_step(self.trainer.state, batch, global_iter)
+            if self.keys is None:
+                self.keys = list(aux)
+                self.aux = torch.zeros((self.rows, len(self.keys)), dtype=torch.float64,
+                                       device=self.row.device)
+            values = torch.stack([aux[k].double() for k in self.keys])
+            self.aux.index_copy_(0, self.row.view(1), values.view(1, -1))
+            spans.stamp("step.end")
         self.row.add_(1)
         self.count.add_(1)
 
@@ -602,6 +623,7 @@ class StepGraph:
             t0 = time.perf_counter()
             gc.collect()
             torch.cuda.empty_cache()
+            launched = 0 if self.stamps is None else self.stamps.launched
             with record_function(CAPTURE_RANGE):
                 graph.capture_begin()
                 try:
@@ -616,7 +638,8 @@ class StepGraph:
                                        f"{_failed_at(e)}: {e}") from e
                 graph.capture_end()
             nodes = graph_device_nodes(graph.raw_cuda_graph())
-            self.kernels_per_replay = nodes["kernel"]
+            self.stamps_per_replay = 0 if self.stamps is None else self.stamps.launched - launched
+            self.kernels_per_replay = nodes["kernel"] - self.stamps_per_replay
             self.copies_per_replay = nodes["memcpy"] + nodes["memset"]
             graph.instantiate()
             self.capture_s = time.perf_counter() - t0
@@ -625,18 +648,21 @@ class StepGraph:
         self.graph = graph
         self.grads = [p.grad for p in state.model.parameters()]
 
-    def values(self, rows: int) -> np.ndarray:
-        """The chunk's aux values [rows, k], fetched in its one host sync
-        (under a mesh after ``wait_for_replays``); each parameter's
-        ``.grad`` (a model rank's slices included: they are the model's
-        parameters) is the last replay's gradient again."""
+    def values(self, rows: int) -> tuple:
+        """The chunk's aux values [rows, k] and, with ``stamps``, its stamps
+        [rows, len(STAMPS)] ns (else None), fetched in its one host sync
+        and copy (``spans.fetch``; under a mesh after
+        ``wait_for_replays``); each parameter's ``.grad`` (a model rank's
+        slices included: they are the model's parameters) is the last
+        replay's gradient again."""
         if self._finished:
             finished, self._finished = self._finished, []
             wait_for_replays(finished)
         if self.grads is not None:
             for p, g in zip(self.trainer.state.model.parameters(), self.grads):
                 p.grad = g
-        return self.aux[:rows].cpu().numpy()
+        return spans.fetch(self.aux[:rows],
+                           None if self.stamps is None else self.stamps.times[:rows])
 
     def release(self) -> None:
         """Free the captured graph (``CUDAGraph.reset``) and drop this
@@ -757,6 +783,11 @@ class Trainer:
         self.checkpointer = Checkpointer(checkpoint_dir(cfg, workdir))
         # epoch of the spanning-tree draw in effect (0 = the load-time draw)
         self._tree_boundary = 0
+        # the last run's host spans (``run`` starts them anew), the stamps
+        # of a stamped run's steps per step, and the last stamps fetched
+        self.counters = spans.HostSpans()
+        self._stamps: Optional[spans.Stamps] = None
+        self.last_stamps: Optional[np.ndarray] = None
         # held-out evaluation and the best checkpoint (cfg.train.eval_every)
         self.eval_batch = None if eval_batch is None else eval_batch.to(dev)
         # the truth the scores compare against, on the host once
@@ -882,20 +913,36 @@ class Trainer:
         """One epoch of steps over the contiguous batches (global_iter =
         ``epoch``; under a mesh, this rank's block of each); returns each aux
         value's per-step list, fetched from the device in the epoch's one
-        host sync."""
-        self._maybe_resample_trees(epoch)
-        batched = _maybe_reshuffle(self.state, self.batched)
-        global_iter = torch.full((), float(epoch), device=self.device)
+        host sync.  In a stamped run (``run`` with ``profile_dir``) step i
+        stamps row i, fetched into ``last_stamps``."""
+        with self.counters.span("epoch.resample"):
+            self._maybe_resample_trees(epoch)
+        with self.counters.span("epoch.load"):
+            batched = _maybe_reshuffle(self.state, self.batched)
+            global_iter = torch.full((), float(epoch), device=self.device)
 
-        def batch(i):
+        def step(i):
             b = batched._map(lambda t: t[i])
-            return b if self.mesh is None else shard_graphbatch(b, self.mesh)
+            b = b if self.mesh is None else shard_graphbatch(b, self.mesh)
+            if self._stamps is not None:
+                self._stamps.row.fill_(i)
+            with spans.stamping(self._stamps):
+                spans.stamp("step.start")
+                aux = train_step(self.state, b, global_iter)
+                spans.stamp("step.end")
+            return aux
 
-        auxes = [train_step(self.state, batch(i), global_iter)
-                 for i in range(batched.adj.shape[0])]
-        keys = list(auxes[0])
-        values = torch.stack([torch.stack([a[k].double() for k in keys])
-                              for a in auxes]).cpu().numpy()
+        nb, auxes = batched.adj.shape[0], []
+        if not self.counters.count["run.first_step"]:
+            with self.counters.span("run.first_step"):
+                auxes.append(step(0))
+        with self.counters.span("epoch.launch"):
+            auxes += [step(i) for i in range(len(auxes), nb)]
+        with self.counters.span("epoch.fetch"):
+            keys = list(auxes[0])
+            values, self.last_stamps = spans.fetch(
+                torch.stack([torch.stack([a[k].double() for k in keys]) for a in auxes]),
+                None if self._stamps is None else self._stamps.times[:nb])
         return {k: values[:, j].tolist() for j, k in enumerate(keys)}
 
     def _warm_up(self, epoch: int) -> None:
@@ -963,8 +1010,9 @@ class Trainer:
         replays = 0 if graph is None else graph.replays - replayed
         kernels = (graph.kernels_per_replay or 0) if graph is not None else 0
         copies = (graph.copies_per_replay or 0) if graph is not None else 0
-        expected, missing = launches_without_record(prof, replays, kernels + copies)
-        return storer, prof, {"host_launches": expected - replays * (kernels + copies),
+        stamps = (graph.stamps_per_replay or 0) if graph is not None else 0
+        expected, missing = launches_without_record(prof, replays, kernels + copies + stamps)
+        return storer, prof, {"host_launches": expected - replays * (kernels + copies + stamps),
                               "graph_replays": replays, "kernels_per_replay": kernels,
                               "copies_per_replay": copies,
                               "launches_without_device_record": missing}
@@ -995,24 +1043,38 @@ class Trainer:
     def graph_epochs(self, graph: StepGraph, epochs: range) -> list:
         """Train ``epochs`` through ``graph``: one dispatch a step, one host
         sync at the end; returns each epoch's aux values, as ``run_epoch``
-        returns them."""
+        returns them, and keeps the chunk's stamps in ``last_stamps``."""
+        c = self.counters
         graph.begin()
         for epoch in epochs:
-            self._maybe_resample_trees(epoch)
-            graph.load(_maybe_reshuffle(self.state, self.batched))
-            for _ in range(graph.nb):
-                graph.step()
-        values = graph.values(len(epochs) * graph.nb)
+            with c.span("epoch.resample"):
+                self._maybe_resample_trees(epoch)
+            with c.span("epoch.load"):
+                graph.load(_maybe_reshuffle(self.state, self.batched))
+            steps = graph.nb
+            if graph.capture and graph.graph is None:
+                with c.span("run.first_step"):
+                    graph.step()
+                c.capture_s, steps = graph.capture_s, steps - 1
+            with c.span("epoch.launch"):
+                for _ in range(steps):
+                    graph.step()
+        with c.span("epoch.fetch"):
+            values, self.last_stamps = graph.values(len(epochs) * graph.nb)
         return [{k: values[i * graph.nb:(i + 1) * graph.nb, j].tolist()
                  for j, k in enumerate(graph.keys)} for i in range(len(epochs))]
+
+    @staticmethod
+    def _profile_path(profile_dir: str, suffix: str) -> str:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return os.path.join(profile_dir, f"trace_rank{rank}{suffix}")
 
     def _write_profile(self, profile_dir: str, prof, counts: dict, verbose: bool) -> None:
         t0 = time.time()
         os.makedirs(profile_dir, exist_ok=True)
-        rank = dist.get_rank() if dist.is_initialized() else 0
-        path = os.path.join(profile_dir, f"trace_rank{rank}.json")
+        path = self._profile_path(profile_dir, ".json")
         prof.export_chrome_trace(path)
-        with open(os.path.join(profile_dir, f"trace_rank{rank}.launches.json"), "w") as f:
+        with open(self._profile_path(profile_dir, ".launches.json"), "w") as f:
             json.dump(counts, f)
         if verbose:
             print(f"profile: {path} written in {time.time() - t0:.5f} s")
@@ -1053,16 +1115,45 @@ class Trainer:
         ``trace_rank<r>.launches.json``: the kernels the trace must hold
         and how many it lacks (``_profiled_epoch``).  The trace holds a
         record of every kernel the epoch ran, also in a process that has
-        traced before (the profiler warms up on a discarded step)."""
+        traced before (the profiler warms up on a discarded step).
+
+        ``profile_dir`` also stamps every step of the run (``spans``: the
+        graph's stamp nodes, or per step eager stamps), and at the run's end
+        writes ``trace_rank<r>.launches.json`` again with three keys more:
+        ``spans`` (``spans.export`` of the traced epoch's stamps: each
+        span's median ms a step, from the card's ``%globaltimer``),
+        ``counters`` (``self.counters.as_dict()``) and
+        ``stamps_per_replay``.  Without it no step stamps, and the captured
+        graph is the step's alone.
+
+        ``self.counters`` (``spans.HostSpans``) times the run's host spans,
+        each a ``record_function`` range inside a traced epoch:
+        ``run.first_step`` (the eager first step and the capture, or the
+        first step per step; ``counters.capture_s`` the capture's
+        seconds), and per epoch ``epoch.load`` (the batches into the graph),
+        ``epoch.launch`` (the replays' launches, or the eager steps),
+        ``epoch.fetch`` (the chunk's host sync), ``epoch.log``,
+        ``epoch.eval`` and ``epoch.resample`` (each a chunk, or an epoch:
+        the check and, at their cadence, the work), and
+        ``epoch.checkpoint`` where one is saved.  They are kept after
+        ``run`` returns."""
         cfg = self.cfg
         epochs = cfg.train.epochs if epochs is None else epochs
         prof_epoch = (1 if epochs > 1 else 0) if profile_dir is not None else None
         chunk = 1 if per_step or profile_dir is not None else max(epoch_chunk, 1)
         verbose = verbose and self.primary
         last_means: Dict[str, float] = {}
+        self.counters = spans.HostSpans()
         epoch = self.maybe_restore()
-        graph = (StepGraph(self, chunk * self.batched.adj.shape[0])
+        nb = self.batched.adj.shape[0]
+        stamped = profile_dir is not None
+        graph = (StepGraph(self, chunk * nb)
                  if not per_step and self.device.type == "cuda" else None)
+        if graph is not None and stamped:
+            graph.stamps = spans.Stamps(graph.rows, graph.row)
+        self._stamps = (spans.Stamps(nb, torch.zeros((), dtype=torch.int64, device=self.device))
+                        if stamped and graph is None else None)
+        counts = profiled = None
         if verbose:
             print(f"dispatch: {'CUDA-graph replays' if graph is not None else 'per step'}"
                   + ("" if self.mesh is None else f" on the {'x'.join(map(str, self.mesh.shape))} "
@@ -1077,25 +1168,28 @@ class Trainer:
                     prof = None
                     if epoch == prof_epoch:
                         storer, prof, counts = self._profiled_epoch(epoch, graph)
-                        storers = [storer]
+                        storers, profiled = [storer], self.last_stamps
                     elif graph is not None:
                         storers = self.graph_epochs(graph, range(epoch, stop))
                     else:
                         storers = [self.run_epoch(e) for e in range(epoch, stop)]
-                    for e, storer in enumerate(storers, epoch):
+                    with self.counters.span("epoch.log"):
+                        for e, storer in enumerate(storers, epoch):
+                            if verbose:
+                                print(f"Epoch: {e + 1:04d} loss= {np.mean(storer['loss']):.5f}")
+                            last_means = (self.logger.log(e, storer) if self.logger is not None
+                                          else epoch_means(storer))
                         if verbose:
-                            print(f"Epoch: {e + 1:04d} loss= {np.mean(storer['loss']):.5f}")
-                        last_means = (self.logger.log(e, storer) if self.logger is not None
-                                      else epoch_means(storer))
-                    if verbose:
-                        print(f"epoch time= {time.time() - t0:.5f}" if stop - epoch == 1 else
-                              f"chunk({stop - epoch}) time= {time.time() - t0:.5f}")
+                            print(f"epoch time= {time.time() - t0:.5f}" if stop - epoch == 1 else
+                                  f"chunk({stop - epoch}) time= {time.time() - t0:.5f}")
                     if prof is not None:
                         self._write_profile(profile_dir, prof, counts, verbose)
                     epoch = stop
                     if (stop - 1) % max(cfg.train.checkpoint_every, 1) == 0 or stopper.stop:
-                        self._save(stop - 1)
-                    self._maybe_eval(stop - 1, verbose)
+                        with self.counters.span("epoch.checkpoint"):
+                            self._save(stop - 1)
+                    with self.counters.span("epoch.eval"):
+                        self._maybe_eval(stop - 1, verbose)
                     if stopper.stop:
                         if verbose:
                             print(f"interrupted: checkpointed epoch {stop - 1}")
@@ -1103,6 +1197,13 @@ class Trainer:
         finally:
             if graph is not None:
                 graph.release()
+            self._stamps = None
+        if counts is not None:
+            with open(self._profile_path(profile_dir, ".launches.json"), "w") as f:
+                json.dump({**counts, "spans": None if profiled is None else spans.export(profiled),
+                           "counters": self.counters.as_dict(),
+                           "stamps_per_replay": (graph.stamps_per_replay or 0)
+                           if graph is not None else 0}, f)
         if self.mesh is not None:
             dist.barrier()
         return last_means

@@ -736,3 +736,60 @@ def test_cuda_failing_run_on_mesh_leaves_no_live_graph(tmp_path, monkeypatch):
         assert made[0].graph is None and made[0].grads is None and live == before
     finally:
         dist.destroy_process_group()
+
+
+# Spans inside the port: the stamp kernel and the stamped graph
+# --------------------------------------------------------------------------
+
+def test_cuda_stamp_kernel_writes_its_row():
+    """``span_stamp_kernel`` writes the card's ``%globaltimer`` at [row, k],
+    the row read on the card: later stamps read later, the other rows stay
+    zero, and a row outside the buffer writes nothing."""
+    from snd_vae_tpu_torch import spans
+
+    _card()
+    stamps = spans.Stamps(3, torch.ones((), dtype=torch.int64, device="cuda"))
+    with spans.stamping(stamps):
+        spans.stamp("step.start")
+        torch.cuda._sleep(1_000_000)
+        spans.stamp("step.end")
+        stamps.row.fill_(5)
+        spans.stamp("train_step.forward")
+    t = stamps.times.cpu()
+    start, end = t[1, spans.INDEX["step.start"]], t[1, spans.INDEX["step.end"]]
+    assert 0 < start < end and int((t != 0).sum()) == 2 and stamps.launched == 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_stamped_graph_adds_its_stamps_alone(tmp_path, dtype):
+    """Two epochs through a ``StepGraph`` with stamps and through one
+    without, from the same seed: every aux value, parameter, Adam moment
+    and count, the step and the generator bit for bit; the graph without
+    stamps has no stamp nodes, the stamped one the same kernel and copy
+    nodes and ``len(STAMPS)`` kernel nodes more.  In each step (the eager
+    first, then replays) the stamps do not decrease, and forward, backward
+    and optimizer lie inside the step's extent and cover 90% of it."""
+    from snd_vae_tpu_torch import spans
+    from snd_vae_tpu_torch import train as tt
+
+    _card()
+    trainers = _graph_trainers(tmp_path, ("plain", "stamped"), compute_dtype=dtype)
+    plain, stamped = graphs = [tt.StepGraph(tr, 2 * tr.batched.adj.shape[0]) for tr in trainers]
+    stamped.stamps = spans.Stamps(stamped.rows, stamped.row)
+    out = [tr.graph_epochs(g, range(0, 2)) for tr, g in zip(trainers, graphs)]
+    assert out[0] == out[1]
+    _assert_same_state(_train_state(trainers[0]), _train_state(trainers[1]))
+    assert plain.stamps_per_replay == 0 and stamped.stamps_per_replay == len(spans.STAMPS)
+    assert (stamped.kernels_per_replay, stamped.copies_per_replay) == (
+        plain.kernels_per_replay, plain.copies_per_replay)
+    nodes = [tt.graph_device_nodes(g.graph.raw_cuda_graph())["kernel"] for g in graphs]
+    assert nodes == [plain.kernels_per_replay, plain.kernels_per_replay + len(spans.STAMPS)]
+    t = trainers[1].last_stamps
+    assert t.shape == (4, len(spans.STAMPS)) and (t > 0).all()
+    assert (np.diff(t, axis=1) >= 0).all() and (t[1:, 0] >= t[:-1, -1]).all()
+    k = spans.INDEX
+    extent = t[:, k["step.end"]] - t[:, k["step.start"]]
+    phases = t[:, k["train_step.end"]] - t[:, k["train_step.forward"]]
+    assert (phases <= extent).all() and (phases >= 0.9 * extent).all()
+    for g in graphs:
+        g.release()
