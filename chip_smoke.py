@@ -99,10 +99,12 @@ Phases, one output line each:
                the card against the CPU, both heads' device ms;
  11. protein — the disentangled model at the protein preset (B = 50 x S =
                10 trees, N = 50, the fourth-order conv) on the seeded
-               fallback: serve 2 batches f32 and bf16 (adj_matmul twice per
-               batch, no motif kernel), the card against the CPU on 2
-               graphs, each motif conv's device ms (sg_conv.<i> ranges)
-               beside the chain's bound, peak memory; Trainer.run on 100
+               fallback: serve 2 batches f32 and bf16 (adj_matmul and K4
+               twice per batch), the card against the CPU on 2 graphs, each
+               motif conv's device ms (sg_conv.<i> ranges) beside the
+               chain's bound, peak memory; K4 and its backward at both
+               layers' shapes against the plain pair, with their bounds
+               (kernel lines); Trainer.run on 100
                graphs (2 steps an epoch), a counted and a timed epoch, f32
                and bf16, the card's step against the CPU's;
  12. protein_blocked — layer 2 of the protein conv unblocked against
@@ -111,8 +113,9 @@ Phases, one output line each:
                float64 as the unblocked ones, peak memory (the blocked one
                lower; the third order's backward keeps no [B,n,N,h] tensor,
                below the replaced backward's peaks) and device ms of each;
- 13. protein_joint, mnist — the joint model on protein (no kernel) and the
-               disentangled model at the mnist preset (adj_matmul twice):
+ 13. protein_joint, mnist — the joint model on protein (K4 twice) and
+               the disentangled model at the mnist preset (adj_matmul and
+               K4 twice):
                one batch against the CPU, 3 train steps, the card's step
                against the CPU's;
  14. eval    — synthetic2, disentangled, f32: Trainer.run for 2 epochs
@@ -126,7 +129,8 @@ Phases, one output line each:
                protein: the loss at rtol 1e-6, every gradient held to a
                float64 step on the CPU (at most twice the unremat error,
                plus 1e-7 of the largest gradient), the launches (4 of
-               motif_level3 with remat: the recompute launches again); at
+               motif_level3, and on protein of K4, with remat: the
+               recompute launches again); at
                protein's full batch each variant and --remat
                --motif-block-rows 10: ms per step and peak memory;
  16. cli_eval — the CLI in-process: train with --eval-every, then
@@ -301,6 +305,10 @@ K3_REPLACES = "snd_vae_tpu/nn/pallas/blocked_spmm.py:89"
 K3B_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/adj_matmul_backward.cu"
 K3B_TPU_FN = "blocked_adj_matmul (no backward in JAX: jax.vjp of GraphConv)"
 K3B_REPLACED = "autograd through adj_matmul_plain (snd_vae_tpu_torch/nn/kernels/adj_matmul.py)"
+K4_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level4.cu"
+K4B_SOURCE = "snd_vae_tpu_torch/nn/kernels/csrc/motif_level4_backward.cu"
+K4_TPU_FN = "none: XLA ops (levels 4 and 3 of spatial_graph_conv_3d)"
+K4_REPLACES = "snd_vae_tpu/nn/spatial_conv.py:401-562"
 
 
 # wall seconds by phase: the time up to each emitted line from the line
@@ -337,29 +345,38 @@ def count_plain_calls(am) -> None:
 
 
 def zero_counts(ml, mc, am) -> None:
+    from snd_vae_tpu_torch.nn.kernels import motif_level4 as m4
+
     ml.fused_motif_level3.launches = mc.fused_motif_combine.launches = 0
     ml.fused_motif_level3_backward.launches = am.blocked_adj_matmul.launches = 0
     am.fused_adj_matmul_backward.launches = 0
+    m4.fused_motif_level4.launches = m4.fused_motif_level4_backward.launches = 0
     if hasattr(am.adj_matmul_plain, "calls"):
         am.adj_matmul_plain.calls = 0
 
 
 def read_counts(ml, mc, am) -> dict:
+    from snd_vae_tpu_torch.nn.kernels import motif_level4 as m4
+
     torch.cuda.synchronize()
     return {"motif_level3": ml.fused_motif_level3.launches,
             "motif_level3_backward": ml.fused_motif_level3_backward.launches,
             "motif_combine": mc.fused_motif_combine.launches,
             "adj_matmul": am.blocked_adj_matmul.launches,
             "adj_matmul_backward": am.fused_adj_matmul_backward.launches,
-            "adj_matmul_plain": getattr(am.adj_matmul_plain, "calls", 0)}
+            "adj_matmul_plain": getattr(am.adj_matmul_plain, "calls", 0),
+            "motif_level4": m4.fused_motif_level4.launches,
+            "motif_level4_backward": m4.fused_motif_level4_backward.launches}
 
 
-def per(n: int, ml3: int = 0, k3: int = 0, bwd: int = 0, k3b: int = 0) -> dict:
+def per(n: int, ml3: int = 0, k3: int = 0, bwd: int = 0, k3b: int = 0, k4: int = 0,
+        k4b: int = 0) -> dict:
     """The launches n batches or steps should count (``bwd``: calls of
-    the level-3 backward; ``k3b``: of K3's backward); K3's plain version is
-    never called."""
+    the level-3 backward; ``k3b``: of K3's backward; ``k4``, ``k4b``: of
+    K4 and its backward); K3's plain version is never called."""
     return {"motif_level3": n * ml3, "motif_level3_backward": n * bwd, "motif_combine": 0,
-            "adj_matmul": n * k3, "adj_matmul_backward": n * k3b, "adj_matmul_plain": 0}
+            "adj_matmul": n * k3, "adj_matmul_backward": n * k3b, "adj_matmul_plain": 0,
+            "motif_level4": n * k4, "motif_level4_backward": n * k4b}
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -1717,7 +1734,7 @@ STEP_TURNS = 1            # graphs: timed per-step epochs (each ~10x a replayed 
 GRAPH_KERNELS = {"synthetic2_f32": dict(ml3=2, k3=2, bwd=2, k3b=2),
                  "synthetic2_bf16": dict(ml3=2, k3=2, bwd=2, k3b=2),
                  "joint_f32_dropout": dict(ml3=2, bwd=2),
-                 "protein_f32": dict(k3=2, k3b=2),
+                 "protein_f32": dict(k3=2, k3b=2, k4=2, k4b=2),
                  "synthetic2_f32_remat": dict(ml3=4, k3=2, bwd=2, k3b=2)}
 
 
@@ -2181,6 +2198,101 @@ def conv3d_bound(cfg, batch, dtype) -> dict:
     return out
 
 
+def level4_paths(mask) -> dict:
+    """The counts K4's work follows on the trees ``mask`` [T,N,N]: the
+    (i,j,k) with M[i,j]·M[j,k] != 0, the (i,j) with M[i,j] != 0, the (i,k)
+    that some path reaches, and the paths' share of all (i,j,k)."""
+    nz = (mask != 0).double()
+    T, N = mask.shape[:2]
+    n_paths = float((nz.sum(1) * nz.sum(2)).sum())
+    return {"paths": n_paths, "pairs": float(nz.sum()),
+            "reached": float((torch.bmm(nz, nz) != 0).sum()),
+            "path_share": n_paths / (T * N ** 3)}
+
+
+def level4_bounds(T: int, N: int, h: int, c: dict, esz: int = 4) -> dict:
+    """Least bytes and operations of K4 and of its backward at [T,N,N,h] on
+    trees of ``level4_paths`` counts ``c``, and the bound in ms of each:
+    every output element written once, the masks and deg read once, and
+    of pu, alpha, beta, gamma the rows the trees' paths need read once;
+    10 operations a path and channel forward, 16 backward."""
+    masks = T * N * N * 2 + T * N
+    fwd_bytes = esz * (T * N * N * h + masks + (2 * c["pairs"] + c["reached"]) * h + T * N * h)
+    bwd_bytes = esz * (2 * T * N * N * h + T * N * N * h + T * N * h + masks
+                       + (3 * c["pairs"] + c["reached"]) * h + T * N * h)
+    dtype = torch.bfloat16 if esz == 2 else torch.float32
+    out = {}
+    for name, nbytes, ops in (("forward", fwd_bytes, 10 * c["paths"] * h),
+                              ("backward", bwd_bytes, 16 * c["paths"] * h)):
+        ms, by = bound(nbytes, ops, dtype)
+        out[name] = {"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by}
+    return out
+
+
+def check_level4(cfg, batch) -> list:
+    """K4 and its backward at each fourth-order layer's shape on the
+    batch's trees (protein: 500 trees, N = 50, h0 = 10 / 20), f32, inputs
+    drawn from N(0, 1): one launch each; the forward against the plain
+    chain in float64 and the backward against the closed form, each element
+    within (2N + 16)·2^-24 of its sum's magnitude (the plain pair on the
+    inputs' absolute values), the card tests' tolerance; the median device
+    ms of each beside its plain version's and its bound over the trees'
+    paths.  Returns the kernels line's rows."""
+    from snd_vae_tpu_torch.nn.kernels import motif_level4 as m4
+
+    N = cfg.num_nodes
+    mask = batch.adj_samples.reshape(-1, N, N).float().contiguous()
+    T = mask.shape[0]
+    counts = level4_paths(mask)
+    tol = (2 * N + 16) * 2.0 ** -24
+
+    def held(got, want, mag, what) -> float:
+        err = (got.double() - want.double()).abs()
+        check(bool((err <= tol * mag.double()).all()),
+              f"K4 {what}: error {err.max().item()} beyond {tol:.3g} of its sum's magnitude")
+        return err.max().item()
+
+    rows = []
+    for layer, (h, *_) in enumerate(cfg.encoder.sg_conv_hidden):
+        gen = torch.Generator(device="cuda").manual_seed(h)
+        draw = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+        ts = [mask, mask, mask.sum(-1), draw(T, N, N, h), draw(T, N, N, h), draw(T, N, N, h),
+              draw(T, N, h)]
+        grad = draw(T, N, N, h)
+        n0, b0 = m4.fused_motif_level4.launches, m4.fused_motif_level4_backward.launches
+        got = m4.fused_motif_level4(*ts)
+        grads = m4.fused_motif_level4_backward(grad, *ts)
+        torch.cuda.synchronize()
+        check((m4.fused_motif_level4.launches - n0, m4.fused_motif_level4_backward.launches - b0)
+              == (1, 1), f"K4 layer {layer}: one launch each")
+        x64 = [t.double() for t in ts]
+        fwd_err = held(got, m4.motif_level4_plain(*x64),
+                       m4.motif_level4_plain(*[t.abs() for t in x64]), f"layer {layer} forward")
+        del x64, got
+        want = m4.motif_level4_backward_plain(grad, *ts)
+        mags = m4.motif_level4_backward_plain(grad.abs(), *[t.abs() for t in ts])
+        bwd_err = max(held(a, b, m, f"layer {layer} backward {name}")
+                      for name, a, b, m in zip(("pu", "alpha", "beta", "gamma"), grads, want,
+                                               mags))
+        del want, mags, grads
+        torch.cuda.empty_cache()
+        b = level4_bounds(T, N, h, counts)
+        common = dict(shape=[T, N, N, h], dtype="float32", served=True, batch_shape=True,
+                      library_ms=None, layer=layer, **counts)
+        rows.append(dict(common, kernel="motif_level4", max_abs_err=fwd_err,
+                         ms=device_ms(lambda: m4.fused_motif_level4(*ts)),
+                         plain_ms=device_ms(lambda: m4.motif_level4_plain(*ts), reps=10),
+                         bound_ms=b["forward"]["bound_ms"], bound_by=b["forward"]["bound_by"]))
+        rows.append(dict(common, kernel="motif_level4_backward", max_abs_err=bwd_err,
+                         ms=device_ms(lambda: m4.fused_motif_level4_backward(grad, *ts)),
+                         plain_ms=device_ms(
+                             lambda: m4.motif_level4_backward_plain(grad, *ts), reps=10),
+                         bound_ms=b["backward"]["bound_ms"], bound_by=b["backward"]["bound_by"]))
+        del ts, grad
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_train_epochs(ml, mc, am, cfg, graphs, per_step) -> dict:
     """Trainer.run from the seed weights on ``graphs`` of the generated
     train split, f32 and bf16 (f32 masters): one counted epoch (``per_step``
@@ -2235,8 +2347,10 @@ def run_protein(ml, mc, am):
     """The disentangled model at the protein preset (B = 50 graphs x S = 10
     trees, N = 50, the fourth-order sg conv) on the loader's seeded
     fallback: serve 2 test batches in f32 and bf16 (0 motif_level3, 2
-    adj_matmul per batch; the card against the CPU on 2 graphs), the chain's
-    bound per layer; train on 100 graphs (2 steps an epoch, 2 adj_matmul
+    adj_matmul and 2 K4 per batch; the card against the CPU on 2 graphs),
+    the chain's bound per layer; K4 and its backward at both layers against
+    the plain pair (``check_level4``, its rows under ``level4``); train on
+    100 graphs (2 steps an epoch, 2 adj_matmul, 2 K4 and their backwards
     each)."""
     from snd_vae_tpu_torch.config import protein_preset
     from snd_vae_tpu_torch.data.loaders import load_dataset
@@ -2244,9 +2358,11 @@ def run_protein(ml, mc, am):
 
     cfg = protein_preset(dataset_path=str(ROOT / "dataset"))
     B = cfg.train.batch_size
-    res = {"serve": serve_phase(ml, mc, am, cfg, {"k3": 2}, n_batches=PROTEIN_SERVE_BATCHES,
+    res = {"serve": serve_phase(ml, mc, am, cfg, {"k3": 2, "k4": 2},
+                                n_batches=PROTEIN_SERVE_BATCHES,
                                 num_graphs=PROTEIN_SERVE_BATCHES * B, cpu_graphs=2)}
     batch = load_dataset(cfg, "test", num_graphs=B, device="cuda")
+    res["level4"] = check_level4(cfg, batch)
     res["conv_bound"] = {d: conv3d_bound(cfg, batch, getattr(torch, d))
                          for d in ("float32", "bfloat16")}
     # the dense adjacency head at N = 50 (adj_factored_min_nodes is 96), f32
@@ -2256,7 +2372,8 @@ def run_protein(ml, mc, am):
     coords = torch.rand(B, cfg.num_nodes, cfg.spatial_dim, generator=gen, device="cuda")
     with torch.inference_mode():
         res["adj_head_ms"] = device_ms(lambda: model._adj_head(h, coords), reps=20)
-    res["train"] = run_train_epochs(ml, mc, am, cfg, PROTEIN_TRAIN_GRAPHS, {"k3": 2, "k3b": 2})
+    res["train"] = run_train_epochs(ml, mc, am, cfg, PROTEIN_TRAIN_GRAPHS,
+                                    {"k3": 2, "k3b": 2, "k4": 2, "k4b": 2})
     return res
 
 
@@ -2295,8 +2412,10 @@ def run_short_train(ml, mc, am, cfg, per_step, vs_cpu=True) -> dict:
 def run_3d_short(ml, mc, am, cfg, per_batch) -> dict:
     """One reconstructed f32 batch on the card against the CPU (its first 2
     graphs), then ``run_short_train``; ``per_batch`` launches per batch and
-    per step, and per step as many of K3's backward as of K3."""
-    per_step = per_batch | ({"k3b": per_batch["k3"]} if "k3" in per_batch else {})
+    per step, and per step as many of K3's and K4's backward as of K3 and
+    K4."""
+    per_step = per_batch | {back: per_batch[fwd] for fwd, back in (("k3", "k3b"), ("k4", "k4b"))
+                            if fwd in per_batch}
     return {"serve": serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32",), n_batches=1,
                                  sample_graphs=SAMPLE_GRAPHS, num_graphs=cfg.train.batch_size,
                                  timed=False, cpu_graphs=2),
@@ -2309,7 +2428,7 @@ def blocked_pair(ml, mc, am, conv, block_rows, inputs, grad_out, ref_device) -> 
     row is computed by the same operations either way); the gradients of x
     and every parameter, sums over all rows that the blocked run adds up
     block by block, each held to a float64 run of the blocked form on
-    ``ref_device`` (the CPU where the conv runs a kernel, which takes f32
+    ``ref_device`` (the CPU: both motif convs run kernels, which take f32
     and bf16 only; the CPU tests hold the blocked form equal to the
     unblocked one in float64): the blocked error at most twice the
     unblocked one's, plus 1e-7 of the largest gradient.  Each run's
@@ -2372,11 +2491,14 @@ def run_blocked(ml, mc, am):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
+    # the launches unblocked and blocked: K4 once a block, and once more
+    # in the backward's recompute of each checkpointed block
     for name, cfg, make, block_rows, per_run, ref_device in (
             ("protein_conv3d_layer2", protein_preset(dataset_path=str(ROOT / "dataset")),
-             SpatialGraphConv3D, 10, per(1), "cuda"),
+             SpatialGraphConv3D, 10, {None: per(1, k4=1, k4b=1), 10: per(1, k4=10, k4b=5)},
+             "cpu"),
             ("synthetic2_conv_layer2", synthetic2_preset(dataset_path=str(ROOT / "dataset")),
-             SpatialGraphConv, 5, per(1, ml3=1, bwd=1), "cpu")):
+             SpatialGraphConv, 5, {None: per(1, ml3=1, bwd=1), 5: per(1, ml3=1, bwd=1)}, "cpu")):
         data = load_dataset(cfg, "test", num_graphs=cfg.train.batch_size, device="cuda")
         N, S = cfg.num_nodes, cfg.sampling_num
         T = data.batch_size * S
@@ -2389,8 +2511,10 @@ def run_blocked(ml, mc, am):
         res = blocked_pair(ml, mc, am, conv, block_rows, (adj, x, rel), g, ref_device)
         peak = lambda r, key: r[key]["peak_above_inputs_bytes"]
         blocked = f"block_{block_rows}"
-        for key in ("block_None", blocked):
-            check(res[key]["launches"] == per_run, f"{name} {key}: launches {res[key]['launches']}")
+        for block in (None, block_rows):
+            key = f"block_{block}"
+            check(res[key]["launches"] == per_run[block],
+                  f"{name} {key}: launches {res[key]['launches']}, expected {per_run[block]}")
         if make is SpatialGraphConv3D:
             check(peak(res, blocked) < peak(res, "block_None"), "blocked peak below unblocked")
         else:
@@ -2516,7 +2640,8 @@ def run_remat(ml, mc, am):
              per(1, ml3=4, k3=2, bwd=2, k3b=2)),
             ("synthetic2_joint", s2.with_(model_type="base"), s2.train.batch_size,
              per(1, ml3=2, bwd=2), per(1, ml3=4, bwd=2)),
-            ("protein", prot, 2, per(1, k3=2, k3b=2), per(1, k3=2, k3b=2))):
+            ("protein", prot, 2, per(1, k3=2, k3b=2, k4=2, k4b=2),
+             per(1, k3=2, k3b=2, k4=4, k4b=2))):
         batch = load_dataset(cfg, "train", num_graphs=graphs, device="cpu")
         enc, gen = cfg.encoder, torch.Generator().manual_seed(0)
         S = 1 if cfg.model_type == "base" else cfg.sampling_num
@@ -2701,7 +2826,9 @@ TRACE_KERNEL_NAMES = {"motif_level3": "motif_level3_kernel",
                       "motif_level3_backward": "motif_l3_grad_",
                       "motif_combine": "motif_combine_kernel",
                       "adj_matmul": "adj_matmul_",
-                      "adj_matmul_backward": "adj_bwd_"}
+                      "adj_matmul_backward": "adj_bwd_",
+                      "motif_level4": "motif_level4_kernel",
+                      "motif_level4_backward": "motif_level4_grad_kernel"}
 
 
 def trace_kernel_events(events) -> dict:
@@ -4445,14 +4572,19 @@ def main() -> int:
     from snd_vae_tpu_torch.config import mnist_preset, protein_preset
 
     protein = run_protein(ml, mc, am)
+    level4_rows = protein.pop("level4")
     emit("protein", protein)
+    for r in level4_rows:
+        emit("kernel", r)
+    rows += level4_rows
     blocked = run_blocked(ml, mc, am)
     emit("protein_blocked", blocked)
     protein_joint = run_3d_short(
-        ml, mc, am, protein_preset(model_type="base", dataset_path=str(ROOT / "dataset")), {})
+        ml, mc, am, protein_preset(model_type="base", dataset_path=str(ROOT / "dataset")),
+        {"k4": 2})
     emit("protein_joint", protein_joint)
     mnist = run_3d_short(ml, mc, am, mnist_preset(dataset_path=str(ROOT / "dataset")),
-                         {"k3": 2})
+                         {"k3": 2, "k4": 2})
     emit("mnist", mnist)
 
     # 14.-16b. held-out evaluation, rematerialization, the evaluation CLI
@@ -4528,7 +4660,8 @@ def main() -> int:
                "remat_protein_train": remat["protein"]["remat"]["launches"],
                "large_graph": {"motif_level3": 0, "motif_level3_backward": 0,
                                "motif_combine": 0, "adj_matmul": large_graph["launches"],
-                               "adj_matmul_backward": large_graph["backward_launches"]},
+                               "adj_matmul_backward": large_graph["backward_launches"],
+                               "motif_level4": 0, "motif_level4_backward": 0},
                "dp_train": dp["mesh"]["launches"],
                "tp_train": tp["tp"]["launches"],
                # the default dispatch on the mesh: the eager step and the
@@ -4557,6 +4690,8 @@ def main() -> int:
         entry("adj_matmul", K3_SOURCE, "blocked_adj_matmul", K3_REPLACES),
         entry("adj_matmul_backward", K3B_SOURCE, K3B_TPU_FN, K3_REPLACES)
         | {"replaced_in_port": K3B_REPLACED},
+        entry("motif_level4", K4_SOURCE, K4_TPU_FN, K4_REPLACES),
+        entry("motif_level4_backward", K4B_SOURCE, K4_TPU_FN, K4_REPLACES),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,18 +18,22 @@ inputs, and the backward runs the region again to get what it needs.
 
 Both policies recompute the ops that allocate a buffer (``empty_like``,
 ``zeros``, ...).  A policy sees aten ops only; the CUDA kernels fill their
-outputs through ctypes (``fused_motif_level3``'s ``empty_like``,
-``blocked_adj_matmul``'s ``empty``), so keeping such a buffer would hand
+outputs through ctypes (``fused_motif_level3``'s and
+``fused_motif_level4``'s ``empty_like``, ``blocked_adj_matmul``'s
+``empty``), so keeping such a buffer would hand
 the recompute the forward's buffer to fill again.  Recomputed, it gets a
 fresh one, and the kernel launches once more per region and step.
 
 Where the tags are (``BIG_NAMES``; ``tests/test_torch_remat.py`` holds the
 ``big(...)`` call sites to this list):
   * ``nn/spatial_conv.py::spatial_graph_conv_3d`` — ``sgc3.nd4``,
-    ``sgc3.m4_sum``, ``sgc3.tm``, ``sgc3.m3_sum``, on the unblocked and the
-    row-blocked lowering alike: a policy's cache sees the ops of a
-    ``checkpoint`` nested inside its region, so untagged block tensors would
-    be kept, block after block;
+    ``sgc3.m4_sum`` (pu), ``sgc3.tm`` (K4's output), ``sgc3.m3_sum``, on
+    the unblocked and the row-blocked lowering alike: a policy's cache sees
+    the ops of a ``checkpoint`` nested inside its region, so untagged block
+    tensors would be kept, block after block;
+  * ``nn/kernels/motif_level4.py::motif_level4_plain`` — ``sgc3.m4_sum``,
+    the m4 buffer that only the plain version (the CPU) builds; on the card
+    ``fused_motif_level4`` never writes it;
   * ``nn/kernels/motif_level3.py::motif_level3_plain`` — the third order's
     ``sgc.d_ij``, ``sgc.rf``, ``sgc.wf``, ``sgc.m3_sum``.  Only the plain
     version (the CPU) builds them; on the card ``fused_motif_level3`` is

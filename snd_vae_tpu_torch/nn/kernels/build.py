@@ -25,7 +25,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("motif_level3", "motif_level3_backward", "motif_combine", "adj_matmul",
-           "adj_matmul_backward", "span_stamp")
+           "adj_matmul_backward", "span_stamp", "motif_level4", "motif_level4_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,16 +18,22 @@ makes its backward recompute level 3 one i-row block at a time.  Levels 2
 and 1 are the rank-R reassociated sums of ``:240-260``.
 
 Fourth order (``spatial_conv.py:358-637``, the protein and mnist
-datasets): levels 4 and 3 are PyTorch ops, as XLA ops are in JAX — the JAX
-package has no Pallas kernel there.  The [B,N,N,N,h0] ``m4_sum`` is built
-in one buffer that the broadcast adds, the motif mask and lrelu update in
-place, so autograd keeps one such tensor per layer (lrelu's output); its
-masked k-sum is a batched matmul over that buffer as it lies.
+datasets): level 4 and its masked k-sum run as one kernel pair, K4
+(``kernels.motif_level4``; the JAX package has no Pallas kernel there and
+leaves them to XLA):
+
+    tm = motif_level4(mask_i, mask, deg, pu, alpha_ik, beta_jk, gamma_k)
+
+which visits only the (i,j,k) with M[i,j]·M[j,k] != 0 and never writes the
+[B,N,N,N,h0] ``m4_sum``; its forward saves only its inputs and its backward
+is the closed form.  The pieces (pu, alpha_ik, beta_jk, gamma_k) and level
+3 (``m3_sum`` to nt) are PyTorch ops, as XLA ops are in JAX.
 ``block_rows`` (``_blocked_nt_3d``, ``:565-637``) computes levels 4 and 3
 one i-row block at a time under ``torch.utils.checkpoint``.  The level-4/3
 tensors run in ``nn.ckpt.big`` regions (``sgc3.nd4``, ``sgc3.m4_sum``,
 ``sgc3.tm``, ``sgc3.m3_sum``, JAX's ``checkpoint_name`` tags) for the
-``recompute-big`` remat policy.
+``recompute-big`` remat policy.  The masks are data: K4 gives them no
+gradient and raises where one requires it.
 
 Public layouts as in JAX: adj [B,N,N], x [B,N,F], rel [B,N,N,R] ->
 [B,N,h_last].
@@ -53,7 +59,6 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as Fn
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -61,9 +66,8 @@ from . import init as inits
 from .basic import lrelu
 from .ckpt import big
 from .kernels.motif_level3 import motif_level3
+from .kernels.motif_level4 import motif_level4
 from ..parallel.hints import own_block, shard_nodes
-
-LEAK = 0.2
 
 
 def _row_taker(n: int, rows: Optional[Tuple[int, int]]):
@@ -294,16 +298,12 @@ def spatial_graph_conv_3d(adj, x, rel, dis, params: Dict[str, torch.Tensor],
             nd4 = torch.einsum("bkp,bipr->bikr", mask, pd)   # Σ_p M[k,p]·φ(dis)[i,p]
         alpha_ik = deg[:, None, :, None] * (ai[:, :, None] + pd @ m0_y) + nd4 @ m0_z
         with big("sgc3.m4_sum"):
-            m4 = deg[:, None, None, :, None] * (pr @ m0_u)[:, :, :, None, :]   # [B,b,N,N,h0]
-            m4 += alpha_ik[:, :, None]
-            m4 += beta_jk[:, None]
-            m4 += gamma_k[:, None, None]
-            m4 *= (mask_i[:, :, :, None] * mask[:, None])[..., None]       # M[i,j]·M[j,k]
-            # level 3: the masked k-sum of φ(m4) before the h0→h1 matmul
-            # (linearity in the weights), as a matmul over m4 as it lies
-            Fn.leaky_relu_(m4, LEAK)
+            pu = pr @ m0_u                                   # u_ij  [B,b,N,h0]
+        # level 3's masked k-sum of φ(m4) before the h0→h1 matmul (linearity
+        # in the weights), by the K4 kernel pair, which never writes m4
         with big("sgc3.tm"):
-            tm = torch.matmul(mask[:, None, :, None, :], m4).squeeze(-2)   # [B,b,N,h0]
+            tm = motif_level4(*(t.contiguous() for t in (
+                mask_i, mask, deg, pu, alpha_ik, beta_jk, gamma_k)))       # [B,b,N,h0]
         with big("sgc3.m3_sum"):
             m3_sum = (
                 deg[:, None, :, None] * (ci[:, :, None] + c_j[:, None, :] + pr @ m1_gij + b1)

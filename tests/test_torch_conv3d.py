@@ -102,32 +102,36 @@ def test_conv3d_grads_match_jax_vjp_f64(rng, key, block_rows):
     """Gradients for x, rel and every parameter, unblocked and blocked
     (checkpointed blocks), against jax.vjp of JAX's conv (its own blocked
     scan for block_rows 3) and, blocked, against the port's unblocked
-    gradients; adj gets its gradient too."""
+    gradients.  adj is data: level 4's kernel pair (``motif_level4``)
+    gives the masks no gradient, so asking for adj's raises."""
     adj, x, rel = _graph(rng, 2, 6, 2, 1)
     p = _params(rng, key, adj, x, rel)
     g = rng.standard_normal((2, 6, HIDDEN[-1]))
     names = sorted(p)
 
-    def port(block):
-        ta = [torch.from_numpy(a).requires_grad_(True) for a in (adj, x, rel)]
+    def port(block, adj_grad=False):
+        ta = [torch.from_numpy(adj).requires_grad_(adj_grad)] + [
+            torch.from_numpy(a).requires_grad_(True) for a in (x, rel)]
         tp = [torch.from_numpy(p[k]).requires_grad_(True) for k in names]
         out = tops.spatial_graph_conv_3d(ta[0], ta[1], ta[2], ta[2], dict(zip(names, tp)),
                                          block_rows=block)
-        return [t.numpy() for t in torch.autograd.grad(out, ta + tp, torch.from_numpy(g))]
+        return [t.numpy() for t in torch.autograd.grad(out, ta[1:] + tp, torch.from_numpy(g))]
 
     with jax.enable_x64():
         f = lambda a, xx, r, pp: jops.spatial_graph_conv_3d(a, xx, r, r, pp,
                                                             block_rows=block_rows)
-        want_a, want_x, want_r, want_p = jax.jit(lambda *a: jax.vjp(f, *a[:4])[1](a[4]))(
+        _, want_x, want_r, want_p = jax.jit(lambda *a: jax.vjp(f, *a[:4])[1](a[4]))(
             *map(jnp.asarray, (adj, x, rel)), p, jnp.asarray(g))
-    want = [want_a, want_x, want_r] + [want_p[k] for k in names]
+    want = [want_x, want_r] + [want_p[k] for k in names]
     got = port(block_rows)
-    for what, got_i, want_i in zip(["adj", "x", "rel"] + names, got, want):
+    for what, got_i, want_i in zip(["x", "rel"] + names, got, want):
         np.testing.assert_allclose(got_i, np.asarray(want_i), rtol=1e-9, atol=1e-11,
                                    err_msg=what)
     if block_rows is not None:
-        for what, got_i, ref_i in zip(["adj", "x", "rel"] + names, got, port(None)):
+        for what, got_i, ref_i in zip(["x", "rel"] + names, got, port(None)):
             np.testing.assert_allclose(got_i, ref_i, rtol=1e-12, atol=1e-13, err_msg=what)
+    with pytest.raises(ValueError, match="requires grad"):
+        port(block_rows, adj_grad=True)
 
 
 def test_conv3d_block_rows_must_divide(rng):

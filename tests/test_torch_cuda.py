@@ -9,7 +9,8 @@ leave it out there:
 Every test is marked ``cuda`` and skips without a card.  The CPU tests that
 hold the plain versions against the JAX package are in
 ``tests/test_torch_kernels.py``, ``test_torch_motif_level3.py``,
-``test_torch_graph_conv_kernel.py`` and ``test_torch_large_graph.py``."""
+``test_torch_motif_level4.py``, ``test_torch_graph_conv_kernel.py`` and
+``test_torch_large_graph.py``."""
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from snd_vae_tpu_torch.nn.kernels.motif_combine import fused_motif_combine, \
     motif_combine_plain
 from snd_vae_tpu_torch.nn.kernels.motif_level3 import fused_motif_level3, \
     fused_motif_level3_backward, motif_level3, motif_level3_backward_plain, motif_level3_plain
+from snd_vae_tpu_torch.nn.kernels.motif_level4 import fused_motif_level4, \
+    fused_motif_level4_backward, motif_level4_backward_plain, motif_level4_plain
 from snd_vae_tpu_torch.parallel import initialize_distributed, make_mesh
 from snd_vae_tpu_torch.parallel import large_graph as lg
 
@@ -537,6 +540,115 @@ def test_cuda_large_graph_kernel_path_matches_library(tmp_path):
 
 
 # --------------------------------------------------------------------------
+# K4: level 4 of the fourth-order conv and its masked k-sum, and its backward
+# --------------------------------------------------------------------------
+
+def _level4_trees(tmp_path, dataset):
+    """The preset's seeded spanning trees of one train batch, [B·S,N,N] f32
+    on the card: protein's 500 trees, mnist's 20 (hull graphs, whose
+    interior points have no edge)."""
+    from snd_vae_tpu_torch.config import mnist_preset, protein_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    cfg = {"protein": protein_preset, "mnist": mnist_preset}[dataset](
+        dataset_path=str(tmp_path / dataset))
+    data = load_dataset(cfg, "train", num_graphs=cfg.train.batch_size, device="cuda")
+    N = cfg.num_nodes
+    return data.adj_samples.reshape(-1, N, N).float().contiguous()
+
+
+def _level4_inputs(mask, h, seed, rows=None, dtype=torch.float32):
+    """mask_i (the rows ``rows`` = (start, n), all by default), mask, deg,
+    and pu, alpha, beta, gamma drawn from N(0, 1), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T, N = mask.shape[:2]
+    s, n = rows or (0, N)
+    draw = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    ts = [mask[:, s:s + n].contiguous(), mask, mask.sum(-1), draw(T, n, N, h), draw(T, n, N, h),
+          draw(T, N, N, h), draw(T, N, h)]
+    return [t.to(dtype) for t in ts]
+
+
+def _level4_held(ts, grad, tol):
+    """K4's forward against the plain chain in float64, and its backward
+    against the closed form on the card in the inputs' dtype (the same z,
+    rounded as the kernel rounds it, so the same slope of lrelu), each
+    element within ``tol`` times the magnitude of its sum (the plain pair
+    on the inputs' absolute values: every term counted positive).  Returns
+    the kernel's gradients."""
+    n0, b0 = fused_motif_level4.launches, fused_motif_level4_backward.launches
+    got = fused_motif_level4(*ts)
+    grads = fused_motif_level4_backward(grad, *ts)
+    torch.cuda.synchronize()
+    assert (fused_motif_level4.launches, fused_motif_level4_backward.launches) == (n0 + 1, b0 + 1)
+    x64 = [t.double() for t in ts]
+    err = (got.double() - motif_level4_plain(*x64)).abs()
+    assert bool((err <= tol * motif_level4_plain(*[t.abs() for t in x64])).all())
+    del err, x64
+    want = motif_level4_backward_plain(grad, *ts)
+    mags = motif_level4_backward_plain(grad.float().abs(), *[t.float().abs() for t in ts])
+    for name, a, b, m in zip(("pu", "alpha", "beta", "gamma"), grads, want, mags):
+        assert a.dtype == ts[3].dtype, name
+        assert bool(((a.float() - b.float()).abs() <= tol * m).all()), name
+    return grads
+
+
+@pytest.mark.parametrize("dataset,h", [("protein", 10), ("protein", 20), ("mnist", 50)])
+def test_cuda_motif_level4_pair_matches_plain_on_the_trees(tmp_path, dataset, h):
+    """On the card: K4 and its backward at protein's two layers (500 trees,
+    N = 50, h0 = 10 / 20) and mnist's layer 2 (h0 = 50: two chunks of h),
+    one launch each, f32 within (2N + 16)·2^-24 of each sum's magnitude
+    (the k-sum's, or a gradient's sum over the paths, rounded in another
+    order than the plain version's, and z's four roundings); two backward
+    calls bit-equal."""
+    _card()
+    mask = _level4_trees(tmp_path, dataset)
+    ts = _level4_inputs(mask, h, seed=h)
+    grad = torch.randn(ts[3].shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                       device="cuda")
+    grads = _level4_held(ts, grad, (2 * mask.shape[1] + 16) * 2.0 ** -24)
+    again = fused_motif_level4_backward(grad, *ts)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("kind", ["dense", "weighted_asymmetric", "zero_rows", "window", "bf16",
+                                  "n90"])
+def test_cuda_motif_level4_masks_windows_and_bf16(kind):
+    """On the card, N = 37 and h = 45 (two chunks of j, k and h, ragged):
+    a dense mask, an asymmetric weighted one, trees with rows all zero, a
+    window of rows 5-24 (its forward the full launch's rows bit for bit),
+    bf16 (f32 arithmetic: within 1e-2 of each sum's magnitude); and trees
+    at N = 90 (three chunks of j and k)."""
+    _card()
+    rng = np.random.default_rng(0)
+    B, N, h = 6, 90 if kind == "n90" else 37, 45
+    if kind == "dense":
+        m = np.ones((B, N, N))
+    elif kind == "weighted_asymmetric":
+        m = (rng.random((B, N, N)) < 0.3) * rng.random((B, N, N))
+    else:
+        m = np.zeros((B, N, N))
+        for b in range(B):
+            for v in range(1, N):
+                u = rng.integers(0, v)
+                m[b, u, v] = m[b, v, u] = 1.0
+        if kind == "zero_rows":
+            m[:, [0, 3, 33], :] = 0.0
+    mask = torch.from_numpy(m).float().cuda()
+    rows = (5, 20) if kind == "window" else None
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    ts = _level4_inputs(mask, h, seed=2, rows=rows, dtype=dtype)
+    grad = torch.randn(ts[3].shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda").to(dtype)
+    _level4_held(ts, grad, 1e-2 if kind == "bf16" else (2 * N + 16) * 2.0 ** -24)
+    if kind == "window":
+        full = _level4_inputs(mask, h, seed=4)
+        full[3][:, 5:25], full[4][:, 5:25] = ts[3], ts[4]
+        full[5], full[6] = ts[5], ts[6]
+        assert torch.equal(fused_motif_level4(*ts), fused_motif_level4(*full)[:, 5:25])
+
+
+# --------------------------------------------------------------------------
 # The trainer's default dispatch: CUDA-graph replays of the train step
 # --------------------------------------------------------------------------
 
@@ -632,6 +744,30 @@ def test_cuda_two_replays_in_a_row_are_equal(tmp_path):
     assert torch.equal(runs[0][0], runs[1][0])
     _assert_same_state(runs[0][1], runs[1][1])
     assert graph.graph is not None
+
+
+def test_cuda_protein_replayed_step_equals_eager_step(tmp_path):
+    """Protein (the fourth-order conv through K4): an epoch of 2 steps by
+    the default dispatch (the first step eager, then the capture and one
+    replay of it) against 2 eager steps from the same seed, every aux
+    value, parameter, Adam moment, the step and the generator bit for bit;
+    2 launches of K4 and 2 of its backward a step."""
+    from snd_vae_tpu_torch import train as tt
+    from snd_vae_tpu_torch.config import protein_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+
+    _card()
+    cfg = protein_preset(dataset_path=str(tmp_path / "dataset"))
+    data = load_dataset(cfg, "train", num_graphs=2 * cfg.train.batch_size, device="cuda")
+    trainers = [tt.Trainer(cfg, data, device="cuda", workdir=str(tmp_path / n))
+                for n in ("graph", "per_step")]
+    logs = [_logged(tr) for tr in trainers]
+    n0, b0 = fused_motif_level4.launches, fused_motif_level4_backward.launches
+    trainers[1].run(1, verbose=False, per_step=True)
+    assert (fused_motif_level4.launches - n0, fused_motif_level4_backward.launches - b0) == (4, 4)
+    trainers[0].run(1, verbose=False)
+    assert logs[0] == logs[1]
+    _assert_same_state(_train_state(trainers[0]), _train_state(trainers[1]))
 
 
 def test_cuda_uncapturable_step_raises(tmp_path, monkeypatch):

@@ -8,7 +8,8 @@ small widths in float64 on an uneven N = 10 (over 4 ranks: 3, 3, 3, 1; over
     fourth-order motif convs (also with ``block_rows``, whose blocks run
     short inside a rank's rows), E2E's conv, Toeplitz and separable
     lowerings and the adjacency head, equal to the unsharded port at 1e-10
-    (outputs, and the gradients summed over the ranks) and to JAX at 1e-8;
+    (outputs, and the gradients summed over the ranks; the fourth-order
+    conv's adj is data and is asked for none) and to JAX at 1e-8;
     E2E's conv lowering also in f32, at 1e-5.
   * The ``shard_nodes`` reports show the ``sgc.*``, ``sgc3d.*``, ``e2e.*``
     and ``dec.*`` sites holding a part of the node axis, as

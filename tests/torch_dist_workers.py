@@ -275,18 +275,24 @@ def tp_op(case, mesh=None):
     seed, in the case's ``dtype``, float64 by default) on the whole inputs:
     under ``mesh`` this rank's rows of the output, a local loss Σ out·g
     over those rows and the gradients of that loss (the inputs' and the
-    parameters'); without it the whole op."""
+    parameters'); without it the whole op.  The fourth-order conv's adj is
+    data (its level-4 kernel pair gives the mask no gradient): no gradient
+    is asked of it."""
     fn, params = tp_op_module(case)
     dt = getattr(torch, case.get("dtype", "float64"))
-    inputs = [torch.from_numpy(a).to(dt).requires_grad_(True) for a in case["inputs"]]
+    data = (0,) if case["kind"] == "sgc4" else ()
+    inputs = [torch.from_numpy(a).to(dt).requires_grad_(i not in data)
+              for i, a in enumerate(case["inputs"])]
+    asked = [i for i in range(len(inputs)) if i not in data]
     with use_mesh(mesh):
         out = fn(*inputs)
         n = case["inputs"][0].shape[1]
         g = shard_nodes(torch.from_numpy(case["g"]).to(dt), nodes=n)
-        grads = torch.autograd.grad((out * g).sum(), inputs + list(params.values()),
+        grads = torch.autograd.grad((out * g).sum(),
+                                    [inputs[i] for i in asked] + list(params.values()),
                                     allow_unused=True)
         whole = gather_nodes(out.detach(), n)
-    names = [f"input{i}" for i in range(len(inputs))] + list(params)
+    names = [f"input{i}" for i in asked] + list(params)
     return {"out": whole, "grads": {k: (torch.zeros(()) if v is None else v)
                                     for k, v in zip(names, grads)}}
 
