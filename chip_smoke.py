@@ -40,12 +40,16 @@ Phases, one output line each:
                library's ms (torch.matmul(A^T, gy) on a precomputed gy,
                and the W products where W is fused);
   4. serve   — synthetic2 at full width: reconstruct 5 batches of
-               10 graphs x 10 trees and sample 100 graphs, counting the
-               kernel launches (motif_level3 and adj_matmul twice per
-               batch, motif_combine and the level-3 backward never), each
-               entry point turning TF32 off itself; one batch against the same
-               weights on the CPU (plain versions); graphs/s in float32
-               and bfloat16;
+               10 graphs x 10 trees and sample 100 graphs, each entry point
+               turning TF32 off itself; reconstruct replays its encode and
+               decode captured as CUDA graphs (serve.ServeGraphs): the
+               wrappers launch at the first call's eager pass and capture
+               alone, and the replays' kernel records count the launches
+               (motif_level3 and adj_matmul twice per batch, motif_combine
+               and the level-3 backward never); every replayed batch
+               equal to the eager forward on the card bit for bit; one
+               batch against the same weights on the CPU (plain versions);
+               graphs/s in float32 and bfloat16;
   5. train   — synthetic2 at full width on the generated train split (200
                graphs, 20 steps an epoch), f32 and bf16 with f32 masters:
                Trainer.run for 2 epochs with Adam from the seed weights,
@@ -120,8 +124,9 @@ Phases, one output line each:
                against the CPU's;
  14. eval    — synthetic2, disentangled, f32: Trainer.run for 2 epochs
                with eval_every=1 on the test split (2 + 2 launches per step
-               and per eval batch), the best checkpoint and best.json, one
-               evaluate_heldout counted and timed, its metrics against a CPU
+               and per eval batch, the eval batches as replays), the best
+               checkpoint and best.json, one evaluate_heldout counted and
+               timed, its metrics against a CPU
                Trainer's on the same weights (edge AUC/AP within 1e-4, MSEs
                at rtol 1e-4);
  15. remat   — one f32 step without remat, with --remat, recompute-big and
@@ -238,7 +243,8 @@ Phases, one output line each:
                bound, the plain version's ms (10 calls) and, for K3 and its
                backward, the library's; (f) serve.reconstruct of one batch
                and serve.sample of 2 graphs at N = 2048 f32 (2 + 2 launches
-               a batch, finite outputs, peak memory, the call's ms); (g)
+               at the eager pass and 2 + 2 at the capture, finite outputs,
+               peak memory, the call's ms); (g)
                the remat run's loss terms against the first step's without
                remat (rtol 1e-6), both peaks; the phase's seconds;
  20. the launches per path (profile_train: the kernel events in the
@@ -1265,12 +1271,19 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
                 timed=True, cpu_graphs=None):
     """Serve ``cfg`` from the seed weights: reconstruct ``n_batches`` of the
     test split and sample ``sample_graphs`` graphs from the prior in each
-    dtype, counting the launches (``per_batch`` per reconstructed batch;
-    decoding launches none) and reading the peak of allocated memory over
-    that run; the outputs' shapes and finiteness; in f32 one batch (its
-    first ``cpu_graphs`` graphs, when given) against the same weights on the
-    CPU (plain versions) at rtol 1e-4 / atol 1e-5; with ``timed``, graphs/s
-    and profiles, the motif convs under ``sg_conv.<i>`` ranges."""
+    dtype.  ``reconstruct`` replays its captured encode and decode
+    (``serve.ServeGraphs``): the wrappers launch at the first call alone
+    (its eager pass and its capture: ``per_batch`` twice), replays and
+    samples launch none of them, and the replays' kernel records by wrapper
+    (``replayed_kernels``) are ``per_batch`` a batch, as the captured
+    graphs' nodes hold them; the holder's counters beside.  Each replayed
+    batch equals the eager forward on the card bit for bit; the peak of
+    allocated memory over the counted run; the outputs' shapes and
+    finiteness; in f32 one batch (its first ``cpu_graphs`` graphs, when
+    given) against the same weights on the CPU (plain versions) at rtol
+    1e-4 / atol 1e-5; with ``timed``, graphs/s and profiles, the motif
+    convs under ``sg_conv.<i>`` ranges (none on a replay)."""
+    from snd_vae_tpu_torch import serve
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
     from snd_vae_tpu_torch.serve import reconstruct, sample
@@ -1289,28 +1302,48 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
     for dtype_name in dtypes:
         model = build_model(cfg.with_(compute_dtype=dtype_name), device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
-        # warm-up (cuDNN plans, caches), each entry point from TF32 on: it
-        # must turn TF32 off itself
+        # warm-up (cuDNN plans, caches; reconstruct's capture), each entry
+        # point from TF32 on: it must turn TF32 off itself
         warm = [lambda: reconstruct(model, batches[0])]
         if sample_graphs:
             warm.append(lambda: sample(model, sample_graphs, gen))
+        zero_counts(ml, mc, am)
         for fn in warm:
             torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
             fn()
             check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
                   "a serving entry point left TF32 on")
-        torch.cuda.synchronize()
+        capture_launches = read_counts(ml, mc, am)
+        check(capture_launches == per(2, **per_batch),
+              f"{cfg.model_type}/{cfg.dataset} {dtype_name}: launches at the capture "
+              f"{capture_launches}, expected {per_batch} twice (the eager pass, the capture)")
 
-        # the path, counted: the reconstructed batches and the samples
+        # the path, counted: the reconstructed batches (replays) and the samples
         torch.cuda.reset_peak_memory_stats()
         zero_counts(ml, mc, am)
         outs = [reconstruct(model, b) for b in batches]
         drawn = sample(model, sample_graphs, gen) if sample_graphs else None
-        launches = read_counts(ml, mc, am)
+        wrapped = read_counts(ml, mc, am)
         peak = torch.cuda.max_memory_allocated()
-        check(launches == per(n_batches, **per_batch),
-              f"{cfg.model_type}/{cfg.dataset} {dtype_name}: launches {launches}, expected "
-              f"{per_batch} per batch over {n_batches}")
+        check(wrapped == per(0), f"{cfg.model_type}/{cfg.dataset} {dtype_name}: the replays "
+              f"and samples launched {wrapped} through the wrappers")
+        replayed = dispatch_profile(lambda: reconstruct(model, batches[0]),
+                                    lambda: [reconstruct(model, b) for b in batches],
+                                    n_batches)["by_wrapper"]
+        check(replayed == events_of(per(1, **per_batch)),
+              f"{cfg.model_type}/{cfg.dataset} {dtype_name}: kernel records a replayed batch "
+              f"{replayed}, expected {per_batch}")
+        # a served batch runs no backward kernel: its records are its launches
+        launches = per(0) | {k: round(v * n_batches) for k, v in replayed.items()}
+        with torch.inference_mode():
+            eager = [model(b.to(model.device, model.dtype), deterministic_z=True)
+                     for b in batches]
+        differ = [f"batch {i} {k}" for i, (g, w) in enumerate(zip(outs, eager))
+                  for k, (a, b) in output_pairs(g, w).items()
+                  if a is None or b is None or not torch.equal(a, b)]
+        check(not differ, f"{cfg.model_type}/{cfg.dataset} {dtype_name}: the replays differ "
+              f"from the eager forward: {differ[:8]}")
+        holder = serve.graphs(model)
 
         for o in outs:
             d = o.decoded
@@ -1326,7 +1359,12 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
                 check(bool(torch.isfinite(t).all()), "sample outputs finite")
             check(bool(((drawn.adj >= 0) & (drawn.adj < K)).all()), "sampled adj classes")
 
-        res = {"launches": launches, "peak_allocated_bytes": peak}
+        res = {"launches": launches, "capture_launches": capture_launches,
+               "peak_allocated_bytes": peak,
+               "graphs": {"captures": holder.captures, "replays": holder.replays,
+                          "capture_s": holder.capture_s,
+                          "kernels_per_replay": holder.kernels_per_replay,
+                          "copies_per_replay": holder.copies_per_replay}}
         if dtype_name == "float32":
             ref_out = outs[0]
             # the same weights on the CPU, where the wrappers run the plain versions
@@ -1358,6 +1396,18 @@ def serve_phase(ml, mc, am, cfg, per_batch, dtypes=("float32", "bfloat16"),
                 lambda _: sample(model, sample_graphs, gen), [None] * n_batches)
         out[dtype_name] = res
     return out
+
+
+def output_pairs(got, want) -> dict:
+    """Each tensor of two ``ModelOutput``s, paired by name; a field None in
+    one and not in the other pairs with None."""
+    pairs = {}
+    for part in ("stats", "latents", "decoded"):
+        g, w = getattr(got, part), getattr(want, part)
+        for f in dataclasses.fields(w):
+            if getattr(g, f.name) is not None or getattr(w, f.name) is not None:
+                pairs[f"{part}.{f.name}"] = (getattr(g, f.name), getattr(w, f.name))
+    return pairs
 
 
 def held_to_cpu(got, want, scene) -> dict:
@@ -2536,10 +2586,13 @@ def run_blocked(ml, mc, am):
 def run_eval(ml, mc, am):
     """Held-out evaluation at synthetic2, disentangled, f32: Trainer.run for
     2 epochs with eval_every=1 on the test split (200 graphs), counted (2 +
-    2 launches per step and per eval batch; epoch 0 is not scored); the
-    best checkpoint and best.json; one evaluate_heldout alone, counted and
-    timed; its metrics against a CPU Trainer's on the same weights (edge
-    AUC/AP within 1e-4, the MSEs at rtol 1e-4, the same keys)."""
+    2 launches per step; the eval batches are ``serve.reconstruct``'s
+    replays, so the wrappers launch 2 + 2 at the first one's eager pass and
+    capture alone; epoch 0 is not scored); the best checkpoint and
+    best.json; one evaluate_heldout alone, timed, launching nothing through
+    the wrappers, its replays' kernel records 2 + 2 an eval batch; its
+    metrics against a CPU Trainer's on the same weights (edge AUC/AP within
+    1e-4, the MSEs at rtol 1e-4, the same keys)."""
     import tempfile
 
     from snd_vae_tpu_torch import train as tt
@@ -2558,9 +2611,9 @@ def run_eval(ml, mc, am):
         zero_counts(ml, mc, am)
         trainer.run(TRAIN_EPOCHS, verbose=False, per_step=True)
         launches = read_counts(ml, mc, am)
-        check(launches == per(steps + eval_batches, ml3=2, k3=2)
+        check(launches == per(steps + 2, ml3=2, k3=2)
               | {"motif_level3_backward": 2 * steps, "adj_matmul_backward": 2 * steps},
-              f"eval: launches {launches} over {steps} steps and {eval_batches} eval batches")
+              f"eval: launches {launches} over {steps} steps and the eval's capture")
         best_dir = Path(trainer.best_checkpointer.directory)
         best = json.loads((best_dir / "best.json").read_text())
         check(trainer.best_checkpointer.steps() == [best["epoch"]] == [1],
@@ -2570,9 +2623,14 @@ def run_eval(ml, mc, am):
         t0 = time.perf_counter()
         card = trainer.evaluate_heldout()
         res["evaluate_heldout_s"] = time.perf_counter() - t0
-        per_eval = read_counts(ml, mc, am)
-        check(per_eval == per(eval_batches, ml3=2, k3=2),
-              f"evaluate_heldout: launches {per_eval} over {eval_batches} batches")
+        wrapped = read_counts(ml, mc, am)
+        check(wrapped == per(0), f"evaluate_heldout: the replays launched {wrapped} through "
+              "the wrappers")
+        replayed = dispatch_profile(trainer.evaluate_heldout, trainer.evaluate_heldout,
+                                    eval_batches)["by_wrapper"]
+        check(replayed == events_of(per(1, ml3=2, k3=2)),
+              f"evaluate_heldout: kernel records an eval batch {replayed}")
+        per_eval = per(0) | {k: round(v * eval_batches) for k, v in replayed.items()}
         cpu_trainer = tt.Trainer(cfg, data, device="cpu", workdir=workdir + "/cpu",
                                  eval_batch=held)
         cpu_trainer.state.model.load_state_dict(trainer.state.model.state_dict())
@@ -4342,9 +4400,10 @@ def frontier_train(ml, mc, am, data, n, dt_name, remat, block_rows, epochs) -> d
 def frontier_serve(ml, mc, am, n: int) -> dict:
     """(f): serve.reconstruct of one batch (2 graphs x 2 trees) and
     serve.sample of 2 graphs at N, f32, from the seed weights: launches (2
-    of motif_level3 and 2 of adj_matmul a batch, none to sample), finite
-    outputs of the expected shapes, the peak memory and the wall ms of the
-    one call (the f32 steps at N have run these shapes before)."""
+    of motif_level3 and 2 of adj_matmul a batch, twice: the first call's
+    eager pass and capture; none to sample), finite outputs of the
+    expected shapes, the peak memory and the wall ms of the one call (the
+    f32 steps at N have run these shapes before)."""
     from snd_vae_tpu_torch.data.loaders import load_dataset
     from snd_vae_tpu_torch.models import build_model
     from snd_vae_tpu_torch.serve import reconstruct, sample
@@ -4357,7 +4416,7 @@ def frontier_serve(ml, mc, am, n: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
     res = {"N": n, "dtype": "float32", "batch": [B, cfg.sampling_num, n]}
     for name, fn, want in (
-            ("reconstruct", lambda: reconstruct(model, batch), per(1, ml3=2, k3=2)),
+            ("reconstruct", lambda: reconstruct(model, batch), per(2, ml3=2, k3=2)),
             ("sample", lambda: sample(model, B, gen), per(0))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

@@ -929,3 +929,104 @@ def test_cuda_stamped_graph_adds_its_stamps_alone(tmp_path, dtype):
     assert (phases <= extent).all() and (phases >= 0.9 * extent).all()
     for g in graphs:
         g.release()
+
+
+# --------------------------------------------------------------------------
+# Serving as CUDA-graph replays (serve.ServeGraphs)
+# --------------------------------------------------------------------------
+
+# the wrappers' launches a reconstructed batch, by case
+SERVE_KERNELS = {"synthetic2": {"motif_level3": 2, "adj_matmul": 2},
+                 "joint": {"motif_level3": 2},
+                 "protein": {"adj_matmul": 2, "motif_level4": 2}}
+
+
+def _serve_case(tmp_path, case):
+    """A model at full width from its seed and two test batches of
+    ``batch_size`` graphs."""
+    from snd_vae_tpu_torch.config import protein_preset, synthetic2_preset
+    from snd_vae_tpu_torch.data.loaders import load_dataset
+    from snd_vae_tpu_torch.models import build_model
+
+    path = str(tmp_path / "dataset")
+    cfg = (protein_preset(dataset_path=path) if case == "protein"
+           else synthetic2_preset(dataset_path=path))
+    if case == "joint":
+        cfg = cfg.with_(model_type="base")
+    B = cfg.train.batch_size
+    data = load_dataset(cfg, "test", num_graphs=2 * B, device="cuda")
+    return cfg, build_model(cfg, "cuda"), [data.slice_batch(0, B), data.slice_batch(B, B)]
+
+
+def _serve_launches():
+    return {"motif_level3": fused_motif_level3.launches, "adj_matmul": blocked_adj_matmul.launches,
+            "motif_level4": fused_motif_level4.launches}
+
+
+def _output_tensors(out):
+    from dataclasses import fields
+
+    return {f"{part}.{f.name}": getattr(getattr(out, part), f.name)
+            for part in ("stats", "latents", "decoded") for f in fields(getattr(out, part))
+            if getattr(getattr(out, part), f.name) is not None}
+
+
+@pytest.mark.parametrize("case", list(SERVE_KERNELS))
+def test_cuda_graphed_reconstruct_equals_eager(tmp_path, case):
+    """``serve.reconstruct`` through its captured encode and decode against
+    the eager forward (``model(batch, deterministic_z=True)``) on the card,
+    every output bit for bit: synthetic2 (K1, K3), the joint model (K1) and
+    protein (K3, K4).  One capture for the batches' one signature, the
+    wrappers launching at its eager pass and its capture alone, replays
+    launching none; the first batch's outputs unchanged by later calls."""
+    from snd_vae_tpu_torch import serve
+
+    _card()
+    _, model, batches = _serve_case(tmp_path, case)
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        eager = [model(b, deterministic_z=True) for b in batches]
+    before = _serve_launches()
+    got = [serve.reconstruct(model, batches[0])]
+    first = _serve_launches()
+    got += [serve.reconstruct(model, b) for b in (batches[1], batches[0])]
+    kept = {k: v.clone() for k, v in _output_tensors(got[0]).items()}
+    torch.cuda.synchronize()
+    assert _serve_launches() == first
+    assert {k: first[k] - before[k] for k in first} == {
+        k: 2 * SERVE_KERNELS[case].get(k, 0) for k in first}
+    for g, w in zip(got, eager + eager[:1]):
+        g, w = _output_tensors(g), _output_tensors(w)
+        assert g.keys() == w.keys() and all(torch.equal(g[k], w[k]) for k in g), case
+    assert all(torch.equal(v, kept[k]) for k, v in _output_tensors(got[0]).items())
+    holder = serve.graphs(model)
+    assert (holder.captures, holder.replays, len(holder.entries)) == (1, 3, 1)
+    assert holder.kernels_per_replay > sum(SERVE_KERNELS[case].values())
+    assert holder.capture_s > 0
+
+
+def test_cuda_test_reconstruct_writes_the_eager_arrays(tmp_path, monkeypatch):
+    """``cli.run_test_reconstruct`` on protein's test split (batches of 50
+    graphs) writes, through the replays, the arrays it writes through the
+    eager forward: the decoded graphs and the latent means, bit for bit."""
+    from snd_vae_tpu_torch import cli, serve
+
+    _card()
+    cfg, model, _ = _serve_case(tmp_path, "protein")
+    _, graphed = cli.run_test_reconstruct(cfg, model, str(tmp_path / "graphed"))
+    holder = serve.graphs(model)
+    assert holder.captures == 1 and holder.replays >= 2
+
+    def eager(m, batch):
+        with torch.inference_mode():
+            return m(batch.to(m.device, m.dtype), deterministic_z=True)
+
+    monkeypatch.setattr(cli, "reconstruct", eager)
+    _, plain = cli.run_test_reconstruct(cfg, model, str(tmp_path / "eager"))
+    assert graphed["num_reconstructed"] == plain["num_reconstructed"] >= 100
+    files = sorted(p.relative_to(tmp_path / "eager")
+                   for p in (tmp_path / "eager").rglob("*.npy"))
+    assert len(files) == 6
+    for f in files:
+        assert np.array_equal(np.load(tmp_path / "graphed" / f), np.load(tmp_path / "eager" / f),
+                              equal_nan=True), f
